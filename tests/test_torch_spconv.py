@@ -1,0 +1,122 @@
+"""The PyTorch port's sparse convs and point <-> voxel ops against the JAX
+package, on the CPU (K1 on the card: ``tests/test_torch_cuda.py``).
+
+f32 on both sides. The rulebook conv's reference is the JAX package's Pallas
+kernel (``spconv_kernel.rulebook_conv``, interpret mode on the CPU, as
+``tests/test_pallas_spconv.py`` runs it) where its TPU gate takes the width,
+and its XLA ``spconv.sparse_conv`` where it does not (Cin 384).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from u2mkd_tpu.data import plumbing_host as jax_plumbing_host
+from u2mkd_tpu.ops import spconv as jax_spconv
+from u2mkd_tpu.ops import voxelize as jax_voxelize
+from u2mkd_tpu.ops.pallas import spconv_kernel as jax_spk
+
+from u2mkd_tpu_torch.data import synthetic
+from u2mkd_tpu_torch.ops import spconv, voxelize
+from u2mkd_tpu_torch.ops.kernels import spconv_kernel
+
+# f32 sums over 27*Cin products in another order: a few ulps of the output
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _level(p=512, b=2, level=0, seed=0):
+    caps = (p, p // 2, p // 4, p // 8, p // 16)
+    raw = synthetic.make_batch(np.random.RandomState(seed), b, p, voxel_size=0.25)
+    return jax_plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                            caps), caps
+
+
+def _feats(rng, pl, level, cin):
+    vm = pl["vmask"][level].astype(bool)
+    x = rng.randn(*vm.shape, cin).astype(np.float32)
+    return np.where(vm[..., None], x, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("cin,cout,level", [(8, 16, 0), (32, 24, 1)])
+def test_rulebook_conv_matches_pallas(rng, cin, cout, level):
+    pl, _ = _level()
+    nbr = pl["nbr27"][level]
+    x = _feats(rng, pl, level, cin)
+    w = (rng.randn(27, cin, cout) * 0.1).astype(np.float32)
+    t = x.shape[1] // pl["cr27jn"][level].shape[-1]
+    ref = jax_spk.rulebook_conv(
+        jnp.asarray(x), jnp.asarray(w), jnp.swapaxes(jnp.asarray(nbr), 1, 2),
+        jnp.asarray(pl["cr27jl"][level]), jnp.asarray(pl["cr27jn"][level]),
+        jnp.asarray(pl["cr27kr"][level]), t)
+    out = spconv_kernel.rulebook_conv(torch.from_numpy(x), torch.from_numpy(w),
+                                      torch.from_numpy(nbr))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_sparse_conv_wide_input(rng):
+    """Cin 384 (``up0_res0``): a width the JAX kernel's TPU gate refuses; the
+    port's conv takes every width."""
+    assert not jax_spk.supported(384, 256)
+    pl, _ = _level(p=256, b=1)
+    nbr = pl["nbr27"][1][0]
+    x = _feats(rng, pl, 1, 384)[0]
+    w = (rng.randn(27, 384, 32) * 0.05).astype(np.float32)
+    ref = jax_spconv.sparse_conv(jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(w))
+    out = spconv.sparse_conv(torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_gather_rows_drops_both_conventions():
+    """-1 rows and rows >= V both give zero rows (a clip-only guard would
+    leak the last row)."""
+    feats = np.arange(12, dtype=np.float32).reshape(4, 3) + 1
+    rows = np.array([[0, -1, 3, 4, 9]], np.int32)
+    ref = jax_spconv.gather_rows(jnp.asarray(feats), jnp.asarray(rows))
+    out = spconv.gather_rows(torch.from_numpy(feats), torch.from_numpy(rows))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert (out[0, 1:2] == 0).all() and (out[0, 3:] == 0).all()
+
+
+def test_down_conv_matches_jax(rng):
+    pl, _ = _level(p=512, b=1)
+    nbr8 = pl["down8"][1][0]                       # [8, V1] rows of level 0
+    x = _feats(rng, pl, 0, 16)[0]
+    w = (rng.randn(8, 16, 24) * 0.1).astype(np.float32)
+    ref = jax_spconv.sparse_conv(jnp.asarray(x), jnp.asarray(nbr8), jnp.asarray(w))
+    out = spconv.down_conv(torch.from_numpy(x), torch.from_numpy(nbr8), torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_transposed_conv_matches_jax(rng):
+    pl, _ = _level(p=512, b=1)
+    parent, koff = pl["parent"][0][0], pl["koff"][0][0]   # level 0 -> its level-1 parent
+    x = _feats(rng, pl, 1, 12)[0]
+    w = (rng.randn(8, 12, 20) * 0.1).astype(np.float32)
+    ref = jax_spconv.sparse_conv_transposed_2x2(
+        jnp.asarray(x), jnp.asarray(parent), jnp.asarray(koff), jnp.asarray(w))
+    out = spconv.sparse_conv_transposed_2x2(
+        torch.from_numpy(x), torch.from_numpy(parent), torch.from_numpy(koff),
+        torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_point_voxel_transfer_matches_jax(rng):
+    """segment_mean (with the ``capacity`` drop bucket), point_to_voxel_mean
+    (-1 drops) and trilinear_devoxelize on the host plumbing's maps."""
+    pl, caps = _level(p=512, b=1)
+    p2v, dvi, dvw = pl["p2v"][1][0], pl["dvi"][1][0], pl["dvw"][1][0]
+    pf = rng.randn(len(p2v), 5).astype(np.float32)
+    seg = np.where(p2v >= 0, p2v, caps[1]).astype(np.int32)
+    ref = jax_voxelize.segment_mean(jnp.asarray(pf), jnp.asarray(seg), caps[1])
+    out = voxelize.segment_mean(torch.from_numpy(pf), torch.from_numpy(seg), caps[1])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    ref = jax_voxelize.point_to_voxel_mean(jnp.asarray(pf), jnp.asarray(p2v), caps[1])
+    out = voxelize.point_to_voxel_mean(torch.from_numpy(pf), torch.from_numpy(p2v), caps[1])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    vf = rng.randn(caps[1], 7).astype(np.float32)
+    ref = jax_voxelize.trilinear_devoxelize(jnp.asarray(vf), jnp.asarray(dvi), jnp.asarray(dvw))
+    out = voxelize.trilinear_devoxelize(torch.from_numpy(vf), torch.from_numpy(dvi),
+                                        torch.from_numpy(dvw))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+

@@ -1,0 +1,63 @@
+"""Fixed-capacity sparse structures, as plain dataclasses of tensors.
+
+Port of ``u2mkd_tpu/core/structures.py``. Every tensor carries a leading
+batch axis ``B``. The grids come from the host pipeline
+(``data/plumbing_host.py``), which resolves every voxel lookup, so no key
+tables are kept; the TPU conv tiling (``conv_jl/jn/kr``) has no counterpart,
+because the CUDA rulebook conv reads the rulebook directly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class VoxelGrid:
+    """The active voxels of one U-Net level, ``stride`` in finest-grid units.
+    Coordinates and counts stay on the host: the forward reads only the
+    mask."""
+
+    mask: torch.Tensor    # [B, V] bool
+    stride: int
+
+    @property
+    def capacity(self) -> int:
+        return self.mask.shape[-1]
+
+
+@dataclass
+class WindowGeom:
+    """Host-built window geometry of one attention branch at one level
+    (``data/wgeom_host.py``) over the flattened ``[B*V]`` voxel batch."""
+
+    order: torch.Tensor  # [pad_to] int64 gather order (pads -> row 0, own window)
+    inv: torch.Tensor    # [B*V] int64 inverse permutation
+    rank: torch.Tensor   # [pad_to] f32 dense window id in sorted order
+    quant: torch.Tensor  # [pad_to, 3] int32 quantized in-window coords (sorted)
+    kmin: torch.Tensor   # [pad_to / tile] int32 first key row of each query tile
+    kmax: torch.Tensor   # [pad_to / tile] int32 end of the tile's key rows
+    r: Optional[torch.Tensor] = None  # [pad_to] f32 range (sphere branch)
+
+
+@dataclass
+class LevelContext:
+    """Per-level rulebooks shared by every conv of the level.
+
+      nbr27:     [B, 27, V] int32 rows of the 3x3x3 neighbours (-1 absent),
+                 as the host pipeline builds them and the CUDA conv reads them;
+      down_nbr8: [B, 8, V] rows of the finer level feeding each voxel through
+                 the ks=2/s=2 conv (None at level 0);
+      up_parent: [B, V] row of the coarser level each voxel receives from in
+                 the transposed conv, with ``up_koff`` [B, V] its offset in
+                 [0, 8) (None at the deepest level).
+    """
+
+    grid: VoxelGrid
+    nbr27: torch.Tensor
+    down_nbr8: Optional[torch.Tensor] = None
+    up_parent: Optional[torch.Tensor] = None
+    up_koff: Optional[torch.Tensor] = None

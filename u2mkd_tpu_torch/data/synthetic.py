@@ -1,0 +1,125 @@
+"""Synthetic LiDAR-like scenes for tests and the chip smoke run.
+
+Port of ``make_scene`` and ``make_batch`` from ``u2mkd_tpu/data/synthetic.py``:
+a ground plane, a few box "vehicles", walls and a pole with consistent
+labels, drawn from a numpy ``RandomState`` so both packages see the same
+scans from one seed.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def make_scene(rng: np.random.RandomState, num_points: int, extent: float = 40.0):
+    """Returns (xyz [N,3] float32 metric, intensity [N,1], labels [N] int32).
+
+    Labels: 0 ignore/noise, 1 ground, 2 building, 3 vehicle, 4 pole.
+    """
+    n_ground = int(num_points * 0.5)
+    n_build = int(num_points * 0.2)
+    n_veh = int(num_points * 0.2)
+    n_pole = num_points - n_ground - n_build - n_veh
+
+    g_xy = (rng.rand(n_ground, 2) - 0.5) * extent
+    g = np.concatenate([g_xy, 0.05 * rng.randn(n_ground, 1)], 1)
+
+    walls = []
+    for _ in range(4):
+        cx, cy = (rng.rand(2) - 0.5) * extent * 0.8
+        w, h = 4 + 4 * rng.rand(), 3 + 3 * rng.rand()
+        n = n_build // 4
+        side = rng.randint(2)
+        x = cx + (rng.rand(n) - 0.5) * w if side else np.full(n, cx)
+        y = np.full(n, cy) if side else cy + (rng.rand(n) - 0.5) * w
+        z = rng.rand(n) * h
+        walls.append(np.stack([x, y, z], 1))
+    b = np.concatenate(walls)[:n_build]
+    if len(b) < n_build:
+        b = np.concatenate([b, b[: n_build - len(b)]])
+
+    vehs = []
+    for _ in range(5):
+        cx, cy = (rng.rand(2) - 0.5) * extent * 0.7
+        n = n_veh // 5
+        v = np.stack(
+            [
+                cx + (rng.rand(n) - 0.5) * 4.0,
+                cy + (rng.rand(n) - 0.5) * 1.8,
+                rng.rand(n) * 1.6,
+            ],
+            1,
+        )
+        vehs.append(v)
+    v = np.concatenate(vehs)[:n_veh]
+    if len(v) < n_veh:
+        v = np.concatenate([v, v[: n_veh - len(v)]])
+
+    px, py = (rng.rand(2) - 0.5) * extent * 0.9
+    p = np.stack(
+        [
+            px + 0.05 * rng.randn(n_pole),
+            py + 0.05 * rng.randn(n_pole),
+            rng.rand(n_pole) * 6.0,
+        ],
+        1,
+    )
+
+    xyz = np.concatenate([g, b, v, p]).astype(np.float32)
+    labels = np.concatenate(
+        [
+            np.full(n_ground, 1),
+            np.full(n_build, 2),
+            np.full(n_veh, 3),
+            np.full(n_pole, 4),
+        ]
+    ).astype(np.int32)
+    # sprinkle ignore labels
+    ign = rng.rand(num_points) < 0.02
+    labels[ign] = 0
+    intensity = rng.rand(num_points, 1).astype(np.float32)
+    perm = rng.permutation(num_points)
+    return xyz[perm], intensity[perm], labels[perm]
+
+
+def make_batch(
+    rng: np.random.RandomState,
+    batch_size: int,
+    num_points: int,
+    voxel_size: float = 0.2,
+) -> Dict[str, np.ndarray]:
+    """Padded fixed-shape batch in the framework's feed format; every point
+    is a keyframe point (the JAX version's ``num_sweep_factor=1``)."""
+    b = batch_size
+    p = num_points
+    pcoords = np.zeros((b, p, 3), np.float32)
+    xyz = np.zeros((b, p, 3), np.float32)
+    feats = np.zeros((b, p, 4), np.float32)
+    labels = np.zeros((b, p), np.int32)
+    pmask = np.zeros((b, p), bool)
+    kf_mask = np.zeros((b, p), bool)
+    for i in range(b):
+        n = int(p * (0.85 + 0.15 * rng.rand()))
+        sxyz, inten, lab = make_scene(rng, n)
+        # quantize like the dataset pipeline: coords relative to min
+        vox = np.round(sxyz / voxel_size).astype(np.int64)
+        vox -= vox.min(0)
+        # first-occurrence dedup (sparse_quantize semantics)
+        _, inds = np.unique(
+            vox.view([("x", "i8"), ("y", "i8"), ("z", "i8")]).reshape(-1),
+            return_index=True,
+        )
+        inds = np.sort(inds)[: p]
+        m = len(inds)
+        pcoords[i, :m] = vox[inds]
+        xyz[i, :m] = sxyz[inds]
+        feats[i, :m] = np.concatenate([sxyz[inds], inten[inds]], 1)
+        labels[i, :m] = lab[inds]
+        pmask[i, :m] = True
+        kf_mask[i, :m] = True
+    return dict(
+        pcoords=pcoords, xyz=xyz, feats=feats, labels=labels,
+        pmask=pmask, keyframe_mask=kf_mask,
+    )

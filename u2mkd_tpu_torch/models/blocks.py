@@ -1,0 +1,208 @@
+"""Building blocks of the sparse U-Net models.
+
+Port of ``u2mkd_tpu/models/blocks.py``. Feature tensors are ``[B, V, C]``
+with a validity mask ``[B, V]``. Submodules are named after the flax tree
+they mirror (``SparseConv_i`` -> ``conv{i}``, ``MaskedBatchNorm_i`` ->
+``bn{i}``, ``Dense_i`` -> ``fc{i}``), so ``models/convert_weights.py`` is a
+plain rename.
+
+Every ks=3 stride-1 conv runs through kernel K1 (``rulebook_conv``) at every
+width; ``plain = True`` on a :class:`SparseConv` runs its plain version
+instead, on any device (the reference a card run is held against).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from u2mkd_tpu_torch.core.structures import LevelContext
+from u2mkd_tpu_torch.ops import spconv
+from u2mkd_tpu_torch.ops.kernels import spconv_kernel
+from u2mkd_tpu_torch.ops.precision import cast_compute
+
+
+def _uniform_(t: torch.Tensor, bound: float, generator) -> torch.Tensor:
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the valid rows of [B, V, C]: momentum 0.1, eps 1e-5,
+    biased batch variance to normalize, unbiased for the running estimate.
+    Masked rows come out zero."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            m = mask[..., None].to(x.dtype)
+            cnt = m.sum().clamp(min=1.0)
+            mean = (x * m).sum((0, 1)) / cnt
+            var = ((x * x * m).sum((0, 1)) / cnt - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return torch.where(mask[..., None], y, 0.0)
+
+
+class SparseConv(nn.Module):
+    """Stride-1 sparse conv, ks in {1, 3}; kernel [K, Cin, Cout] initialized
+    uniform(+-1/sqrt(K*Cin)) as torchsparse does."""
+
+    def __init__(self, in_ch: int, out_ch: int, ks: int = 3, generator=None):
+        super().__init__()
+        k = spconv.kernel_offsets(ks).shape[0]
+        self.ks = ks
+        self.plain = False
+        self.kernel = nn.Parameter(torch.empty(k, in_ch, out_ch))
+        _uniform_(self.kernel, (k * in_ch) ** -0.5, generator)
+
+    def forward(self, feats: torch.Tensor, level: Optional[LevelContext]) -> torch.Tensor:
+        w = self.kernel
+        if self.ks == 1:
+            return torch.einsum("bvc,cd->bvd", feats, w[0])
+        f, wc = cast_compute(feats, w)
+        if self.plain:
+            out = spconv_kernel.rulebook_conv_plain(f, wc, level.nbr27)
+        else:
+            out = spconv_kernel.rulebook_conv(f, wc, level.nbr27)
+        return out.to(feats.dtype)
+
+
+class SparseDownConv(nn.Module):
+    """ks=2 / stride=2 downsample conv: finer level -> this level."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(8, in_ch, out_ch))
+        _uniform_(self.kernel, (8 * in_ch) ** -0.5, generator)
+
+    def forward(self, feats: torch.Tensor, down_nbr8: torch.Tensor) -> torch.Tensor:
+        return torch.stack([spconv.down_conv(f, n, self.kernel)
+                            for f, n in zip(feats, down_nbr8)])
+
+
+class SparseDeconv(nn.Module):
+    """ks=2 / stride=2 transposed conv onto the cached finer coords; the init
+    bound uses the out channels, as torchsparse's transposed conv does."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(8, in_ch, out_ch))
+        _uniform_(self.kernel, (8 * out_ch) ** -0.5, generator)
+
+    def forward(self, feats, up_parent, up_koff) -> torch.Tensor:
+        return torch.stack([
+            spconv.sparse_conv_transposed_2x2(f, p, k, self.kernel)
+            for f, p, k in zip(feats, up_parent, up_koff)])
+
+
+class SparseConvBlock(nn.Module):
+    """conv-BN-ReLU; stride 2 uses the down rulebook of the next level."""
+
+    def __init__(self, in_ch: int, out_ch: int, ks: int = 3, stride: int = 1,
+                 generator=None):
+        super().__init__()
+        self.stride = stride
+        if stride == 1:
+            self.conv0 = SparseConv(in_ch, out_ch, ks, generator)
+        else:
+            self.conv0 = SparseDownConv(in_ch, out_ch, generator)
+        self.bn0 = MaskedBatchNorm(out_ch)
+
+    def forward(self, feats, level: LevelContext, down_nbr8=None, out_mask=None):
+        if self.stride == 1:
+            x, mask = self.conv0(feats, level), level.grid.mask
+        else:
+            x, mask = self.conv0(feats, down_nbr8), out_mask
+        return torch.relu(self.bn0(x, mask))
+
+
+class SparseDeconvBlock(nn.Module):
+    """deconv-BN-ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.conv0 = SparseDeconv(in_ch, out_ch, generator)
+        self.bn0 = MaskedBatchNorm(out_ch)
+
+    def forward(self, feats, up_parent, up_koff, out_mask):
+        return torch.relu(self.bn0(self.conv0(feats, up_parent, up_koff), out_mask))
+
+
+class SparseResBlock(nn.Module):
+    """conv-BN-ReLU-conv-BN plus a shortcut, then ReLU. The shortcut is the
+    identity when the widths agree, else a 1x1 conv-BN (``conv2``/``bn2``,
+    the third conv and norm in flax's numbering)."""
+
+    def __init__(self, in_ch: int, out_ch: int, ks: int = 3, generator=None):
+        super().__init__()
+        self.conv0 = SparseConv(in_ch, out_ch, ks, generator)
+        self.bn0 = MaskedBatchNorm(out_ch)
+        self.conv1 = SparseConv(out_ch, out_ch, ks, generator)
+        self.bn1 = MaskedBatchNorm(out_ch)
+        if in_ch != out_ch:
+            self.conv2 = SparseConv(in_ch, out_ch, 1, generator)
+            self.bn2 = MaskedBatchNorm(out_ch)
+
+    def forward(self, feats, level: LevelContext):
+        mask = level.grid.mask
+        x = torch.relu(self.bn0(self.conv0(feats, level), mask))
+        x = self.bn1(self.conv1(x, level), mask)
+        short = self.bn2(self.conv2(feats, None), mask) if hasattr(self, "conv2") else feats
+        return torch.relu(x + short)
+
+
+def dense(in_ch: int, out_ch: int, generator=None, bias: bool = True) -> nn.Linear:
+    """A linear layer initialized as flax ``nn.Dense``: lecun-normal weight
+    (truncated normal, std 1/sqrt(in) over its truncation), zero bias."""
+    lin = nn.Linear(in_ch, out_ch, bias=bias)
+    with torch.no_grad():
+        std = (1.0 / in_ch) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        if bias:
+            lin.bias.zero_()
+    return lin
+
+
+class PointMLP(nn.Module):
+    """Linear-BN-ReLU on per-point features."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.fc0 = dense(in_ch, out_ch, generator)
+        self.bn0 = MaskedBatchNorm(out_ch)
+
+    def forward(self, feats, mask):
+        return torch.relu(self.bn0(self.fc0(feats), mask))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm ``DropPath``); identity in eval."""
+
+    def __init__(self, rate: float, generator=None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        draw = torch.rand(shape, generator=self.generator, device=x.device)
+        return torch.where(draw < keep, x / keep, 0.0)

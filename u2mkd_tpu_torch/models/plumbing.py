@@ -1,0 +1,115 @@
+"""Per-forward index plumbing of the point-voxel U-Net, on the device.
+
+Port of the host-precomputed half of ``u2mkd_tpu/models/plumbing.py``: the
+arrays of ``data/plumbing_host.py`` are moved to the device once per
+request and assembled into :class:`UNetPlumbing`; the point <-> voxel
+transfers are batched over the leading axis.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.core.structures import LevelContext, VoxelGrid, WindowGeom
+from u2mkd_tpu_torch.ops import voxelize
+
+
+# Levels at which SPVCNN's point branch meets the voxels (voxelize and
+# devoxelize); the point maps of the other levels stay on the host.
+POINT_LEVELS = (0, 2, 4)
+
+
+@dataclass
+class UNetPlumbing:
+    levels: Tuple[LevelContext, ...]      # grids + rulebooks per level
+    # [L] x [B, P] point -> voxel row (-1 none), [B, P, 8] trilinear rows and
+    # weights; None at levels outside POINT_LEVELS
+    p2v: Tuple[Optional[torch.Tensor], ...]
+    devox_idx: Tuple[Optional[torch.Tensor], ...]
+    devox_w: Tuple[Optional[torch.Tensor], ...]
+    pmask: torch.Tensor                   # [B, P] bool
+    p2v0_feats_seg: torch.Tensor          # [B, P] segment ids of the first voxelize
+    # window geometry of encoder levels 1..4:
+    # {"cubic": (WindowGeom, ...), "sphere": (...)}
+    wgeom: Optional[Dict[str, Tuple[WindowGeom, ...]]] = None
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def _window_geom_from_arrays(g: dict, device) -> WindowGeom:
+    """WindowGeom from one branch's host arrays at one level."""
+    return WindowGeom(
+        order=_tensor(g["order"], device, torch.int64),
+        inv=_tensor(g["inv"], device, torch.int64),
+        rank=_tensor(g["rank"], device, torch.float32),
+        quant=_tensor(g["quant"], device, torch.int32),
+        kmin=_tensor(g["kmin"], device, torch.int32),
+        kmax=_tensor(g["kmax"], device, torch.int32),
+        r=_tensor(g["r"], device, torch.float32) if "r" in g else None)
+
+
+def from_precomputed(arrays: Dict, pmask,
+                     device: Optional[Union[str, torch.device]] = None) -> UNetPlumbing:
+    """Assemble a UNetPlumbing on ``device`` (CUDA unless asked otherwise)
+    from host arrays (``data/plumbing_host.batch_plumbing``): each entry is a
+    list over levels of [B, ...] arrays. Only what the forward reads is
+    copied to the device."""
+    dev = resolve_device(device)
+    n_levels = len(arrays["vmask"])
+    levels = []
+    for li in range(n_levels):
+        last = li == n_levels - 1
+        levels.append(LevelContext(
+            grid=VoxelGrid(mask=_tensor(arrays["vmask"][li], dev, torch.bool),
+                           stride=1 << li),
+            nbr27=_tensor(arrays["nbr27"][li], dev, torch.int32),
+            down_nbr8=_tensor(arrays["down8"][li], dev, torch.int32) if li else None,
+            up_parent=None if last else _tensor(arrays["parent"][li], dev, torch.int32),
+            up_koff=None if last else _tensor(arrays["koff"][li], dev, torch.int32)))
+
+    def point_maps(key, dtype):
+        return tuple(_tensor(x, dev, dtype) if li in POINT_LEVELS else None
+                     for li, x in enumerate(arrays[key]))
+
+    p2v = point_maps("p2v", torch.int32)
+    cap0 = levels[0].grid.capacity
+    wgeom = None
+    if "wgeom" in arrays:
+        wgeom = {branch: tuple(_window_geom_from_arrays(g, dev) for g in geoms)
+                 for branch, geoms in arrays["wgeom"].items()}
+    return UNetPlumbing(
+        levels=tuple(levels), p2v=p2v,
+        devox_idx=point_maps("dvi", torch.int32),
+        devox_w=point_maps("dvw", torch.float32),
+        pmask=_tensor(pmask, dev, torch.bool),
+        p2v0_feats_seg=torch.where(p2v[0] >= 0, p2v[0], cap0),
+        wgeom=wgeom)
+
+
+def level_geom(pl: UNetPlumbing, idx: int):
+    """Window geometry of encoder stage ``idx`` (U-Net level idx+1)."""
+    if pl.wgeom is None:
+        return None
+    return {branch: pl.wgeom[branch][idx] for branch in pl.wgeom}
+
+
+def point_to_voxel(pfeats: torch.Tensor, p2v: torch.Tensor,
+                   capacity: int) -> torch.Tensor:
+    """Batched scatter-mean of point features [B, P, C] onto voxel rows."""
+    return torch.stack([voxelize.point_to_voxel_mean(f, m, capacity)
+                        for f, m in zip(pfeats, p2v)])
+
+
+def voxel_to_point(vfeats: torch.Tensor, idx8: torch.Tensor,
+                   w8: torch.Tensor) -> torch.Tensor:
+    """Batched trilinear devoxelize [B, V, C] -> [B, P, C]."""
+    return torch.stack([voxelize.trilinear_devoxelize(f, i, w)
+                        for f, i, w in zip(vfeats, idx8, w8)])

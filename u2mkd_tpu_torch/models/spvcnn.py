@@ -1,0 +1,162 @@
+"""SPVCNN + SphereFormer: the sparse point-voxel U-Net teacher.
+
+Port of ``u2mkd_tpu/models/spvcnn.py`` with ``sphereformer=True`` and the
+host-geometry attention path: stem (2x ks3 conv) -> 4 encoder stages (ks2/s2
+down conv + 2 residual blocks + a SphereFormer block) -> 4 decoder stages
+(transposed conv + skip concat + 2 residual blocks), three point-stream MLP
+fusions, dropout before decoder stages 1 and 3, and a per-point classifier.
+The attribute names mirror the flax module names.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.models import blocks
+from u2mkd_tpu_torch.models import plumbing as P
+from u2mkd_tpu_torch.models.plumbing import UNetPlumbing, point_to_voxel, voxel_to_point
+from u2mkd_tpu_torch.models.sphereformer import SphereAttention, SphereFormerBlock
+
+
+class SPVCNN(nn.Module):
+    def __init__(self, num_classes: int = 17, cr: float = 1.0, in_channel: int = 4,
+                 base_channels: Tuple[int, ...] = (32, 32, 64, 128, 256, 256, 128, 96, 96),
+                 dropout_rate: float = 0.3,
+                 window_size=(0.3, 0.3, 0.3), window_size_sphere=(2.0, 2.0, 120.0),
+                 quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
+                 window_size_scale=(2.0, 1.5), drop_path_rate: float = 0.3,
+                 sphere_a: float = 0.0125, head_dim: int = 16,
+                 return_point_feats: bool = False, generator=None):
+        super().__init__()
+        self.cr, self.head_dim = cr, head_dim
+        self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
+        self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
+        self.window_size_scale = tuple(window_size_scale)
+        self.return_point_feats = return_point_feats
+        cs = [int(cr * x) for x in base_channels]
+        gen = generator
+
+        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, generator=gen)
+        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, generator=gen)
+        dpr = [float(x) for x in np.linspace(0, drop_path_rate, 7)]
+        ws, qs = list(window_size), list(quant_size)
+        wss, qss = list(window_size_sphere), list(quant_size_sphere)
+        wsc, wss_scale = window_size_scale
+        for idx in range(4):
+            setattr(self, f"down{idx}_conv",
+                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, generator=gen))
+            setattr(self, f"down{idx}_res0",
+                    blocks.SparseResBlock(cs[idx], cs[idx + 1], generator=gen))
+            setattr(self, f"down{idx}_res1",
+                    blocks.SparseResBlock(cs[idx + 1], cs[idx + 1], generator=gen))
+            setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
+                dim=cs[idx + 1], num_heads=cs[idx + 1] // head_dim,
+                window_size=tuple(ws), window_size_sphere=tuple(wss),
+                quant_size=tuple(qs), quant_size_sphere=tuple(qss),
+                drop_path=dpr[idx + 1], a=sphere_a, generator=gen))
+            ws = [w * wsc for w in ws]
+            qs = [q * wsc for q in qs]
+            wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
+            qss = [qss[0] * wss_scale, qss[1] * wss_scale, qss[2]]
+
+        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], generator=gen)
+        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], generator=gen)
+        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], generator=gen)
+        skips = (cs[3], cs[2], cs[1], cs[0])
+        for i in range(4):
+            cin, cout = cs[4 + i], cs[5 + i]
+            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, generator=gen))
+            setattr(self, f"up{i}_res0",
+                    blocks.SparseResBlock(cout + skips[i], cout, generator=gen))
+            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, generator=gen))
+        self.dropout = nn.Dropout(dropout_rate)
+        self.classifier_vox = blocks.dense(cs[8], num_classes, gen)
+
+    def set_plain(self, plain: bool) -> None:
+        """Run the kernels' plain versions (True) or the kernels (False) on
+        any device: the reference mode a card run is checked against."""
+        for m in self.modules():
+            if isinstance(m, (blocks.SparseConv, SphereAttention)):
+                m.plain = plain
+
+    def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing):
+        """pfeats [B, P, Cin] -> {"x_vox": [B, P, num_classes]} (and
+        "pts_feats", the stage-4 features at the points, when
+        ``return_point_feats``)."""
+        lv = plumbing.levels
+        pmask = plumbing.pmask
+        caps = [l.grid.capacity for l in lv]
+
+        x0 = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, caps[0])
+        x0 = self.stem0(x0, lv[0])
+        x0 = self.stem1(x0, lv[0])
+        z0 = voxel_to_point(x0, plumbing.devox_idx[0], plumbing.devox_w[0])
+
+        vox_feats = [point_to_voxel(z0, plumbing.p2v[0], caps[0])]
+        for idx in range(4):
+            f = getattr(self, f"down{idx}_conv")(
+                vox_feats[idx], lv[idx], down_nbr8=lv[idx + 1].down_nbr8,
+                out_mask=lv[idx + 1].grid.mask)
+            f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
+            f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
+            f = getattr(self, f"sphereformer{idx + 1}")(
+                f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx))
+            vox_feats.append(f)
+        x1, x2, x3, x4 = vox_feats[1:]
+
+        x4_pts = voxel_to_point(x4, plumbing.devox_idx[4], plumbing.devox_w[4])
+        z1 = x4_pts + self.point_transform0(z0, pmask)
+
+        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]))
+        y1 = self.up0_deconv(y1, lv[3].up_parent, lv[3].up_koff, lv[3].grid.mask)
+        y1 = torch.cat([y1, x3], dim=-1)
+        y1 = self.up0_res1(self.up0_res0(y1, lv[3]), lv[3])
+
+        y2 = self.up1_deconv(y1, lv[2].up_parent, lv[2].up_koff, lv[2].grid.mask)
+        y2 = torch.cat([y2, x2], dim=-1)
+        y2 = self.up1_res1(self.up1_res0(y2, lv[2]), lv[2])
+        z2 = voxel_to_point(y2, plumbing.devox_idx[2], plumbing.devox_w[2])
+        z2 = z2 + self.point_transform1(z1, pmask)
+
+        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]))
+        y3 = self.up2_deconv(y3, lv[1].up_parent, lv[1].up_koff, lv[1].grid.mask)
+        y3 = torch.cat([y3, x1], dim=-1)
+        y3 = self.up2_res1(self.up2_res0(y3, lv[1]), lv[1])
+
+        y4 = self.up3_deconv(y3, lv[0].up_parent, lv[0].up_koff, lv[0].grid.mask)
+        y4 = torch.cat([y4, x0], dim=-1)
+        y4 = self.up3_res1(self.up3_res0(y4, lv[0]), lv[0])
+        z3 = voxel_to_point(y4, plumbing.devox_idx[0], plumbing.devox_w[0])
+        z3 = z3 + self.point_transform2(z2, pmask)
+
+        out = {"x_vox": self.classifier_vox(z3)}
+        if self.return_point_feats:
+            # the stage-4 encoder output at the points: the tensor the decoder
+            # takes as z1's base, exported for knowledge distillation
+            out["pts_feats"] = x4_pts
+        return out
+
+
+def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.1,
+                  head_dim: int = 16, seed: int = 0,
+                  device: Optional[Union[str, torch.device]] = None,
+                  return_point_feats: bool = False) -> SPVCNN:
+    """The flagship teacher (``__graft_entry__._teacher_model``): windows of
+    6 voxels quantized in 24 steps, sphere windows [2 deg, 2 deg, 120 m],
+    both doubling per level. Random weights from ``seed``, in eval mode, on
+    ``device`` (CUDA unless asked otherwise)."""
+    dev = resolve_device(device)
+    ws = voxel_size * 6
+    gen = torch.Generator().manual_seed(seed)
+    model = SPVCNN(
+        num_classes=num_classes, cr=cr, window_size=(ws, ws, ws),
+        quant_size=(ws / 24, ws / 24, ws / 24), window_size_sphere=(2.0, 2.0, 120.0),
+        quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
+        drop_path_rate=0.3, sphere_a=0.0125, head_dim=head_dim,
+        return_point_feats=return_point_feats, generator=gen)
+    return model.to(dev).eval()
