@@ -6,10 +6,11 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``); it builds the kernels
 from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
 
   1. env: the card (``nvidia-smi``), torch and CUDA versions, kernel build time;
-  2. kernels: each kernel against its plain PyTorch version on the card, f32
-     and bf16, on a small random case and at the main path's real shapes,
-     with errors, tolerances and CUDA-event times (and, at the real shapes,
-     the bound: the least time the card could take for the same work);
+  2. kernels: each kernel (K1 forward and as the input gradient, K1b, K3,
+     K4, K5) against its plain PyTorch version on the card, f32 and bf16, on
+     a small random case and at the main path's real shapes, with errors,
+     tolerances and CUDA-event times (and, at the real shapes, the bound:
+     the least time the card could take for the same work);
   3. main path: three teacher inference requests (SPVCNN + SphereFormer,
      cr=1.0, P=131072, B=1) through ``train.state.make_eval_step``, counting
      kernel launches;
@@ -17,7 +18,17 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      kernel, and the device's busy share against the unprofiled requests'
      CUDA-event time, so that no cost of the profiler counts as idle time;
   5. plain check: one request through the plain versions on the card for
-     the agreement of predictions.
+     the agreement of predictions;
+  6. train: three teacher train steps (cr=1.0, P=131072, B=1, dropout and
+     drop path at their config rates from a seeded device generator,
+     ``sgd_spformer`` at lr 0.02) through ``train.state.make_train_step``,
+     with host ms, device ms, loss and launches per step and the peak
+     device memory; then two more steps under ``torch.profiler``, device
+     time by kernel;
+  7. grad check: every kernel launch of one train step against its plain
+     version on the same arguments; and one step through the kernels and
+     one through the plain versions from one copy of the weights and one
+     generator seed: the loss and every parameter's gradient.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -25,7 +36,9 @@ non-zero without that line. Long outputs (the compiler's register counts,
 the profiler's table) go to ``chiprun_out/``.
 """
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,7 +54,37 @@ SEEDS = (11, 12, 13)
 PROFILED_REQUESTS = 3
 # device kernels named apart in the profile; everything else by its own name
 PROFILE_GROUPS = {"rulebook_conv_kernel": "K1 rulebook_conv",
-                  "wattn_rpe_fwd_kernel": "K3 wattn_rpe_fwd"}
+                  "rulebook_conv_dw_kernel": "K1b rulebook_conv_dw",
+                  "sum_splits_kernel": "K1b sum_splits",
+                  "wattn_rpe_fwd_kernel": "K3 wattn_rpe_fwd",
+                  "wattn_rpe_bwd_q_kernel": "K4 wattn_rpe_bwd_q",
+                  "wattn_rpe_bwd_k_kernel": "K5 wattn_rpe_bwd_k"}
+TRAIN_SEEDS = (21, 22, 23)
+PROFILED_STEPS = 2
+LR = 0.02
+# launches per train step: 34 ks=3 convs forward, 33 input gradients (the
+# stem's first conv takes the point features, which need none), 34 weight
+# gradients; 8 attention branches (4 levels x 2) forward, and K4 and K5 once
+# each per branch in the backward
+TRAIN_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 33, "rulebook_conv_dw": 34,
+                  "flash_rpe_fwd": 8, "flash_rpe_bwd_q": 8, "flash_rpe_bwd_k": 8}
+# Kernel step against plain step on the card, whole-step gradients. They
+# move with rounding: a ReLU that flips when an activation moves by one f32
+# ulp moves a weight gradient (a sum over ~10^5 voxels of terms of either
+# sign) by about one term, ~1/sqrt(V) of it. So the run measures that
+# spread itself: one more plain step from the weights times (1 + 2^-23
+# N(0, 1)), about one ulp, and the kernel step may differ from the plain one
+# by GRAD_SPREADS times that spread, or GRAD_RTOL, whichever is larger.
+# Differences are per parameter, max |difference| over the parameter's
+# largest gradient entry, the scale floored at GRAD_FLOOR of the model's
+# largest entry (a bias before batch-stat BN has a true gradient of 0, and
+# both sides give f32 noise there). The loss agrees to GRAD_LOSS_RTOL. The
+# tight check is per launch: each kernel launch of the step against its
+# plain version on the same arguments, to TOL.
+GRAD_LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-3
+GRAD_SPREADS = 4.0
+GRAD_FLOOR = 1e-3
 F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12    # H100 SXM dense bf16 FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -49,8 +92,17 @@ HBM_BYTES_S = 3.35e12
 # over 27*Cin terms, K3 over a window's keys); bf16 K1 also rounds its
 # output to bf16 (2^-9 relative) while the plain version rounds once more
 # at a different point. K3 computes in f32 from the same bf16 inputs.
+# K1 as the input gradient is the same kernel (1e-4, 1e-2). K1b sums over
+# all V rows of an offset in f32 from the same (f32 or bf16) inputs as its
+# plain version and returns f32: 1e-4 either way. K4 and K5 compute in f32
+# from the same inputs and return f32; each of their outputs is held to 1e-4
+# of its own largest entry.
 TOL = {("rulebook_conv", "f32"): 1e-4, ("rulebook_conv", "bf16"): 1e-2,
-       ("flash_rpe_sorted", "f32"): 1e-4, ("flash_rpe_sorted", "bf16"): 1e-4}
+       ("rulebook_conv_dx", "f32"): 1e-4, ("rulebook_conv_dx", "bf16"): 1e-2,
+       ("rulebook_conv_dw", "f32"): 1e-4, ("rulebook_conv_dw", "bf16"): 1e-4,
+       ("flash_rpe_fwd", "f32"): 1e-4, ("flash_rpe_fwd", "bf16"): 1e-4,
+       ("flash_rpe_bwd_q", "f32"): 1e-4, ("flash_rpe_bwd_q", "bf16"): 1e-4,
+       ("flash_rpe_bwd_k", "f32"): 1e-4, ("flash_rpe_bwd_k", "bf16"): 1e-4}
 OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
 
@@ -116,25 +168,41 @@ def host_batch(seed, model):
     return raw, (time.perf_counter() - t0) * 1e3
 
 
-def _compare(name, dtype, case, kernel, plain, bound):
+def _errors(outs, refs):
+    """(largest |out - ref|, largest such error over its max |ref|) over
+    pairs of tensors; inf where any value is NaN or inf."""
+    err, rel = 0.0, 0.0
+    for out, ref in zip(outs, refs):
+        ref = ref.float()
+        e = (out.float() - ref).abs().max().item()
+        r = e / max(ref.abs().max().item(), 1e-30)
+        err = max(err, e if math.isfinite(e) else math.inf)
+        rel = max(rel, r if math.isfinite(r) else math.inf)
+    return err, rel
+
+
+def _compare(name, dtype, case, kernel, plain, bound, plain_ms=None):
+    """Run ``kernel`` and ``plain`` (each returning a tensor or a tuple of
+    tensors), hold every output of the kernel to TOL of the largest entry of
+    the plain one, then time both (the plain one unless its time comes as
+    ``plain_ms``)."""
     import torch
 
-    out_k = kernel()
-    out_p = plain()
+    outs_k, outs_p = kernel(), plain()
+    if torch.is_tensor(outs_k):
+        outs_k, outs_p = (outs_k,), (outs_p,)
     torch.cuda.synchronize()
-    ref = out_p.float()
-    err = (out_k.float() - ref).abs().max().item()
-    scale = ref.abs().max().item()
     tol = TOL[(name, dtype)]
+    err, rel = _errors(outs_k, outs_p)
     row = {"kernel": name, "dtype": dtype, "case": case,
-           "shape": list(out_k.shape), "max_abs_err": err,
-           "max_rel_err": err / max(scale, 1e-30), "tol_rel": tol,
-           "finite": bool(torch.isfinite(out_k).all().item())}
-    if not row["finite"] or err > tol * max(scale, 1e-30):
+           "shape": [list(o.shape) for o in outs_k] if len(outs_k) > 1 else list(outs_k[0].shape),
+           "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
+           "finite": all(bool(torch.isfinite(o).all().item()) for o in outs_k)}
+    if not rel <= tol:
         raise AssertionError(f"{name} {dtype} {case} disagrees with its plain "
                              f"version: {row}")
     row["ms"] = cuda_ms(kernel)
-    row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+    row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1) if plain_ms is None else plain_ms
     if case == "main_path":
         row.update(bound)
     return row
@@ -149,7 +217,9 @@ def _bound(nbytes, flops, peak):
 
 def conv_cases(level0):
     """K1 at the largest launch of the main path (level 0, Cin 128 -> Cout
-    96: up3_res0's first conv) on the real rulebook, and a small case."""
+    96: up3_res0's first conv) on the real rulebook, and a small case; K1 as
+    that conv's input gradient (96 -> 128 with the reversed weights) and
+    K1b, its weight gradient, likewise."""
     import torch
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as K
 
@@ -162,25 +232,43 @@ def conv_cases(level0):
     n_valid = int(((nbr27 >= 0) & (nbr27 < v)).sum())
     small_nbr = torch.randint(-1, 310, (2, 27, 300), device=dev, generator=gen,
                               dtype=torch.int32)  # includes -1 and >= V rows
+    small_valid = int(((small_nbr >= 0) & (small_nbr < 300)).sum())
     for dtype, tag, peak in ((torch.float32, "f32", F32_PEAK),
                              (torch.bfloat16, "bf16", BF16_PEAK)):
-        for case, nbr, cin, cout, vmask in (
-                ("small", small_nbr, 40, 72, None),
-                ("main_path", nbr27, 128, 96, mask)):
+        for case, nbr, cin, cout, vmask, nv in (
+                ("small", small_nbr, 40, 72, None, small_valid),
+                ("main_path", nbr27, 128, 96, mask, n_valid)):
             b, k, vv = nbr.shape
-            x = torch.randn(b, vv, cin, device=dev, generator=gen)
-            if vmask is not None:
-                x = torch.where(vmask[..., None], x, 0.0)
-            w = (torch.rand(k, cin, cout, device=dev, generator=gen) * 2 - 1) \
-                * (k * cin) ** -0.5
-            x, w = x.to(dtype).contiguous(), w.to(dtype).contiguous()
+
+            def rand(*shape):
+                t = torch.randn(*shape, device=dev, generator=gen)
+                if vmask is not None:
+                    t = torch.where(vmask[..., None], t, 0.0)
+                return t.to(dtype).contiguous()
+
+            x, g = rand(b, vv, cin), rand(b, vv, cout)
+            w = ((torch.rand(k, cin, cout, device=dev, generator=gen) * 2 - 1)
+                 * (k * cin) ** -0.5).to(dtype).contiguous()
             es = x.element_size()
-            bound = _bound(es * (x.numel() + w.numel() + b * vv * cout) + 4 * nbr.numel(),
-                           2.0 * cin * cout * n_valid, peak)
+            flops = 2.0 * cin * cout * nv
             rows.append(_compare(
                 "rulebook_conv", tag, case,
                 lambda: K.rulebook_conv(x, w, nbr),
-                lambda: K.rulebook_conv_plain(x, w, nbr), bound))
+                lambda: K.rulebook_conv_plain(x, w, nbr),
+                _bound(es * (x.numel() + w.numel() + b * vv * cout) + 4 * nbr.numel(),
+                       flops, peak)))
+            rows.append(_compare(
+                "rulebook_conv_dx", tag, case,
+                lambda: K.rulebook_conv_dx(g, w, nbr),
+                lambda: K.rulebook_conv_plain(g, K.reversed_weights(w), nbr),
+                _bound(es * (g.numel() + w.numel() + b * vv * cin) + 4 * nbr.numel(),
+                       flops, peak)))
+            rows.append(_compare(
+                "rulebook_conv_dw", tag, case,
+                lambda: K.rulebook_conv_dw(x, g, nbr),
+                lambda: K.rulebook_conv_dw_plain(x, g, nbr),
+                _bound(es * (x.numel() + g.numel()) + 4 * (nbr.numel() + w.numel()),
+                       flops, peak)))
     return rows
 
 
@@ -220,39 +308,74 @@ def _small_geometry(n, g, radial, gen):
 
 
 def attention_cases(geoms):
-    """K3 at level 1 of both branches on the real host geometry (h=1 per
-    branch, d=16, G=24), and a small case per branch."""
+    """K3, K4 and K5 at every attention level of both branches on the real
+    host geometry (``geoms[branch][level - 1]``; d=16, G=24, and per branch
+    h = 1, 2, 4, 8 heads at levels 1-4, as the teacher has them), f32, and
+    bf16 at level 1; and a small case per branch. The backward kernels take
+    the forward's lse and a random output gradient."""
     import torch
+    from u2mkd_tpu_torch.ops import wattn
     from u2mkd_tpu_torch.ops.kernels import wattn_kernel as K
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     d, g = 16, 24
-    for branch, geom in geoms.items():
-        radial = geom.r is not None
+    for branch, levels in geoms.items():
+        radial = levels[0].r is not None
         l2, a = (2 * g, 0.0125) if radial else (2 * g - 1, 0.0)
         small = _small_geometry(1024, g, radial, gen)
-        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            for case, gm, h in (("small", small, 2), ("main_path", geom, 1)):
-                n = gm.rank.shape[0]
-                q, k, v = (torch.randn(n, h, d, device=dev, generator=gen)
-                           .mul(s).to(dtype).contiguous() for s in (d ** -0.5, 1.0, 1.0))
-                tq, tk, tv = (0.02 * torch.randn(l2, 3, h, d, device=dev, generator=gen)
-                              for _ in range(3))
-                pairs = _pairs(gm.rank)
-                es = q.element_size()
-                nbytes = (3 * es * n * h * d + 4 * n * h * d + 4 * n * (1 + 3 + radial)
-                          + 8 * (n // 128) + 3 * 4 * tq.numel())
-                flops = pairs * h * (7 * d + 6) + 2 * 2 * n * h * 3 * l2 * d
-                args = (gm.rank, gm.quant, gm.r)
-                rows.append(_compare(
-                    "flash_rpe_sorted", tag, case,
-                    lambda: K.flash_rpe_sorted(q, k, v, *args, gm.kmin, gm.kmax,
-                                               tq, tk, tv, g, a),
-                    lambda: K.flash_rpe_sorted_plain(q, k, v, *args, tq, tk, tv, g, a),
-                    dict(_bound(nbytes, flops, F32_PEAK), pairs=pairs)))
-                rows[-1]["branch"] = branch
+        cases = [("small", 0, small, 2, "f32"), ("small", 0, small, 2, "bf16")]
+        cases += [("main_path", lv + 1, gm, 2 ** lv, "f32") for lv, gm in enumerate(levels)]
+        cases.append(("main_path", 1, levels[0], 1, "bf16"))
+        for case, level, gm, h, tag in cases:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[tag]
+            n = gm.rank.shape[0]
+            q, k, v = (torch.randn(n, h, d, device=dev, generator=gen)
+                       .mul(s).to(dtype).contiguous() for s in (d ** -0.5, 1.0, 1.0))
+            tq, tk, tv = (0.02 * torch.randn(l2, 3, h, d, device=dev, generator=gen)
+                          for _ in range(3))
+            qT, kT = wattn.table_projections(q, tq), wattn.table_projections(k, tk)
+            geo = (gm.rank, gm.quant, gm.r)
+            pairs = _pairs(gm.rank)
+            es = q.element_size()
+            proj = 4 * n * h * 3 * l2                      # one [N, h, 3, L2] f32
+            rows_in = 3 * es * n * h * d + 4 * n * (1 + 3 + radial) + 8 * (n // 128)
+            rows.append(_compare(
+                "flash_rpe_fwd", tag, case,
+                lambda: K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a),
+                lambda: K.flash_rpe_fwd_plain(q, k, v, qT, kT, tv, *geo, g, a),
+                dict(_bound(rows_in + 2 * proj + 4 * tv.numel() + 4 * n * h * (d + 1),
+                            pairs * h * (7 * d + 6), F32_PEAK), pairs=pairs)))
+            out, lse = K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a)
+            do = torch.randn(n, h, d, device=dev, generator=gen)
+            dfac = (do * out).sum(-1)
+            edo = wattn.table_projections(do, tv)
+            bwd = (q, k, v, qT, kT, edo, *geo, lse, do, dfac)
+            bytes_in = rows_in + 3 * proj + 4 * n * h * (d + 2)
+            # one plain backward computes K4's and K5's outputs together; it
+            # runs and is timed once, and its time stands as the plain time
+            # of both
+            ref = K.flash_rpe_bwd_plain(*bwd, g, a)
+            plain_ms = cuda_ms(lambda: K.flash_rpe_bwd_plain(*bwd, g, a), reps=5, warmup=1)
+            # per pair and head, K4: two d-dots, the dq update, nine lookups
+            # and six mass adds; K5: two d-dots, the dk and dv updates, nine
+            # lookups and three mass adds
+            rows.append(_compare(
+                "flash_rpe_bwd_q", tag, case,
+                lambda: K.flash_rpe_bwd_q(*bwd, gm.kmin, gm.kmax, g, a),
+                lambda: (ref[0], ref[3], ref[5]),
+                dict(_bound(bytes_in + 4 * n * h * d + 2 * proj,
+                            pairs * h * (6 * d + 18), F32_PEAK), pairs=pairs), plain_ms))
+            rows.append(_compare(
+                "flash_rpe_bwd_k", tag, case,
+                lambda: K.flash_rpe_bwd_k(*bwd, gm.kmin, gm.kmax, g, a),
+                lambda: (ref[1], ref[2], ref[4]),
+                dict(_bound(bytes_in + 8 * n * h * d + proj,
+                            pairs * h * (8 * d + 14), F32_PEAK), pairs=pairs), plain_ms))
+            del ref
+            for row in rows[-3:]:
+                row.update(branch=branch, level=level, heads=h)
     return rows
 
 
@@ -263,7 +386,7 @@ def phase_kernels(model):
     raw, _ = host_batch(SEEDS[0], model)
     pl = from_precomputed(raw["plumbing"], raw["pmask"], DEVICE)
     rows = conv_cases(pl.levels[0])
-    rows += attention_cases({b: pl.wgeom[b][0] for b in ("cubic", "sphere")})
+    rows += attention_cases({b: pl.wgeom[b] for b in ("cubic", "sphere")})
     for row in rows:
         emit(dict(phase="kernels", **row))
     torch.cuda.synchronize()
@@ -282,7 +405,7 @@ def phase_main_path(model):
         batches.append((seed, raw, host_ms))
     torch.cuda.synchronize()
 
-    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_sorted)
+    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd)
     for c in counters:
         c.launches = 0
     per_request, outs = [], []
@@ -308,7 +431,7 @@ def phase_main_path(model):
         emit(row)
         if not row["finite"] or row["logits_shape"] != [1, P, NUM_CLASSES]:
             raise AssertionError(f"bad logits: {row}")
-        if row["launches"] != {"rulebook_conv": 34, "flash_rpe_sorted": 8}:
+        if row["launches"] != {"rulebook_conv": 34, "flash_rpe_fwd": 8}:
             raise AssertionError(f"expected 34 K1 and 8 K3 launches per forward: {row}")
         per_request.append(row)
         outs.append(out)
@@ -316,7 +439,12 @@ def phase_main_path(model):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     warm_ms = float(np.median([r["device_ms"] for r in per_request[1:]]))
-    phase_profile(eval_fn, batches[0][1], warm_ms)
+    groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, batches[0][1],
+                                                     PROFILED_REQUESTS, "profile.txt")
+    emit({"phase": "profile", "requests": PROFILED_REQUESTS,
+          "device_busy_ms": busy_ms, "request_device_ms_unprofiled": warm_ms,
+          "device_busy_share": busy_ms / warm_ms,
+          "request_wall_ms_profiled": profiled_ms, "by_kernel": groups})
 
     # the same first request through the plain versions, on the card
     seed, raw, _ = batches[0]
@@ -344,51 +472,259 @@ def phase_main_path(model):
     return launches
 
 
-def phase_profile(eval_fn, raw, warm_ms):
-    """Device time per request by kernel under ``torch.profiler``. The busy
-    share divides it by ``warm_ms``, the median CUDA-event time of the
-    unprofiled warm requests, so that no host cost of the profiler can
-    count as device idle time."""
+def profile_by_kernel(fn, raw, reps, out_name):
+    """Device time per call of ``fn(raw)`` by kernel under
+    ``torch.profiler`` (the 15 largest groups), its sum, and the profiled
+    host wall ms per call; the profiler's table goes to ``OUT_DIR``. A
+    busy share divides the device time by the median CUDA-event time of
+    unprofiled calls, so that no host cost of the profiler can count as
+    device idle time."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_REQUESTS):
-            eval_fn(raw)
+        for _ in range(reps):
+            fn(raw)
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_REQUESTS
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
     groups = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         name = next((v for k, v in PROFILE_GROUPS.items() if k in e.key), e.key)
         g = groups.setdefault(name, {"ms": 0.0, "calls": 0})
-        g["ms"] += e.self_device_time_total / 1e3 / PROFILED_REQUESTS
-        g["calls"] += e.count // PROFILED_REQUESTS
+        g["ms"] += e.self_device_time_total / 1e3 / reps
+        g["calls"] += e.count // reps
     busy_ms = sum(g["ms"] for g in groups.values())
     if busy_ms <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    emit({"phase": "profile", "requests": PROFILED_REQUESTS,
-          "device_busy_ms": busy_ms, "request_device_ms_unprofiled": warm_ms,
-          "device_busy_share": busy_ms / warm_ms,
-          "request_wall_ms_profiled": profiled_ms,
-          "by_kernel": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:15])})
+    return (dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:15]), busy_ms,
+            profiled_ms)
 
 
-def kernels_line(rows, launches):
-    from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+def _train_setup(seed, generator_seed):
+    """A teacher in train mode with ``sgd_spformer`` at LR, its step
+    function and its device generator."""
+    import torch
+    from u2mkd_tpu_torch.models.spvcnn import teacher_model
+    from u2mkd_tpu_torch.train import optim, state
 
+    model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL, head_dim=16,
+                          seed=seed, device=DEVICE)
+    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
+    gen = torch.Generator(device=DEVICE).manual_seed(generator_seed)
+    return model, state.make_train_step(model, opt, CAPS, generator=gen)
+
+
+def phase_train():
+    """The main path of training: three steps on three scans, each step's
+    launches held to TRAIN_LAUNCHES; then the profile of two more."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+
+    model, step_fn = _train_setup(seed=0, generator_seed=0)
+    batches = [(seed, *host_batch(seed, model)) for seed in TRAIN_SEEDS]
+    torch.cuda.synchronize()
+    counters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw,
+                W.flash_rpe_fwd, W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for seed, raw, host_ms in batches:
+        before = [c.launches for c in counters]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss = step_fn(raw)["loss"]
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        row = {"phase": "train_step", "seed": seed, "points": P,
+               "valid_points": int(raw["pmask"].sum()), "host_ms": host_ms,
+               "device_ms": start.elapsed_time(end), "wall_ms": wall_ms,
+               "loss": loss.item(), "finite": bool(torch.isfinite(loss).item()),
+               "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)}}
+        emit(row)
+        if not row["finite"]:
+            raise AssertionError(f"non-finite loss: {row}")
+        if row["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"expected {TRAIN_LAUNCHES} launches per step: {row}")
+        steps.append(row)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    warm_ms = float(np.median([r["device_ms"] for r in steps[1:]]))
+    emit({"phase": "train", "steps": len(steps), "launches": launches,
+          "device_ms": [r["device_ms"] for r in steps], "host_ms": [r["host_ms"] for r in steps],
+          "loss": [r["loss"] for r in steps], "max_memory_allocated_bytes": peak})
+    groups, busy_ms, profiled_ms = profile_by_kernel(step_fn, batches[0][1], PROFILED_STEPS,
+                                                     "profile_train.txt")
+    emit({"phase": "train_profile", "steps": PROFILED_STEPS, "device_busy_ms": busy_ms,
+          "step_device_ms_unprofiled": warm_ms, "device_busy_share": busy_ms / warm_ms,
+          "step_wall_ms_profiled": profiled_ms, "by_kernel": groups})
+    return launches
+
+
+def _grad_diff(model, ref):
+    """(largest per-parameter gradient difference from ``ref`` {name:
+    grad}, relative as GRAD_FLOOR says; the parameter's name)."""
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in ref.values())
+    worst, worst_name = 0.0, None
+    for name, p in model.named_parameters():
+        err = (p.grad - ref[name]).abs().max().item() / max(ref[name].abs().max().item(), floor)
+        if not err <= worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def _plain_of_launch():
+    """{wrapper name: (its module, its plain version taking the wrapper's
+    own arguments)} for the six counted wrappers."""
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+
+    def bwd(args, picks):
+        # the wrappers take (12 inputs, kmin, kmax, G, a); the plain version
+        # walks every pair and takes no key ranges
+        out = W.flash_rpe_bwd_plain(*args[:12], *args[14:])
+        return tuple(out[i] for i in picks)
+
+    return {"rulebook_conv": (S, S.rulebook_conv_plain),
+            "rulebook_conv_dx": (S, lambda g, w, nbr: S.rulebook_conv_plain(
+                g, S.reversed_weights(w), nbr)),
+            "rulebook_conv_dw": (S, S.rulebook_conv_dw_plain),
+            "flash_rpe_fwd": (W, lambda *a: W.flash_rpe_fwd_plain(*a[:9], *a[11:])),
+            "flash_rpe_bwd_q": (W, lambda *a: bwd(a, (0, 3, 5))),
+            "flash_rpe_bwd_k": (W, lambda *a: bwd(a, (1, 2, 4)))}
+
+
+@contextlib.contextmanager
+def each_launch_held_to_plain(worst):
+    """Inside, every call of the six counted wrappers also runs its plain
+    version on the same arguments; ``worst[name]`` collects the calls and
+    the largest error of any output relative to the plain output's largest
+    entry (:func:`_errors`)."""
+    import torch
+
+    saved = []
+    for name, (mod, plain) in _plain_of_launch().items():
+        kernel = getattr(mod, name)
+
+        def checked(*args, _kernel=kernel, _plain=plain, _name=name):
+            outs = _kernel(*args)
+            refs = _plain(*args)
+            if torch.is_tensor(outs):
+                outs, refs = (outs,), (refs,)
+            row = worst.setdefault(_name, {"calls": 0, "max_rel_err": 0.0})
+            row["calls"] += 1
+            row["max_rel_err"] = max(row["max_rel_err"], _errors(outs, refs)[1])
+            return outs[0] if len(outs) == 1 else outs
+
+        # the wrapper counts its launches on the function its module's name
+        # holds, which is now ``checked``: carry the count there and back
+        checked.launches = kernel.launches
+        saved.append((mod, name, kernel))
+        setattr(mod, name, checked)
+    try:
+        yield worst
+    finally:
+        for mod, name, kernel in saved:
+            kernel.launches = getattr(mod, name).launches
+            setattr(mod, name, kernel)
+
+
+def phase_grad_check():
+    """Two checks of one train step on the card.
+
+    Per launch: the step through the kernels runs every launch of the six
+    kernel wrappers (34 + 33 + 34 + 8 + 8 + 8, every level, width and head
+    count of the main path) also through its plain version on the same
+    arguments, each output held to TOL of the plain output's largest entry.
+
+    Whole step: one step through the kernels and one through the plain
+    versions, from one copy of the weights (one seed) and one generator
+    seed, so that dropout and drop path draw the same masks: the loss, and
+    each parameter's gradient within the spread that one plain step from
+    weights nudged by about one ulp gives (GRAD_SPREADS)."""
+    import torch
+
+    raw = None
+    runs, per_launch = {}, {}
+    for tag in ("kernels", "plain", "plain_nudged"):
+        model, step_fn = _train_setup(seed=1, generator_seed=5)
+        if tag != "kernels":
+            model.set_plain(True)
+        if tag == "plain_nudged":
+            gen = torch.Generator(device=DEVICE).manual_seed(7)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, device=DEVICE, generator=gen))
+        if raw is None:
+            raw, _ = host_batch(31, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with (each_launch_held_to_plain(per_launch) if tag == "kernels"
+              else contextlib.nullcontext()):
+            loss = step_fn(raw)["loss"].item()
+        torch.cuda.synchronize()
+        runs[tag] = (model, loss, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    for name, row in per_launch.items():
+        row["tol_rel"] = TOL[(name, "f32")]
+    emit({"phase": "grad_check_per_launch", "points": P, "by_kernel": per_launch})
+    bad = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
+    counts = {n: r["calls"] for n, r in per_launch.items()}
+    if bad or counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"a kernel launch of the train step disagrees with its plain "
+                             f"version, or the launches are not {TRAIN_LAUNCHES}: {per_launch}")
+    ref = {n: p.grad for n, p in runs["plain"][0].named_parameters()}
+    worst, worst_name = _grad_diff(runs["kernels"][0], ref)
+    spread, spread_name = _grad_diff(runs["plain_nudged"][0], ref)
+    tol = max(GRAD_RTOL, GRAD_SPREADS * spread)
+    loss_k, loss_p = runs["kernels"][1], runs["plain"][1]
+    row = {"phase": "grad_check", "points": P, "loss_kernels": loss_k,
+           "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "max_grad_rel_diff": worst, "worst_param": worst_name,
+           "ulp_nudge_grad_rel_diff": spread, "ulp_nudge_worst_param": spread_name,
+           "grad_tol_rel": tol, "params": len(ref),
+           "step_wall_s": {k: v[2] for k, v in runs.items()},
+           "max_memory_allocated_bytes": {k: v[3] for k, v in runs.items()}}
+    emit(row)
+    if not (row["loss_rel_diff"] <= GRAD_LOSS_RTOL and worst <= tol):
+        raise AssertionError(f"kernel gradients disagree with the plain path: {row}")
+
+
+def kernels_line(rows, infer_launches, train_launches):
+    """One entry per port kernel. ``launches`` is its count over the two
+    main paths (the three requests and the three train steps; K1 counts its
+    forward and input-gradient launches), split in ``launches_by_path``; the
+    other numbers are from its slowest main-path-shape row in f32."""
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+
+    by_path = {
+        "K1": {"infer": infer_launches["rulebook_conv"], "train": train_launches["rulebook_conv"],
+               "train_dx": train_launches["rulebook_conv_dx"]},
+        "K1b": {"train": train_launches["rulebook_conv_dw"]},
+        "K3": {"infer": infer_launches["flash_rpe_fwd"], "train": train_launches["flash_rpe_fwd"]},
+        "K4": {"train": train_launches["flash_rpe_bwd_q"]},
+        "K5": {"train": train_launches["flash_rpe_bwd_k"]},
+    }
+    table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
+             ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
+             ("K3", ("flash_rpe_fwd",), W.SOURCE, W.REPLACES),
+             ("K4", ("flash_rpe_bwd_q",), W.SOURCE_BWD_Q, W.REPLACES_BWD_Q),
+             ("K5", ("flash_rpe_bwd_k",), W.SOURCE_BWD_K, W.REPLACES_BWD_K))
     out = []
-    for mod, name in ((spconv_kernel, "rulebook_conv"), (wattn_kernel, "flash_rpe_sorted")):
-        mine = [r for r in rows if r["kernel"] == name]
+    for kid, names, source, replaces in table:
+        mine = [r for r in rows if r["kernel"] in names]
         main = [r for r in mine if r["case"] == "main_path" and r["dtype"] == "f32"]
-        # the slowest main-path-shape launch stands for the kernel
         rep = max(main, key=lambda r: r["ms"])
-        out.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                    "replaces": mod.REPLACES, "launches": launches[name],
+        out.append({"name": f"{kid} {names[0]}", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": sum(by_path[kid].values()),
+                    "launches_by_path": by_path[kid],
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -418,8 +754,11 @@ def main():
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
                           head_dim=16, seed=0, device=DEVICE)
     rows = phase_kernels(model)
-    launches = phase_main_path(model)
-    kernels_line(rows, launches)
+    infer_launches = phase_main_path(model)
+    del model
+    train_launches = phase_train()
+    phase_grad_check()
+    kernels_line(rows, infer_launches, train_launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

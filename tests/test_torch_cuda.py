@@ -8,7 +8,8 @@ imports nothing of JAX, so it runs where only PyTorch is installed:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.) Tolerances are
 relative to the largest plain output: f32 sums in another order; K1's bf16
 output is rounded to bf16 after an f32 sum, so its two sides may land one
-bf16 step apart.
+bf16 step apart. K1b, K4 and K5 return f32 computed in f32 from the same
+inputs as their plain versions, so 1e-4 holds for bf16 inputs too.
 """
 
 import numpy as np
@@ -18,8 +19,9 @@ import torch
 from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 from u2mkd_tpu_torch.models.plumbing import _window_geom_from_arrays
 from u2mkd_tpu_torch.models.spvcnn import teacher_model
+from u2mkd_tpu_torch.ops import wattn
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
-from u2mkd_tpu_torch.train import state
+from u2mkd_tpu_torch.train import optim, state
 
 
 @pytest.fixture
@@ -86,18 +88,26 @@ def test_attention_kernel_matches_plain(rng, cuda_device, radial, dtype):
     tq, tk, tv = (torch.from_numpy(rng.randn(l2, 3, h, d).astype(np.float32) * 0.05)
                   .to(cuda_device) for _ in range(3))
     sq, sk, sv = (t.reshape(b * v, h, d)[geom.order].contiguous() for t in (q, k, vv))
-    before = wattn_kernel.flash_rpe_sorted.launches
+    k3 = wattn_kernel.flash_rpe_fwd
+    before = k3.launches
     out_s = wattn_kernel.flash_rpe_sorted(sq, sk, sv, geom.rank, geom.quant, geom.r,
                                           geom.kmin, geom.kmax, tq, tk, tv, g, 0.5)
-    assert wattn_kernel.flash_rpe_sorted.launches == before + 1
+    assert k3.launches == before + 1
     assert out_s.dtype == torch.float32
     ref = wattn_kernel.flash_rpe_sorted_plain(sq, sk, sv, geom.rank, geom.quant, geom.r,
                                               tq, tk, tv, g, 0.5)
     assert _rel_err(out_s, ref) <= 1e-4
+    # the log-sum-exp K3 writes for the backward
+    qT, kT = wattn.table_projections(sq, tq), wattn.table_projections(sk, tk)
+    _, lse = k3(sq, sk, sv, qT, kT, tv, geom.rank, geom.quant, geom.r, geom.kmin, geom.kmax,
+                g, 0.5)
+    _, lse_ref = wattn_kernel.flash_rpe_fwd_plain(sq, sk, sv, qT, kT, tv, geom.rank,
+                                                  geom.quant, geom.r, g, 0.5)
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
 
     mask = torch.from_numpy(valid).to(cuda_device)
     out = wattn_kernel.flash_pregeom_batched(q, k, vv, mask, geom, tq, tk, tv, g, 0.5)
-    assert wattn_kernel.flash_rpe_sorted.launches == before + 2
+    assert k3.launches == before + 3
     assert out.dtype == dtype
     assert (out[~mask] == 0).all()
     back = out_s[geom.inv].to(dtype).reshape(b, v, h, d)
@@ -116,7 +126,7 @@ def test_eval_step_kernels_match_plain(cuda_device):
         raw["pcoords"], raw["xyz"], raw["pmask"], caps,
         wgeom_params=wgeom_host.params_from_model(model))
     eval_fn = state.make_eval_step(model, caps, 17)
-    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_sorted
+    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd
     before = (k1.launches, k3.launches)
     out = eval_fn(raw)
     assert (k1.launches - before[0], k3.launches - before[1]) == (34, 8)
@@ -130,3 +140,175 @@ def test_eval_step_kernels_match_plain(cuda_device):
     assert torch.isfinite(out["logits"]).all()
     assert _rel_err(out["logits"][valid], ref["logits"][valid]) <= 1e-4
     assert (out["pred"] == ref["pred"])[valid].float().mean().item() >= 0.999
+
+
+def _small_case(rng, cuda_device, radial, dtype, b=2, v=700, h=4, d=16, g=6):
+    """Real host geometry with windows of up to hundreds of keys, some pad
+    rows (b * v is not a multiple of 128), q/k/v in ``dtype``."""
+    ws = (30.0, 30.0, 120.0) if radial else (4.0, 4.0, 4.0)
+    qs = tuple(w / g for w in ws)
+    xyz = rng.uniform(-8, 8, (b, v, 3)).astype(np.float32)
+    valid = rng.rand(b, v) < 0.9
+    coords = np.stack([wgeom_host.cart2sphere(x) for x in xyz]) if radial else xyz
+    geom = _window_geom_from_arrays(
+        wgeom_host.branch_geometry(coords, valid, ws, qs, 128, radial), cuda_device)
+    q, k, vv = (torch.from_numpy(rng.randn(b, v, h, d).astype(np.float32) * 0.3)
+                .to(cuda_device, dtype) for _ in range(3))
+    l2 = 2 * g if radial else 2 * g - 1
+    tables = [torch.from_numpy(rng.randn(l2, 3, h, d).astype(np.float32) * 0.05)
+              .to(cuda_device) for _ in range(3)]
+    mask = torch.from_numpy(valid).to(cuda_device)
+    return geom, mask, (q, k, vv), tables, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernels_match_plain(rng, cuda_device, radial, dtype):
+    """K4 and K5 against the plain backward on the same sorted inputs, the
+    forward's lse and a random output gradient: every output to 1e-4 of its
+    largest entry."""
+    geom, _, (q, k, vv), (tq, tk, tv), g = _small_case(rng, cuda_device, radial, dtype)
+    n = geom.order.shape[0]
+    h, d = q.shape[2:]
+    sq, sk, sv = (t.reshape(-1, h, d)[geom.order].contiguous() for t in (q, k, vv))
+    qT, kT = wattn.table_projections(sq, tq), wattn.table_projections(sk, tk)
+    geo = (geom.rank, geom.quant, geom.r)
+    out, lse = wattn_kernel.flash_rpe_fwd(sq, sk, sv, qT, kT, tv, *geo, geom.kmin, geom.kmax,
+                                          g, 0.5)
+    do = torch.randn(n, h, d, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(3))
+    args = (sq, sk, sv, qT, kT, wattn.table_projections(do, tv), *geo, lse, do,
+            (do * out).sum(-1))
+    k4, k5 = wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k
+    before = (k4.launches, k5.launches)
+    dq, mq, pm = k4(*args, geom.kmin, geom.kmax, g, 0.5)
+    dk, dv, mk = k5(*args, geom.kmin, geom.kmax, g, 0.5)
+    assert (k4.launches, k5.launches) == (before[0] + 1, before[1] + 1)
+    ref = wattn_kernel.flash_rpe_bwd_plain(*args, g, 0.5)
+    for name, got, want in zip(("dq", "dk", "dv", "mq", "mk", "pm"),
+                               (dq, dk, dv, mq, mk, pm), ref):
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        assert _rel_err(got, want) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+def test_flash_rpe_grads_match_autograd(rng, cuda_device, radial):
+    """FlashRPE through the model's entry on the card (K3, K4, K5) against
+    autograd through the plain forward: the gradients of q, k, v and the
+    three tables, and exact zeros on the pad rows of the sorted inputs."""
+    geom, mask, qkv, tables, g = _small_case(rng, cuda_device, radial, torch.float32)
+    w_out = torch.randn_like(qkv[0])
+
+    def grads(plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (*qkv, *tables)]
+        out = wattn_kernel.flash_pregeom_batched(*leaves[:3], mask, geom, *leaves[3:], g, 0.5,
+                                                 plain=plain)
+        (out * w_out).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = (wattn_kernel.flash_rpe_bwd_q.launches, wattn_kernel.flash_rpe_bwd_k.launches)
+    got = grads(False)
+    assert (wattn_kernel.flash_rpe_bwd_q.launches, wattn_kernel.flash_rpe_bwd_k.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, a_, b_ in zip(("q", "k", "v", "tq", "tk", "tv"), got, grads(True)):
+        # mass bins cancel (sum_j ds_ij = 0): 1e-4 of each gradient's scale
+        assert _rel_err(a_, b_) <= 1e-4, name
+
+    # pads of the sorted order (they point at row 0) get exactly zero
+    h, d = qkv[0].shape[2:]
+    pad = torch.ones(geom.order.shape[0], dtype=torch.bool, device=cuda_device)
+    pad[geom.inv] = False
+    assert pad.any()
+    sorted_ = [t.reshape(-1, h, d)[geom.order].contiguous().requires_grad_() for t in qkv]
+    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, geom.kmin,
+                                          geom.kmax, *tables, g, 0.5)
+    (out_s[geom.inv] * w_out.reshape(-1, h, d)).sum().backward()
+    for t in sorted_:
+        assert torch.count_nonzero(t.grad[pad]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rulebook_conv_backward_kernels_match_plain(cuda_device, dtype):
+    """K1b (every width class, B=2, rows -1 and >= V) against the plain
+    gather-einsum, and K1 as the input gradient against the plain conv with
+    the reversed weights; each counts its own launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dx_tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for cin, cout in ((4, 32), (96, 96), (384, 256)):
+        nbr = torch.randint(-1, 1010, (2, 27, 1000), device=cuda_device, generator=gen,
+                            dtype=torch.int32)
+        x = torch.randn(2, 1000, cin, device=cuda_device, generator=gen).to(dtype)
+        g = torch.randn(2, 1000, cout, device=cuda_device, generator=gen).to(dtype)
+        w = (torch.randn(27, cin, cout, device=cuda_device, generator=gen)
+             * (27 * cin) ** -0.5).to(dtype)
+        dw, dx = spconv_kernel.rulebook_conv_dw, spconv_kernel.rulebook_conv_dx
+        before = (dw.launches, dx.launches)
+        gw = dw(x, g, nbr)
+        gx = dx(g, w, nbr)
+        assert (dw.launches, dx.launches) == (before[0] + 1, before[1] + 1)
+        assert gw.dtype == torch.float32 and gw.shape == (27, cin, cout)
+        assert _rel_err(gw, spconv_kernel.rulebook_conv_dw_plain(x, g, nbr)) <= 1e-4, (cin, cout)
+        ref = spconv_kernel.rulebook_conv_plain(g, spconv_kernel.reversed_weights(w), nbr)
+        assert _rel_err(gx, ref) <= dx_tol, (cin, cout)
+
+
+@pytest.mark.cuda
+def test_rulebook_conv_grads_match_autograd(cuda_device):
+    """RulebookConv on the card, on a real (symmetric) host rulebook, against
+    autograd through the plain forward."""
+    raw = synthetic.make_batch(np.random.RandomState(6), 2, 4096, voxel_size=0.2)
+    pl = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                      (4096, 2048, 1024, 512, 256))
+    nbr = torch.from_numpy(pl["nbr27"][0]).to(cuda_device)
+    vmask = torch.from_numpy(pl["vmask"][0]).to(cuda_device, torch.bool)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.where(vmask[..., None], torch.randn(2, 4096, 64, device=cuda_device,
+                                                  generator=gen), 0.0)
+    w = torch.randn(27, 64, 48, device=cuda_device, generator=gen) * (27 * 64) ** -0.5
+    g = torch.randn(2, 4096, 48, device=cuda_device, generator=gen)
+
+    def grads(fn):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(xl, wl, nbr) * g).sum().backward()
+        return xl.grad, wl.grad
+
+    got = grads(spconv_kernel.RulebookConv.apply)
+    ref = grads(spconv_kernel.rulebook_conv_plain)
+    for a_, b_ in zip(got, ref):
+        assert _rel_err(a_, b_) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_train_step_kernels_match_plain(cuda_device):
+    """The teacher's train step at a small size: the launches of every
+    kernel per step, and a finite loss equal to that of one step through
+    the plain versions (same weights, same generator seed, so the same
+    dropout masks). The kernels' gradients are held to their plain versions
+    by the tests above, and per launch of a full-size step by
+    ``chip_smoke.py``."""
+    caps = (2048, 1024, 512, 256, 128)
+    raw = synthetic.make_batch(np.random.RandomState(4), 1, 4096, voxel_size=0.2)
+    losses = []
+    for plain in (False, True):
+        model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.2, head_dim=16, seed=3,
+                              device=cuda_device)
+        model.set_plain(plain)
+        opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", 0.02)
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        step_fn = state.make_train_step(model, opt, caps, generator=gen)
+        if "plumbing" not in raw:
+            raw["plumbing"] = plumbing_host.batch_plumbing(
+                raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+                wgeom_params=wgeom_host.params_from_model(model))
+        counters = (spconv_kernel.rulebook_conv, spconv_kernel.rulebook_conv_dx,
+                    spconv_kernel.rulebook_conv_dw, wattn_kernel.flash_rpe_fwd,
+                    wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k)
+        before = [c.launches for c in counters]
+        losses.append(step_fn(raw)["loss"].item())
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([0] * 6 if plain else [34, 33, 34, 8, 8, 8])
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])

@@ -17,7 +17,7 @@ from u2mkd_tpu.ops import spconv as jax_spconv
 from u2mkd_tpu.ops import voxelize as jax_voxelize
 from u2mkd_tpu.ops.pallas import spconv_kernel as jax_spk
 
-from u2mkd_tpu_torch.data import synthetic
+from u2mkd_tpu_torch.data import plumbing_host, synthetic
 from u2mkd_tpu_torch.ops import spconv, voxelize
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel
 
@@ -120,3 +120,68 @@ def test_point_voxel_transfer_matches_jax(rng):
                                         torch.from_numpy(dvw))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
+
+
+def test_rev_perm_27_is_the_negating_involution():
+    rev = spconv.rev_perm_27()
+    offs = spconv.kernel_offsets(3)
+    np.testing.assert_array_equal(rev[rev], np.arange(27))
+    np.testing.assert_array_equal(offs[rev], -offs)
+    np.testing.assert_array_equal(rev, jax_spk.rev_perm_27())
+    assert rev[0] == 0 and not np.array_equal(rev, 26 - np.arange(27))
+
+
+def test_host_rulebook_is_symmetric():
+    """``nbr[rev k, nbr[k, v]] == v`` on every valid entry of every level:
+    what lets the input gradient run through the forward kernel."""
+    raw = synthetic.make_batch(np.random.RandomState(5), 2, 512, voxel_size=0.25)
+    pl = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                      (512, 256, 128, 64, 32))
+    rev = spconv.rev_perm_27()
+    n_checked = 0
+    for nbr in pl["nbr27"]:
+        b, k, v = nbr.shape
+        for bi in range(b):
+            for kk in range(k):
+                cols = np.nonzero((nbr[bi, kk] >= 0) & (nbr[bi, kk] < v))[0]
+                back = nbr[bi, rev[kk], nbr[bi, kk, cols]]
+                np.testing.assert_array_equal(back, cols)
+                n_checked += len(cols)
+    assert n_checked > 1000
+
+
+@pytest.mark.parametrize("cin,cout,level", [(8, 16, 0), (384, 32, 1)])
+def test_rulebook_conv_grads_match_jax(rng, monkeypatch, cin, cout, level):
+    """RulebookConv on the CPU (dX: the plain conv with the reversed,
+    transposed weights; dW: the plain gather-einsum) against jax.grad of the
+    JAX package's ``spconv.sparse_conv`` per sample, B=2, including Cin 384,
+    a width the JAX kernel's TPU gate refuses. f32 sums over V rows (dW) or
+    27*Cout terms (dX) in another order."""
+    import jax
+
+    pl, _ = _level(p=256 if level else 512, b=2)
+    nbr = pl["nbr27"][level]
+    x = _feats(rng, pl, level, cin)
+    w = (rng.randn(27, cin, cout) * (27 * cin) ** -0.5).astype(np.float32)
+    gout = rng.randn(*x.shape[:2], cout).astype(np.float32)
+
+    def loss(x_, w_):
+        out = jax.vmap(lambda f, n: jax_spconv.sparse_conv(f, n, w_))(x_, jnp.asarray(nbr))
+        return jnp.sum(out * gout)
+
+    gx_ref, gw_ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = spconv_kernel.RulebookConv.apply(xt, wt, torch.from_numpy(nbr))
+    (out * torch.from_numpy(gout)).sum().backward()
+    for got, ref in ((xt.grad, gx_ref), (wt.grad, gw_ref)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+    # no dX for an input that needs none (the stem's first conv)
+    wt.grad = None
+    monkeypatch.setattr(spconv_kernel, "rulebook_conv_dx",
+                        lambda *a: pytest.fail("dX computed for an input without grad"))
+    out = spconv_kernel.RulebookConv.apply(torch.from_numpy(x), wt, torch.from_numpy(nbr))
+    out.sum().backward()
+    assert wt.grad is not None

@@ -71,3 +71,109 @@ def test_exponential_split_index_matches_jax():
         out = wattn.exponential_split_index(torch.from_numpy(rel), a).numpy()
         np.testing.assert_array_equal(out, ref)
 
+
+
+def _grad_case(rng, radial, v=256):
+    """The sizes of ``tests/test_wgeom.py::test_pregeom_grads_match``: one
+    sample of 256 rows, h=2, d=16, G=4, windows of 5 units, a=0.5."""
+    g = 4
+    ws = (5.0, 5.0, 5.0)
+    qs = tuple(w / g for w in ws)
+    coords, valid, q, k, v, tables = _inputs(rng, b=1, v=v, g=g, radial=radial)
+    w_out = rng.randn(*q.shape).astype(np.float32)
+    jax_geom, port_geom = _geoms(coords, valid, ws, qs, radial)
+    return g, valid, (q, k, v, *tables), w_out, jax_geom, port_geom
+
+
+def _port_grads(args, valid, w_out, geom, g, plain=False):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in args]
+    q, k, v, tq, tk, tv = leaves
+    out = wattn_kernel.flash_pregeom_batched(q, k, v, torch.from_numpy(valid), geom,
+                                             tq, tk, tv, g, 0.5, plain=plain)
+    (out * torch.from_numpy(w_out)).sum().backward()
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("radial", [False, True])
+def test_flash_rpe_grads_match_jax(rng, radial):
+    """FlashRPE's dq, dk, dv, dTq, dTk and dTv through flash_pregeom_batched
+    (plain K4/K5 on the CPU, the projections' einsum backward, the
+    order/inv gathers scatter-added back) against jax.grad of the JAX
+    flash path in interpret mode. f32; the JAX backward sums masses and
+    pairs in another order (packed MXU segments), so a few ulps of each
+    gradient's scale."""
+    import jax
+
+    g, valid, args, w_out, jax_geom, port_geom = _grad_case(rng, radial)
+
+    def loss(q, k, v, tq, tk, tv):
+        o = jax_pk.flash_pregeom_batched(q, k, v, jnp.asarray(valid), jax_geom, tq, tk, tv,
+                                         grid_len=g, a=0.5, interpret=True)
+        return jnp.sum(o * w_out)
+
+    ref = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    got = _port_grads(args, valid, w_out, port_geom, g)
+    for name, a_, b_ in zip(("q", "k", "v", "tq", "tk", "tv"), got, ref):
+        b_ = np.asarray(b_)
+        scale = np.abs(b_).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(a_, b_, rtol=0, atol=1e-5 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("radial", [False, True])
+def test_flash_rpe_backward_matches_autograd(rng, radial):
+    """The Function's backward (plain K4 and K5 plus the epilogue) equals
+    autograd through the plain forward: the same pairs, summed in another
+    order. A table gradient's bin sums ds over many pairs, and sum_j ds_ij
+    is 0 for every query, so a bin that collects most of a query's pairs
+    cancels: its f32 error is ulps of the terms, ~1e-6 of the gradient's
+    scale, not of the bin's value."""
+    g, valid, args, w_out, _, port_geom = _grad_case(rng, radial)
+    got = _port_grads(args, valid, w_out, port_geom, g)
+    ref = _port_grads(args, valid, w_out, port_geom, g, plain=True)
+    for name, a_, b_ in zip(("q", "k", "v", "tq", "tk", "tv"), got, ref):
+        np.testing.assert_allclose(a_, b_, rtol=0, atol=1e-5 * np.abs(b_).max(),
+                                   err_msg=name)
+
+
+def test_pad_rows_get_zero_gradient(rng):
+    """Pads in the host geometry's ``order`` point at row 0. Their do is 0
+    (``inv`` never reads them back), so their dq, dk and dv must be exactly
+    0, or the scatter-add through ``order`` would corrupt row 0's gradient."""
+    n, h, d = 250, 2, 16  # pad_to 256: six pad rows
+    g, valid, args, w_out, _, geom = _grad_case(rng, radial=True, v=n)
+    pad = torch.ones(geom.order.shape[0], dtype=torch.bool)
+    pad[geom.inv] = False
+    assert pad.any(), "the case has no pad rows"
+    sorted_ = [torch.from_numpy(x).reshape(n, h, d)[geom.order].contiguous().requires_grad_()
+               for x in args[:3]]
+    tables = [torch.from_numpy(x) for x in args[3:]]
+    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, geom.kmin,
+                                          geom.kmax, *tables, g, 0.5)
+    (out_s[geom.inv] * torch.from_numpy(w_out).reshape(n, h, d)).sum().backward()
+    for x in sorted_:
+        assert torch.count_nonzero(x.grad[pad]) == 0
+        assert torch.count_nonzero(x.grad[~pad]) > 0
+
+
+def test_plain_forward_lse(rng):
+    """The plain K3 returns each row's log-sum-exp with its output:
+    lse_i = log sum_j exp(s_ij), checked against a dense softmax over the
+    window mask."""
+    g, valid, args, _, _, geom = _grad_case(rng, radial=False)
+    n, h, d = 256, 2, 16
+    qs, ks, vs = (torch.from_numpy(x).reshape(n, h, d)[geom.order] for x in args[:3])
+    tq, tk, tv = (torch.from_numpy(x) for x in args[3:])
+    qT, kT = wattn.table_projections(qs, tq), wattn.table_projections(ks, tk)
+    out, lse = wattn.window_attention_rpe_fwd(qs, ks, vs, qT, kT, tv, geom.rank, geom.quant,
+                                              None, g, 0.5)
+    cq = geom.quant.long().clamp(0, g - 1)
+    idx = cq[:, None] - cq[None, :] + g - 1                              # [N, N, 3]
+    s = torch.einsum("ihd,jhd->ijh", qs, ks)                             # [N, N, h]
+    rows, cols = torch.arange(len(cq))[:, None], torch.arange(len(cq))[None, :]
+    for ax in range(3):
+        s = s + qT[:, :, ax][rows, :, idx[..., ax]] + kT[:, :, ax][cols, :, idx[..., ax]]
+    same = geom.rank[:, None] == geom.rank[None, :]
+    ref = torch.logsumexp(torch.where(same[..., None], s, -torch.inf), dim=1)
+    np.testing.assert_allclose(lse.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert out.shape == (len(cq), h, d)

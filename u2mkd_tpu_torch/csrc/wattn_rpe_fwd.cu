@@ -34,34 +34,21 @@
 //   * the tile's query projections and the head's value table sit in shared
 //     memory for the whole block, so each pair's six lookups and three
 //     value-table rows never touch device memory.
-// q, k, v may be f32 or bf16; everything else is f32, and so is the output.
+// It also writes each row's log-sum-exp, lse_i = m_i + log(l_i), which the
+// backward kernels K4 and K5 use to recompute the probabilities.
+// q, k, v may be f32 or bf16; everything else is f32, and so are the outputs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "wattn_rpe_common.cuh"
 
 namespace {
 
-constexpr int TQ = 128;  // queries per block: the host geometry's tile
-constexpr int KC = 32;   // keys staged per chunk
+using wattn::KC;
+using wattn::TQ;
+using wattn::clip_quant;
+using wattn::radial_bin;
+using wattn::to_f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// exponential split of a range difference into a radial bin, clipped to
-// [0, lr); the same f32 steps as the port's ops/wattn.py:exponential_split_index
-__device__ __forceinline__ int radial_bin(float rel, float a, int lr) {
-  const float ra = fabsf(rel);
-  const float flag = rel >= 0.f ? 1.f : 0.f;
-  float idx = 2.f * floorf(logf((ra + 2.f * a) / a) / 0.69314718055994531f) - 2.f;
-  idx += ((3.f * exp2f(floorf(idx / 2.f)) - 2.f) * a <= ra) ? 1.f : 0.f;
-  idx = idx * (2.f * flag - 1.f) + (flag - 1.f);
-  const int b = (int)idx + 24;
-  return min(max(b, 0), lr - 1);
-}
-
-__host__ __device__ __forceinline__ int row_stride(int l2) { return (3 * l2) | 1; }
+__host__ __device__ __forceinline__ int row_stride(int l2) { return wattn::odd_stride(3 * l2); }
 
 template <int D>
 size_t smem_bytes(int l2) {
@@ -77,7 +64,8 @@ wattn_rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ r, const int32_t* __restrict__ kmin,
                      const int32_t* __restrict__ kmax, const float* __restrict__ qT,
                      const float* __restrict__ kT, const float* __restrict__ tv,
-                     float* __restrict__ out, int H, int G, int L2, float a) {
+                     float* __restrict__ out, float* __restrict__ lse, int H, int G, int L2,
+                     float a) {
   extern __shared__ float smem[];
   const int RS = row_stride(L2);  // odd row stride of the projection rows
   const int W = 3 * L2;           // projection row width
@@ -112,7 +100,7 @@ wattn_rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const float my_rank = rank[i];
   int cqi[3];
 #pragma unroll
-  for (int ax = 0; ax < 3; ++ax) cqi[ax] = min(max(quant[i * 3 + ax], 0), G - 1);
+  for (int ax = 0; ax < 3; ++ax) cqi[ax] = clip_quant(quant[i * 3 + ax], G);
   const float ri = radial ? r[i] : 0.f;
 
   float m = -INFINITY, l = 0.f;
@@ -135,7 +123,7 @@ wattn_rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       rank_s[tid] = rank[j];
       r_s[tid] = radial ? r[j] : 0.f;
 #pragma unroll
-      for (int ax = 0; ax < 3; ++ax) cq_s[tid * 3 + ax] = min(max(quant[j * 3 + ax], 0), G - 1);
+      for (int ax = 0; ax < 3; ++ax) cq_s[tid * 3 + ax] = clip_quant(quant[j * 3 + ax], G);
     }
     __syncthreads();
 
@@ -172,12 +160,15 @@ wattn_rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int dd = 0; dd < D; ++dd) out[((size_t)i * H + h) * D + dd] = acc[dd] * inv;
+  // every row attends at least itself, so l > 0
+  lse[(size_t)i * H + h] = m + logf(l);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* rank, const void* quant,
            const void* r, const void* kmin, const void* kmax, const void* qT, const void* kT,
-           const void* tv, void* out, int N, int H, int G, int L2, float a, void* stream) {
+           const void* tv, void* out, void* lse, int N, int H, int G, int L2, float a,
+           void* stream) {
   const size_t smem = smem_bytes<D>(L2);
   auto kern = wattn_rpe_fwd_kernel<T, D>;
   cudaError_t e =
@@ -187,20 +178,20 @@ int launch(const void* q, const void* k, const void* v, const void* rank, const 
   kern<<<grid, TQ, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)rank, (const int32_t*)quant,
       (const float*)r, (const int32_t*)kmin, (const int32_t*)kmax, (const float*)qT,
-      (const float*)kT, (const float*)tv, (float*)out, H, G, L2, a);
+      (const float*)kT, (const float*)tv, (float*)out, (float*)lse, H, G, L2, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, const void* rank,
              const void* quant, const void* r, const void* kmin, const void* kmax,
-             const void* qT, const void* kT, const void* tv, void* out, int N, int H, int G,
-             int L2, float a, void* stream) {
+             const void* qT, const void* kT, const void* tv, void* out, void* lse, int N, int H,
+             int G, int L2, float a, void* stream) {
   switch (D) {
-    case 4: return launch<T, 4>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H, G, L2, a, stream);
-    case 8: return launch<T, 8>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H, G, L2, a, stream);
-    case 16: return launch<T, 16>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H, G, L2, a, stream);
-    case 32: return launch<T, 32>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H, G, L2, a, stream);
+    case 4: return launch<T, 4>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse, N, H, G, L2, a, stream);
+    case 8: return launch<T, 8>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse, N, H, G, L2, a, stream);
+    case 16: return launch<T, 16>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse, N, H, G, L2, a, stream);
+    case 32: return launch<T, 32>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse, N, H, G, L2, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -211,22 +202,23 @@ extern "C" {
 
 // Sorted inputs: q, k, v [N, H, D]; rank [N] f32; quant [N, 3] int32; r [N]
 // f32 or NULL (cubic branch); kmin, kmax [N / 128] int32; qT, kT [N, H, 3, L2]
-// f32; tv [L2, 3, H, D] f32; out [N, H, D] f32. D in {4, 8, 16, 32}.
+// f32; tv [L2, 3, H, D] f32; out [N, H, D] f32; lse [N, H] f32. D in
+// {4, 8, 16, 32}.
 // Returns the cudaError_t of the launch.
 int wattn_rpe_fwd_f32(const void* q, const void* k, const void* v, const void* rank,
                       const void* quant, const void* r, const void* kmin, const void* kmax,
-                      const void* qT, const void* kT, const void* tv, void* out, int N, int H,
-                      int D, int G, int L2, float a, void* stream) {
-  return dispatch<float>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H, G, L2,
-                         a, stream);
+                      const void* qT, const void* kT, const void* tv, void* out, void* lse, int N,
+                      int H, int D, int G, int L2, float a, void* stream) {
+  return dispatch<float>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse, N, H, G,
+                         L2, a, stream);
 }
 
 int wattn_rpe_fwd_bf16(const void* q, const void* k, const void* v, const void* rank,
                        const void* quant, const void* r, const void* kmin, const void* kmax,
-                       const void* qT, const void* kT, const void* tv, void* out, int N, int H,
-                       int D, int G, int L2, float a, void* stream) {
-  return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, N, H,
-                                 G, L2, a, stream);
+                       const void* qT, const void* kT, const void* tv, void* out, void* lse, int N,
+                       int H, int D, int G, int L2, float a, void* stream) {
+  return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, tv, out, lse,
+                                 N, H, G, L2, a, stream);
 }
 
 }  // extern "C"

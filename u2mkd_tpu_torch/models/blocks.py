@@ -6,9 +6,15 @@ they mirror (``SparseConv_i`` -> ``conv{i}``, ``MaskedBatchNorm_i`` ->
 ``bn{i}``, ``Dense_i`` -> ``fc{i}``), so ``models/convert_weights.py`` is a
 plain rename.
 
-Every ks=3 stride-1 conv runs through kernel K1 (``rulebook_conv``) at every
-width; ``plain = True`` on a :class:`SparseConv` runs its plain version
-instead, on any device (the reference a card run is held against).
+Every ks=3 stride-1 conv runs through kernels K1 and K1b
+(``spconv_kernel.RulebookConv``: forward, input gradient, weight gradient) at
+every width; ``plain = True`` on a :class:`SparseConv` runs its plain forward
+instead, differentiated by autograd, on any device (the reference a card run
+is held against).
+
+The random draws of training (:class:`DropPath`, :class:`Dropout`) take an
+explicit ``torch.Generator`` on the features' device, handed in by the
+caller (the train step); they never draw from the global generator.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ class SparseConv(nn.Module):
         if self.plain:
             out = spconv_kernel.rulebook_conv_plain(f, wc, level.nbr27)
         else:
-            out = spconv_kernel.rulebook_conv(f, wc, level.nbr27)
+            out = spconv_kernel.RulebookConv.apply(f, wc, level.nbr27)
         return out.to(feats.dtype)
 
 
@@ -191,18 +197,37 @@ class PointMLP(nn.Module):
         return torch.relu(self.bn0(self.fc0(feats), mask))
 
 
+def _keep_mask(shape, rate: float, x: torch.Tensor, generator) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("a training draw needs an explicit torch.Generator "
+                         "on the features' device")
+    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm ``DropPath``); identity in eval."""
 
-    def __init__(self, rate: float, generator=None):
+    def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        draw = torch.rand(shape, generator=self.generator, device=x.device)
-        return torch.where(draw < keep, x / keep, 0.0)
+        keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), self.rate, x, generator)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout (flax ``nn.Dropout``): keep with probability
+    1 - rate and scale by 1 / (1 - rate); identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = _keep_mask(x.shape, self.rate, x, generator)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)

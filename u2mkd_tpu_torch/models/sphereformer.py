@@ -3,7 +3,7 @@
 Port of ``u2mkd_tpu/models/sphereformer.py`` on its host-geometry path
 (``pregeom``): the heads split into a cubic-window branch over xyz (the first
 ``h // 2``) and a radial-window branch over (theta, beta, r), each with
-contextual RPE, both run in f32 through kernel K3
+contextual RPE, both run in f32 through kernels K3, K4 and K5
 (``ops/kernels/wattn_kernel.flash_pregeom_batched``), concatenated on the head
 axis and projected; then an MLP(4x) residual. Flax defaults are kept:
 LayerNorm eps 1e-6 and the tanh approximation of GELU.
@@ -11,7 +11,7 @@ LayerNorm eps 1e-6 and the tanh approximation of GELU.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,9 +101,11 @@ class SphereFormerBlock(nn.Module):
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor,
-                geom: Dict[str, WindowGeom]) -> torch.Tensor:
-        x = feats + self.drop_path1(self.attn(self.norm1(feats), mask, geom))
+                geom: Dict[str, WindowGeom],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the drop-path masks in training."""
+        x = feats + self.drop_path1(self.attn(self.norm1(feats), mask, geom), generator)
         y = self.mlp_fc2(nn.functional.gelu(self.mlp_fc1(self.norm2(x)),
                                             approximate="tanh"))
-        x = x + self.drop_path2(y)
+        x = x + self.drop_path2(y, generator)
         return torch.where(mask[..., None], x, 0.0)

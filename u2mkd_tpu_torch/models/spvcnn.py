@@ -74,7 +74,7 @@ class SPVCNN(nn.Module):
             setattr(self, f"up{i}_res0",
                     blocks.SparseResBlock(cout + skips[i], cout, generator=gen))
             setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, generator=gen))
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = blocks.Dropout(dropout_rate)
         self.classifier_vox = blocks.dense(cs[8], num_classes, gen)
 
     def set_plain(self, plain: bool) -> None:
@@ -84,10 +84,12 @@ class SPVCNN(nn.Module):
             if isinstance(m, (blocks.SparseConv, SphereAttention)):
                 m.plain = plain
 
-    def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing):
+    def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
+                generator: Optional[torch.Generator] = None):
         """pfeats [B, P, Cin] -> {"x_vox": [B, P, num_classes]} (and
         "pts_feats", the stage-4 features at the points, when
-        ``return_point_feats``)."""
+        ``return_point_feats``). In training, ``generator`` (on the model's
+        device) draws the dropout and drop-path masks."""
         lv = plumbing.levels
         pmask = plumbing.pmask
         caps = [l.grid.capacity for l in lv]
@@ -105,14 +107,14 @@ class SPVCNN(nn.Module):
             f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
             f = getattr(self, f"sphereformer{idx + 1}")(
-                f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx))
+                f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx), generator)
             vox_feats.append(f)
         x1, x2, x3, x4 = vox_feats[1:]
 
         x4_pts = voxel_to_point(x4, plumbing.devox_idx[4], plumbing.devox_w[4])
         z1 = x4_pts + self.point_transform0(z0, pmask)
 
-        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]))
+        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]), generator)
         y1 = self.up0_deconv(y1, lv[3].up_parent, lv[3].up_koff, lv[3].grid.mask)
         y1 = torch.cat([y1, x3], dim=-1)
         y1 = self.up0_res1(self.up0_res0(y1, lv[3]), lv[3])
@@ -123,7 +125,7 @@ class SPVCNN(nn.Module):
         z2 = voxel_to_point(y2, plumbing.devox_idx[2], plumbing.devox_w[2])
         z2 = z2 + self.point_transform1(z1, pmask)
 
-        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]))
+        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]), generator)
         y3 = self.up2_deconv(y3, lv[1].up_parent, lv[1].up_koff, lv[1].grid.mask)
         y3 = torch.cat([y3, x1], dim=-1)
         y3 = self.up2_res1(self.up2_res0(y3, lv[1]), lv[1])
@@ -145,11 +147,13 @@ class SPVCNN(nn.Module):
 def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.1,
                   head_dim: int = 16, seed: int = 0,
                   device: Optional[Union[str, torch.device]] = None,
-                  return_point_feats: bool = False) -> SPVCNN:
+                  return_point_feats: bool = False, dropout_rate: float = 0.3,
+                  drop_path_rate: float = 0.3) -> SPVCNN:
     """The flagship teacher (``__graft_entry__._teacher_model``): windows of
     6 voxels quantized in 24 steps, sphere windows [2 deg, 2 deg, 120 m],
-    both doubling per level. Random weights from ``seed``, in eval mode, on
-    ``device`` (CUDA unless asked otherwise)."""
+    both doubling per level; dropout 0.3 and drop path up to 0.3 in
+    training (the tests set them to 0). Random weights from ``seed``, in
+    eval mode, on ``device`` (CUDA unless asked otherwise)."""
     dev = resolve_device(device)
     ws = voxel_size * 6
     gen = torch.Generator().manual_seed(seed)
@@ -157,6 +161,7 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
         num_classes=num_classes, cr=cr, window_size=(ws, ws, ws),
         quant_size=(ws / 24, ws / 24, ws / 24), window_size_sphere=(2.0, 2.0, 120.0),
         quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
-        drop_path_rate=0.3, sphere_a=0.0125, head_dim=head_dim,
+        dropout_rate=dropout_rate, drop_path_rate=drop_path_rate, sphere_a=0.0125,
+        head_dim=head_dim,
         return_point_feats=return_point_feats, generator=gen)
     return model.to(dev).eval()

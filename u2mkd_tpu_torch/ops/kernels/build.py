@@ -3,8 +3,9 @@
 Each source under ``u2mkd_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``u2mkd_tpu_torch/_build/`` (listed in ``.gitignore``). The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and concurrent builders never see a half-written file.
+file name carries a hash of its source, of every header under ``csrc/`` and
+of the flags, so an edited source or shared header is rebuilt and concurrent
+builds never see a half-written file.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("rulebook_conv", "wattn_rpe_fwd")
+KERNEL_SOURCES = ("rulebook_conv", "rulebook_conv_bwd", "wattn_rpe_fwd", "wattn_rpe_bwd_q",
+                  "wattn_rpe_bwd_k")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,18 +1,30 @@
-"""Kernel K3: window attention with contextual RPE, forward, on the H100.
+"""Kernels K3, K4 and K5: window attention with contextual RPE on the H100,
+forward and backward.
 
-The CUDA source is ``csrc/wattn_rpe_fwd.cu``; it replaces the TPU kernel
-``u2mkd_tpu/ops/pallas/wattn_kernel.py:_call_fwd`` with its XLA prologue and
-V-table epilogue. :func:`flash_rpe_sorted` launches it for CUDA tensors and
-takes the plain version, :func:`flash_rpe_sorted_plain`
-(``ops/wattn.window_attention_rpe``), only for tensors on the CPU.
-:func:`flash_pregeom_batched` is the model's entry: gather by the host
-geometry's ``order``, attend, gather back by ``inv``, zero invalid rows.
+  * K3, ``csrc/wattn_rpe_fwd.cu`` (:func:`flash_rpe_fwd`): the forward and
+    each row's log-sum-exp; it replaces the TPU kernel
+    ``u2mkd_tpu/ops/pallas/wattn_kernel.py:_call_fwd`` with its XLA prologue
+    and V-table epilogue.
+  * K4, ``csrc/wattn_rpe_bwd_q.cu`` (:func:`flash_rpe_bwd_q`): dq and the
+    query-side bin masses; it replaces ``_call_bwd_q``.
+  * K5, ``csrc/wattn_rpe_bwd_k.cu`` (:func:`flash_rpe_bwd_k`): dk, dv and the
+    key-side bin masses; it replaces ``_call_bwd_k``.
+
+Each wrapper launches its kernel for CUDA tensors and takes the plain
+version (``ops/wattn.py``) only for tensors on the CPU. :class:`FlashRPE` is
+the autograd function over them. Its inputs are the window-sorted q, k, v,
+the table projections qT = q . Tq and kT = k . Tk, and the value table; the
+projections are computed outside it, so autograd's einsum backward turns the
+masses (the gradients of qT and kT) into dq, dk, dTq and dTk, as the JAX
+package's XLA epilogue does. :func:`flash_pregeom_batched` is the model's
+entry: gather by the host geometry's ``order``, attend, gather back by
+``inv``, zero invalid rows; autograd scatter-adds the gathers back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,21 +34,179 @@ from u2mkd_tpu_torch.ops.kernels import build
 
 SOURCE = "u2mkd_tpu_torch/csrc/wattn_rpe_fwd.cu"
 REPLACES = "u2mkd_tpu/ops/pallas/wattn_kernel.py:909"
-TILE = 128  # query rows per block; the host geometry's kmin/kmax tile
+SOURCE_BWD_Q = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_q.cu"
+REPLACES_BWD_Q = "u2mkd_tpu/ops/pallas/wattn_kernel.py:948"
+SOURCE_BWD_K = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_k.cu"
+REPLACES_BWD_K = "u2mkd_tpu/ops/pallas/wattn_kernel.py:988"
+TILE = 128  # rows per block; the host geometry's kmin/kmax tile
 HEAD_DIMS = (4, 8, 16, 32)
 
-_FNS = {torch.float32: "wattn_rpe_fwd_f32", torch.bfloat16: "wattn_rpe_fwd_bf16"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+flash_rpe_fwd_plain = wattn.window_attention_rpe_fwd
+flash_rpe_bwd_plain = wattn.window_attention_rpe_bwd
 flash_rpe_sorted_plain = wattn.window_attention_rpe
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = getattr(build.load("wattn_rpe_fwd"), _FNS[dtype])
-    fn.argtypes = [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P]
+def _kernel_fn(source: str, dtype: torch.dtype, n_ptrs: int):
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    fn = getattr(build.load(source), f"{source}_{suffix}")
+    fn.argtypes = [_P] * n_ptrs + [_I] * 5 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
+
+
+def _check(what: str, qs, ks, vs, rank, quant, r, kmin, kmax, f32s) -> None:
+    """Raise unless the inputs are what the kernels take; ``f32s`` are the
+    further f32 inputs."""
+    n, h, d = qs.shape
+    if qs.dtype not in (torch.float32, torch.bfloat16) or ks.dtype != qs.dtype \
+            or vs.dtype != qs.dtype:
+        raise TypeError(f"{what} takes f32 or bf16 q/k/v of one dtype, "
+                        f"got {qs.dtype}, {ks.dtype}, {vs.dtype}")
+    if d not in HEAD_DIMS or n % TILE or tuple(kmin.shape) != (n // TILE,) \
+            or ks.shape != qs.shape or vs.shape != qs.shape:
+        raise ValueError(f"{what}: head dim {d} (takes {HEAD_DIMS}), N={n} (a "
+                         f"multiple of {TILE}), kmin {tuple(kmin.shape)}")
+    if (rank.dtype != torch.float32 or quant.dtype != torch.int32
+            or kmin.dtype != torch.int32 or kmax.dtype != torch.int32
+            or (r is not None and r.dtype != torch.float32)
+            or any(t.dtype != torch.float32 for t in f32s)):
+        raise TypeError(f"{what}: rank/r and the projections and gradients are "
+                        f"f32, quant/kmin/kmax int32")
+    if tuple(quant.shape) != (n, 3) or tuple(rank.shape) != (n,):
+        raise ValueError(f"{what}: quant {tuple(quant.shape)}, rank "
+                         f"{tuple(rank.shape)} for N={n}")
+    extra = () if r is None else (r,)
+    build.check_tensors(what, qs, ks, vs, rank, quant, kmin, kmax, *f32s, *extra)
+
+
+def flash_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                  qT: torch.Tensor, kT: torch.Tensor, table_v: torch.Tensor,
+                  rank: torch.Tensor, quant: torch.Tensor, r: Optional[torch.Tensor],
+                  kmin: torch.Tensor, kmax: torch.Tensor, grid_len: int,
+                  a: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3. Window-sorted qs/ks/vs [N, h, d] (N = pad_to, q pre-scaled; f32
+    or bf16), projections qT/kT [N, h, 3, L2] f32, table_v [L2, 3, h, d],
+    rank [N] f32, quant [N, 3] int32, r [N] f32 or None, per-tile key ranges
+    kmin/kmax [N / 128] int32 -> (out f32 [N, h, d], lse f32 [N, h])."""
+    if qs.device.type == "cpu":
+        return flash_rpe_fwd_plain(qs, ks, vs, qT, kT, table_v, rank, quant, r,
+                                   grid_len, a)
+    n, h, d = qs.shape
+    l2 = qT.shape[-1]
+    tv = table_v.float().contiguous()
+    if tuple(qT.shape) != (n, h, 3, l2) or kT.shape != qT.shape \
+            or tuple(tv.shape) != (l2, 3, h, d):
+        raise ValueError(f"flash_rpe_fwd: qT {tuple(qT.shape)}, kT {tuple(kT.shape)}, "
+                         f"table_v {tuple(tv.shape)} for N={n}, h={h}, d={d}")
+    _check("flash_rpe_fwd", qs, ks, vs, rank, quant, r, kmin, kmax, (qT, kT, tv))
+    out = torch.empty(n, h, d, dtype=torch.float32, device=qs.device)
+    lse = torch.empty(n, h, dtype=torch.float32, device=qs.device)
+    rc = _kernel_fn("wattn_rpe_fwd", qs.dtype, 13)(
+        qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(),
+        quant.data_ptr(), None if r is None else r.data_ptr(), kmin.data_ptr(),
+        kmax.data_ptr(), qT.data_ptr(), kT.data_ptr(), tv.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), n, h, d, int(grid_len), l2, float(a),
+        build.stream_of(qs))
+    build.check_rc(rc, "flash_rpe_fwd")
+    flash_rpe_fwd.launches += 1
+    return out, lse
+
+
+flash_rpe_fwd.launches = 0
+
+
+def _bwd_launch(source: str, what: str, qs, ks, vs, qT, kT, edo, rank, quant, r,
+                lse, do, dfac, kmin, kmax, grid_len, a, out_shapes):
+    n, h, d = qs.shape
+    l2 = qT.shape[-1]
+    if (tuple(qT.shape) != (n, h, 3, l2) or kT.shape != qT.shape or edo.shape != qT.shape
+            or do.shape != qs.shape or tuple(lse.shape) != (n, h)
+            or dfac.shape != lse.shape):
+        raise ValueError(f"{what}: qT {tuple(qT.shape)}, kT {tuple(kT.shape)}, edo "
+                         f"{tuple(edo.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, dfac {tuple(dfac.shape)} for N={n}, h={h}")
+    _check(what, qs, ks, vs, rank, quant, r, kmin, kmax, (qT, kT, edo, do, lse, dfac))
+    outs = [torch.empty(s, dtype=torch.float32, device=qs.device) for s in out_shapes]
+    rc = _kernel_fn(source, qs.dtype, 17)(
+        qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(), quant.data_ptr(),
+        None if r is None else r.data_ptr(), kmin.data_ptr(), kmax.data_ptr(),
+        qT.data_ptr(), kT.data_ptr(), edo.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dfac.data_ptr(), *(o.data_ptr() for o in outs), n, h, d, int(grid_len), l2,
+        float(a), build.stream_of(qs))
+    build.check_rc(rc, what)
+    return outs
+
+
+def flash_rpe_bwd_q(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin, kmax,
+                    grid_len: int, a: float):
+    """K4: the inputs of :func:`flash_rpe_fwd` (projections f32), edo = do .
+    Tv [N, h, 3, L2], lse and dfac = sum_d do * out [N, h], do [N, h, d], all
+    f32 -> f32 (dq [N, h, d], mq [N, h, 3, L2], pm [N, h, 3, L2]); see
+    :func:`wattn.window_attention_rpe_bwd`."""
+    if qs.device.type == "cpu":
+        dq, _, _, mq, _, pm = flash_rpe_bwd_plain(qs, ks, vs, qT, kT, edo, rank, quant, r, lse,
+                                                  do, dfac, grid_len, a)
+        return dq, mq, pm
+    n, h, d = qs.shape
+    m = (n, h, 3, qT.shape[-1])
+    dq, mq, pm = _bwd_launch("wattn_rpe_bwd_q", "flash_rpe_bwd_q", qs, ks, vs, qT, kT, edo,
+                             rank, quant, r, lse, do, dfac, kmin, kmax, grid_len, a,
+                             ((n, h, d), m, m))
+    flash_rpe_bwd_q.launches += 1
+    return dq, mq, pm
+
+
+flash_rpe_bwd_q.launches = 0
+
+
+def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin, kmax,
+                    grid_len: int, a: float):
+    """K5: the inputs of :func:`flash_rpe_bwd_q` -> f32 (dk [N, h, d], dv
+    [N, h, d], mk [N, h, 3, L2])."""
+    if qs.device.type == "cpu":
+        _, dk, dv, _, mk, _ = flash_rpe_bwd_plain(qs, ks, vs, qT, kT, edo, rank, quant, r, lse,
+                                                  do, dfac, grid_len, a)
+        return dk, dv, mk
+    n, h, d = qs.shape
+    dk, dv, mk = _bwd_launch("wattn_rpe_bwd_k", "flash_rpe_bwd_k", qs, ks, vs, qT, kT, edo,
+                             rank, quant, r, lse, do, dfac, kmin, kmax, grid_len, a,
+                             ((n, h, d), (n, h, d), (n, h, 3, qT.shape[-1])))
+    flash_rpe_bwd_k.launches += 1
+    return dk, dv, mk
+
+
+flash_rpe_bwd_k.launches = 0
+
+
+class FlashRPE(torch.autograd.Function):
+    """Window attention over sorted rows with gradients for q, k, v, the
+    projections qT and kT, and the value table. Forward K3, backward K4 and
+    K5 (their plain versions on the CPU); dTv = sum_i pm[i] (x) do_i."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, qT, kT, table_v, rank, quant, r, kmin, kmax,
+                grid_len: int, a: float):
+        geo = (rank, quant, r, kmin, kmax)
+        out, lse = flash_rpe_fwd(qs, ks, vs, qT, kT, table_v, *geo, grid_len, a)
+        ctx.save_for_backward(qs, ks, vs, qT, kT, table_v, out, lse)
+        ctx.geo, ctx.grid_len, ctx.a = geo, grid_len, a
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, ks, vs, qT, kT, tv, out, lse = ctx.saved_tensors
+        rank, quant, r, kmin, kmax = ctx.geo
+        do = g.float().contiguous()
+        args = (qs, ks, vs, qT, kT, wattn.table_projections(do, tv), rank, quant, r, lse,
+                do, (do * out).sum(-1), kmin, kmax, ctx.grid_len, ctx.a)
+        dq, mq, pm = flash_rpe_bwd_q(*args)
+        dk, dv, mk = flash_rpe_bwd_k(*args)
+        dtv = torch.einsum("nhal,nhd->lahd", pm, do)
+        return (dq.to(qs.dtype), dk.to(ks.dtype), dv.to(vs.dtype), mq, mk,
+                dtv.to(tv.dtype)) + (None,) * 7
 
 
 def flash_rpe_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
@@ -45,47 +215,13 @@ def flash_rpe_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                      kmax: torch.Tensor, table_q: torch.Tensor,
                      table_k: torch.Tensor, table_v: torch.Tensor,
                      grid_len: int, a: float) -> torch.Tensor:
-    """Window-sorted qs/ks/vs [N, h, d] (N = pad_to, q pre-scaled; f32 or
-    bf16), rank [N] f32, quant [N, 3] int32, r [N] f32 or None, per-tile key
-    ranges kmin/kmax [N / 128] int32, tables [L2, 3, h, d] -> f32 [N, h, d].
-    """
-    if qs.device.type == "cpu":
-        return flash_rpe_sorted_plain(qs, ks, vs, rank, quant, r, table_q,
-                                      table_k, table_v, grid_len, a)
-    n, h, d = qs.shape
-    l2 = table_q.shape[0]
-    if qs.dtype not in _FNS or ks.dtype != qs.dtype or vs.dtype != qs.dtype:
-        raise TypeError(f"flash_rpe_sorted takes f32 or bf16 q/k/v of one dtype, "
-                        f"got {qs.dtype}, {ks.dtype}, {vs.dtype}")
-    if d not in HEAD_DIMS or n % TILE or tuple(kmin.shape) != (n // TILE,):
-        raise ValueError(f"flash_rpe_sorted: head dim {d} (takes {HEAD_DIMS}), "
-                         f"N={n} (a multiple of {TILE}), kmin {tuple(kmin.shape)}")
-    if (rank.dtype != torch.float32 or quant.dtype != torch.int32
-            or kmin.dtype != torch.int32 or kmax.dtype != torch.int32
-            or (r is not None and r.dtype != torch.float32)):
-        raise TypeError("flash_rpe_sorted: rank/r are f32, quant/kmin/kmax int32")
-    if tuple(quant.shape) != (n, 3) or tuple(table_v.shape) != (l2, 3, h, d):
-        raise ValueError(f"flash_rpe_sorted: quant {tuple(quant.shape)}, "
-                         f"table_v {tuple(table_v.shape)} for N={n}, h={h}, d={d}")
+    """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), the geometry's
+    arrays, tables [L2, 3, h, d] -> f32 [N, h, d], differentiable: the
+    projections, then :class:`FlashRPE`."""
     qT = wattn.table_projections(qs, table_q)
     kT = wattn.table_projections(ks, table_k)
-    tv = table_v.float().contiguous()
-    extra = () if r is None else (r,)
-    build.check_tensors("flash_rpe_sorted", qs, ks, vs, rank, quant, kmin, kmax,
-                        qT, kT, tv, *extra)
-    out = torch.empty(n, h, d, dtype=torch.float32, device=qs.device)
-    rc = _kernel_fn(qs.dtype)(
-        qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(),
-        quant.data_ptr(), None if r is None else r.data_ptr(), kmin.data_ptr(),
-        kmax.data_ptr(), qT.data_ptr(), kT.data_ptr(), tv.data_ptr(),
-        out.data_ptr(), n, h, d, int(grid_len), l2, float(a),
-        build.stream_of(qs))
-    build.check_rc(rc, "flash_rpe_sorted")
-    flash_rpe_sorted.launches += 1
-    return out
-
-
-flash_rpe_sorted.launches = 0
+    return FlashRPE.apply(qs, ks, vs, qT, kT, table_v, rank, quant, r, kmin, kmax,
+                          grid_len, a)
 
 
 def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,8 +231,9 @@ def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           plain: bool = False) -> torch.Tensor:
     """Window attention over host geometry: q/k/v [B, V, h, d], valid
     [B, V] -> [B, V, h, d] in q's dtype, zero on invalid rows. ``plain``
-    runs the plain version on any device (the reference a card run is held
-    against); otherwise K3 runs on CUDA tensors."""
+    runs the plain forward on any device, differentiated by autograd (the
+    reference a card run is held against); otherwise K3 (and K4, K5 in the
+    backward) run on CUDA tensors."""
     b, vcap, h, d = q.shape
     n = b * vcap
     order = geom.order

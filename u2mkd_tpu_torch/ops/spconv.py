@@ -25,11 +25,27 @@ def kernel_offsets(ks: int) -> np.ndarray:
     return np.asarray(offs, np.int32)
 
 
+def rev_perm_27() -> np.ndarray:
+    """rev[k] = index of -offset[k] in the ks=3 offset order. (0,0,0) comes
+    first, so this is not ``26 - k``. The host rulebook is symmetric under
+    it: ``nbr[rev[k], nbr[k, v]] == v`` wherever ``nbr[k, v]`` is valid."""
+    offs = kernel_offsets(3)
+    lut = {tuple(o): i for i, o in enumerate(offs)}
+    return np.asarray([lut[tuple(-o)] for o in offs], np.int32)
+
+
 def gather_rows(feats: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``feats[rows]`` with zero rows where ``rows`` is -1 or >= len(feats)."""
+    """``feats[rows]`` with zero rows where ``rows`` is -1 or >= len(feats).
+
+    An absent entry reads row (its position mod V), not row 0: the value is
+    masked to zero either way, but the gather's backward (an accumulating
+    ``index_put``, which sums each run of one repeated row serially) then
+    meets no run of tens of thousands of entries on one row. Only zeros
+    land on those rows, so the gradient is unchanged."""
     v = feats.shape[0]
     ok = (rows >= 0) & (rows < v)
-    g = feats[rows.clamp(0, v - 1).long()]
+    spread = torch.arange(rows.numel(), device=rows.device).view(rows.shape) % v
+    g = feats[torch.where(ok, rows.long(), spread)]
     return torch.where(ok[..., None], g, torch.zeros((), dtype=g.dtype,
                                                      device=g.device))
 

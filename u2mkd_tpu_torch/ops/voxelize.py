@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from u2mkd_tpu_torch.ops.spconv import gather_rows
+
 
 def segment_mean(feats: torch.Tensor, seg_ids: torch.Tensor, capacity: int) -> torch.Tensor:
     """Mean of ``feats`` [P, C] rows grouped by ``seg_ids`` [P] into
@@ -35,7 +37,6 @@ def trilinear_devoxelize(vfeats: torch.Tensor, idx8: torch.Tensor,
                          w8: torch.Tensor) -> torch.Tensor:
     """Blend the 8 neighbour voxel rows of each point: vfeats [V, C],
     idx8 [P, 8] (-1 absent), w8 [P, 8] -> [P, C]."""
-    safe = idx8.clamp(0, vfeats.shape[0] - 1).long()
-    g = vfeats[safe]                                           # [P, 8, C]
+    g = gather_rows(vfeats, idx8)                              # [P, 8, C]
     w = torch.where(idx8 >= 0, w8, 0.0).to(vfeats.dtype)
     return torch.einsum("pkc,pk->pc", g, w)

@@ -1,5 +1,6 @@
 """Window attention with contextual relative position encoding, in plain
-PyTorch: the plain version of kernel K3 (``ops/kernels/wattn_kernel.py``).
+PyTorch: the plain versions of kernels K3 (forward), K4 and K5 (backward),
+``ops/kernels/wattn_kernel.py``.
 
 Port of the semantics of ``u2mkd_tpu/ops/wattn.py`` (``_rel_indices``,
 ``_tile_attention``) over host-built window geometry
@@ -9,22 +10,23 @@ contiguous run of equal ``rank``. For query i and key j of one window:
   * difference axes: bin = clip(q_i, 0, G-1) - clip(q_j, 0, G-1) + G - 1;
   * radial axis (sphere branch, ``r`` given): bin =
     clip(exponential_split_index(r_i - r_j), 0, 2G - 1);
-  * score = q_i.k_j + sum_a q_i.Tq[bin_a, a] + sum_a k_j.Tk[bin_a, a], the
-    sum running over all three axes;
+  * score = q_i.k_j + sum_a qT[i, a, bin_a] + sum_a kT[j, a, bin_a], the sum
+    running over all three axes, with qT = q . Tq and kT = k . Tk the table
+    projections (:func:`table_projections`);
   * out_i = sum_j softmax_j(score) (v_j + sum_a Tv[bin_a, a]).
 
-This version enumerates every (query, key) pair of every window, which is
-exact and independent of the kernel's tiling.
+These versions enumerate every (query, key) pair of every window, which is
+exact and independent of the kernels' tiling.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
-# pairs per chunk, times heads: bounds the plain version's transient memory
+# pairs per chunk, times heads: bounds the plain versions' transient memory
 _PAIR_BUDGET = 1 << 22
 
 
@@ -46,23 +48,12 @@ def table_projections(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nhd,lahd->nhal", x.float(), table.float()).contiguous()
 
 
-def window_attention_rpe(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-                         rank: torch.Tensor, quant: torch.Tensor,
-                         r: Optional[torch.Tensor], table_q: torch.Tensor,
-                         table_k: torch.Tensor, table_v: torch.Tensor,
-                         grid_len: int, a: float) -> torch.Tensor:
-    """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), rank [N], quant
-    [N, 3], r [N] or None -> f32 [N, h, d]."""
-    n, h, d = qs.shape
-    g = int(grid_len)
-    dev = qs.device
-    q, k, v = qs.float(), ks.float(), vs.float()
-    tv = table_v.float()
-    qT = table_projections(q, table_q)
-    kT = table_projections(k, table_k)
-    cq = quant.long().clamp(0, g - 1)
-
-    # each row's window: the run of equal rank that holds it
+def _pair_chunks(rank: torch.Tensor, h: int) -> Iterator[Tuple[int, int, torch.Tensor,
+                                                               torch.Tensor]]:
+    """Every (query, key) pair of every window, in chunks of whole query
+    rows: yields (lo, hi, qi, kj) with queries lo..hi-1 and their pairs."""
+    n = rank.shape[0]
+    dev = rank.device
     new = torch.ones(n, dtype=torch.bool, device=dev)
     new[1:] = rank[1:] != rank[:-1]
     run = torch.cumsum(new.long(), 0) - 1
@@ -70,38 +61,133 @@ def window_attention_rpe(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
     counts = torch.bincount(run)
     start_i, cnt_i = starts[run], counts[run]
     cum = torch.cumsum(cnt_i, 0)
-
-    out = torch.empty(n, h, d, dtype=torch.float32, device=dev)
     budget = max(_PAIR_BUDGET // h, int(cnt_i.max()))
     lo = 0
     while lo < n:
         base = int(cum[lo - 1]) if lo else 0
-        hi = int(torch.searchsorted(cum, base + budget, right=True))
-        hi = max(hi, lo + 1)
-        qi = torch.repeat_interleave(torch.arange(lo, hi, device=dev),
-                                     cnt_i[lo:hi])
-        first = torch.repeat_interleave(cum[lo:hi] - cnt_i[lo:hi] - base,
-                                        cnt_i[lo:hi])
+        hi = max(int(torch.searchsorted(cum, base + budget, right=True)), lo + 1)
+        qi = torch.repeat_interleave(torch.arange(lo, hi, device=dev), cnt_i[lo:hi])
+        first = torch.repeat_interleave(cum[lo:hi] - cnt_i[lo:hi] - base, cnt_i[lo:hi])
         kj = start_i[qi] + torch.arange(len(qi), device=dev) - first
+        yield lo, hi, qi, kj
+        lo = hi
 
-        idx = cq[qi] - cq[kj] + g - 1                               # [M, 3]
-        if r is not None:
-            rb = exponential_split_index(r[qi] - r[kj], a).long()
-            idx[:, 2] = rb.clamp(0, 2 * g - 1)
-        s = (q[qi] * k[kj]).sum(-1)                                 # [M, h]
-        for ax in range(3):
-            sel = idx[:, ax][:, None, None].expand(-1, h, 1)
-            s = s + qT[qi, :, ax].gather(2, sel)[..., 0] \
-                + kT[kj, :, ax].gather(2, sel)[..., 0]
+
+def _bins(cq: torch.Tensor, r: Optional[torch.Tensor], qi: torch.Tensor,
+          kj: torch.Tensor, g: int, a: float) -> torch.Tensor:
+    """The three RPE bins [M, 3] of the pairs (qi, kj)."""
+    idx = cq[qi] - cq[kj] + g - 1
+    if r is not None:
+        idx[:, 2] = exponential_split_index(r[qi] - r[kj], a).long().clamp(0, 2 * g - 1)
+    return idx
+
+
+def _lookup(t: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor, ax: int) -> torch.Tensor:
+    """t [N, h, 3, L2] at (rows, :, ax, idx[:, ax]) -> [M, h]."""
+    h = t.shape[1]
+    sel = idx[:, ax][:, None, None].expand(-1, h, 1)
+    return t[rows, :, ax].gather(2, sel)[..., 0]
+
+
+def _scores(q, k, qT, kT, qi, kj, idx):
+    s = (q[qi] * k[kj]).sum(-1)                                       # [M, h]
+    for ax in range(3):
+        s = s + _lookup(qT, qi, idx, ax) + _lookup(kT, kj, idx, ax)
+    return s
+
+
+def window_attention_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                             qT: torch.Tensor, kT: torch.Tensor, table_v: torch.Tensor,
+                             rank: torch.Tensor, quant: torch.Tensor,
+                             r: Optional[torch.Tensor], grid_len: int,
+                             a: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K3. Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), their
+    projections qT/kT [N, h, 3, L2], table_v [L2, 3, h, d], rank [N], quant
+    [N, 3], r [N] or None -> (out f32 [N, h, d], lse f32 [N, h]).
+    Differentiable: the softmax max is taken without gradient, so autograd
+    through this function stays exact and cheap."""
+    n, h, d = qs.shape
+    g = int(grid_len)
+    dev = qs.device
+    q, k, v = qs.float(), ks.float(), vs.float()
+    tv = table_v.float()
+    cq = quant.long().clamp(0, g - 1)
+    outs, lses = [], []
+    for lo, hi, qi, kj in _pair_chunks(rank, h):
+        idx = _bins(cq, r, qi, kj, g, a)
+        s = _scores(q, k, qT, kT, qi, kj, idx)
         seg = qi - lo
-        smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
-            0, seg[:, None].expand(-1, h), s, "amax")
+        with torch.no_grad():
+            smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
+                0, seg[:, None].expand(-1, h), s.detach(), "amax")
         e = torch.exp(s - smax[seg])
-        den = torch.zeros(hi - lo, h, device=dev).index_add_(0, seg, e)
+        den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
         p = e / den[seg]
         val = (v[kj] + tv[idx[:, 0], 0] + tv[idx[:, 1], 1]
-               + tv[idx[:, 2], 2])                                  # [M, h, d]
-        out[lo:hi] = torch.zeros(hi - lo, h, d, device=dev).index_add_(
-            0, seg, p[..., None] * val)
-        lo = hi
-    return out
+               + tv[idx[:, 2], 2])                                    # [M, h, d]
+        outs.append(torch.zeros(hi - lo, h, d, device=dev).index_add(
+            0, seg, p[..., None] * val))
+        lses.append(smax + torch.log(den))
+    return torch.cat(outs), torch.cat(lses)
+
+
+def window_attention_rpe(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                         rank: torch.Tensor, quant: torch.Tensor,
+                         r: Optional[torch.Tensor], table_q: torch.Tensor,
+                         table_k: torch.Tensor, table_v: torch.Tensor,
+                         grid_len: int, a: float) -> torch.Tensor:
+    """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), rank [N], quant
+    [N, 3], r [N] or None, tables [L2, 3, h, d] -> f32 [N, h, d]."""
+    qT = table_projections(qs, table_q)
+    kT = table_projections(ks, table_k)
+    return window_attention_rpe_fwd(qs, ks, vs, qT, kT, table_v, rank, quant, r,
+                                    grid_len, a)[0]
+
+
+def window_attention_rpe_bwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                             qT: torch.Tensor, kT: torch.Tensor, edo: torch.Tensor,
+                             rank: torch.Tensor, quant: torch.Tensor,
+                             r: Optional[torch.Tensor], lse: torch.Tensor,
+                             do: torch.Tensor, dfac: torch.Tensor, grid_len: int,
+                             a: float) -> Tuple[torch.Tensor, ...]:
+    """Plain K4 and K5. With p = exp(s - lse_i), dp = do_i.v_j + sum_a
+    edo[i, a, bin_a] (edo = do . Tv), ds = p (dp - dfac_i) over every pair,
+    returns f32 (dq [N, h, d], dk, dv, mq [N, h, 3, L2], mk, pm):
+
+      dq[i] = sum_j ds k_j, dk[j] = sum_i ds q_i, dv[j] = sum_i p do_i,
+      mq[i, a, l] = sum_j ds [bin_a = l], mk[j, a, l] = sum_i ds [bin_a = l],
+      pm[i, a, l] = sum_j p [bin_a = l].
+    """
+    n, h, d = qs.shape
+    g = int(grid_len)
+    l2 = qT.shape[-1]
+    dev = qs.device
+    q, k, v = qs.float(), ks.float(), vs.float()
+    do, lse, dfac = do.float(), lse.float(), dfac.float()
+    cq = quant.long().clamp(0, g - 1)
+    dq = torch.zeros(n, h, d, device=dev)
+    dk = torch.zeros(n, h, d, device=dev)
+    dv = torch.zeros(n, h, d, device=dev)
+    mq = torch.zeros(n * h * 3 * l2, device=dev)
+    mk = torch.zeros(n * h * 3 * l2, device=dev)
+    pm = torch.zeros(n * h * 3 * l2, device=dev)
+    heads = torch.arange(h, device=dev)
+    for _, _, qi, kj in _pair_chunks(rank, h):
+        idx = _bins(cq, r, qi, kj, g, a)
+        p = torch.exp(_scores(q, k, qT, kT, qi, kj, idx) - lse[qi])  # [M, h]
+        dp = (do[qi] * v[kj]).sum(-1)
+        for ax in range(3):
+            dp = dp + _lookup(edo, qi, idx, ax)
+        ds = p * (dp - dfac[qi])
+        dq.index_add_(0, qi, ds[..., None] * k[kj])
+        dk.index_add_(0, kj, ds[..., None] * q[qi])
+        dv.index_add_(0, kj, p[..., None] * do[qi])
+        for ax in range(3):
+            col = ax * l2 + idx[:, ax][:, None]                          # [M, 1]
+            fq = (qi[:, None] * h + heads) * 3 * l2 + col                # [M, h]
+            fk = (kj[:, None] * h + heads) * 3 * l2 + col
+            mq.index_add_(0, fq.reshape(-1), ds.reshape(-1))
+            mk.index_add_(0, fk.reshape(-1), ds.reshape(-1))
+            pm.index_add_(0, fq.reshape(-1), p.reshape(-1))
+    shape = (n, h, 3, l2)
+    return dq, dk, dv, mq.view(shape), mk.view(shape), pm.view(shape)

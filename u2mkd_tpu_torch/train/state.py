@@ -1,46 +1,97 @@
-"""The teacher's eval step (port of ``make_eval_step`` of
-``u2mkd_tpu/train/state.py``): one inference request from a host batch to
-argmax predictions, IoU counters and logits."""
+"""The teacher's train and eval steps (port of ``make_train_step`` and
+``make_eval_step`` of ``u2mkd_tpu/train/state.py``): one training step or one
+inference request from a host batch.
+
+The JAX package's ``remat`` (a TPU memory workaround) and
+``overflow_checks`` (``train/overflow.py``, not ported yet) have no
+counterpart here.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
 from u2mkd_tpu_torch.models import plumbing as P
+from u2mkd_tpu_torch.ops import losses
 from u2mkd_tpu_torch.train import metrics
 
 
-def make_eval_step(model: torch.nn.Module, capacities: Sequence[int],
-                   num_classes: int, ignore_label: int = 0) -> Callable:
-    """Returns ``eval_fn(batch) -> {"pred", "counts", "logits"}``.
+def _batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
+    """-> (device, plumbing_of(batch), tensor_of(batch, key, dtype)).
 
     ``batch`` holds numpy arrays (``feats``, ``pmask``, ``keyframe_mask``,
     ``labels``, and ``pcoords``/``xyz``) as ``data/synthetic.make_batch``
     gives them; with a ``plumbing`` entry (``plumbing_host.batch_plumbing``)
-    the host build is skipped. Everything runs on the model's device."""
+    the host build is skipped."""
     device = next(model.parameters()).device
     wparams = wgeom_host.params_from_model(model)
 
-    def eval_fn(batch: Dict) -> Dict:
+    def plumbing_of(batch: Dict) -> P.UNetPlumbing:
         arrays = batch.get("plumbing")
         if arrays is None:
             arrays = plumbing_host.batch_plumbing(
                 batch["pcoords"], batch["xyz"], batch["pmask"], capacities,
                 wgeom_params=wparams)
-        pl = P.from_precomputed(arrays, batch["pmask"], device)
+        return P.from_precomputed(arrays, batch["pmask"], device)
 
-        def dev(key, dtype):
-            return torch.as_tensor(batch[key]).to(device=device, dtype=dtype)
+    def tensor_of(batch: Dict, key: str, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(batch[key]).to(device=device, dtype=dtype)
 
+    return device, plumbing_of, tensor_of
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    capacities: Sequence[int], ignore_label: int = 0,
+                    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                    generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns ``step_fn(batch) -> {"loss"}``: Lovász + CE on the points
+    that are valid, in a keyframe and not ``ignore_label``; the forward in
+    train mode (batch-stat BN, whose running stats update in place as flax's
+    mutable ``batch_stats`` do; dropout and drop path drawn from
+    ``generator``, a seeded one on the model's device by default); then the
+    backward, ``optimizer.step()`` and ``scheduler.step()``. The loss comes
+    back as a device tensor, so the step does not wait for the device."""
+    device, plumbing_of, tensor_of = _batch_reader(model, capacities)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def step_fn(batch: Dict) -> Dict:
+        pl = plumbing_of(batch)
+        labels = tensor_of(batch, "labels", torch.int64)
+        valid = pl.pmask & tensor_of(batch, "keyframe_mask", torch.bool) & (labels != ignore_label)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(tensor_of(batch, "feats", torch.float32), pl, generator)["x_vox"]
+        loss = losses.lovasz_ce(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                                valid.reshape(-1))
+        loss.backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {"loss": loss.detach()}
+
+    return step_fn
+
+
+def make_eval_step(model: torch.nn.Module, capacities: Sequence[int],
+                   num_classes: int, ignore_label: int = 0) -> Callable:
+    """Returns ``eval_fn(batch) -> {"pred", "counts", "logits"}`` (argmax
+    predictions, IoU counters and logits). Everything runs on the model's
+    device."""
+    _, plumbing_of, tensor_of = _batch_reader(model, capacities)
+
+    def eval_fn(batch: Dict) -> Dict:
+        pl = plumbing_of(batch)
         model.eval()
         with torch.no_grad():
-            logits = model(dev("feats", torch.float32), pl)["x_vox"]
+            logits = model(tensor_of(batch, "feats", torch.float32), pl)["x_vox"]
         pred = torch.argmax(logits, dim=-1)
-        valid = pl.pmask & dev("keyframe_mask", torch.bool)
-        counts = metrics.iou_counts(pred.reshape(-1), dev("labels", torch.int64).reshape(-1),
+        valid = pl.pmask & tensor_of(batch, "keyframe_mask", torch.bool)
+        counts = metrics.iou_counts(pred.reshape(-1),
+                                    tensor_of(batch, "labels", torch.int64).reshape(-1),
                                     valid.reshape(-1), num_classes, ignore_label)
         return {"pred": pred, "counts": counts, "logits": logits}
 
