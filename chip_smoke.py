@@ -17,8 +17,8 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
   4. profile: three more requests under ``torch.profiler``, device time by
      kernel, and the device's busy share against the unprofiled requests'
      CUDA-event time, so that no cost of the profiler counts as idle time;
-  5. plain check: one request through the plain versions on the card for
-     the agreement of predictions;
+  5. plain check: one request through the plain versions on the card, its
+     logits and predictions against the kernel request's;
   6. train: three teacher train steps (cr=1.0, P=131072, B=1, dropout and
      drop path at their config rates from a seeded device generator,
      ``sgd_spformer`` at lr 0.02) through ``train.state.make_train_step``,
@@ -28,7 +28,22 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
   7. grad check: every kernel launch of one train step against its plain
      version on the same arguments; and one step through the kernels and
      one through the plain versions from one copy of the weights and one
-     generator seed: the loss and every parameter's gradient.
+     generator seed: the loss and every parameter's gradient;
+  8. window entry: K2's own entry point, ``sparse_window_attention_flash``
+     (no model path reaches K2), at the level-1 shape of a teacher request
+     (N=65536, h=4, d=16) on its cubic and its sphere windows, counting K2's
+     launches; its kernel rows (small, and both main-path shapes, f32 and
+     bf16, with the jagged ``scaled_dot_product_attention`` as the library
+     yardstick) are in phase 2;
+  9. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
+     cr_t=2.0; P=65536, capacities (65536 ... 4096), 6 cameras at 360x640,
+     B=1) through ``train.distill.make_distill_eval_step`` without the
+     teacher, counting K1 and K3 launches; three more under
+     ``torch.profiler``; one through the plain versions on the card (the
+     voxel and pixel heads' logits and argmax agreement); and one request
+     with the teacher (cr_t=2.0 on its own 131072-point cloud), then again
+     with every K1 and K3 launch held to its plain version on the same
+     arguments, and again through the plain versions (both models' logits).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -56,6 +71,7 @@ PROFILED_REQUESTS = 3
 PROFILE_GROUPS = {"rulebook_conv_kernel": "K1 rulebook_conv",
                   "rulebook_conv_dw_kernel": "K1b rulebook_conv_dw",
                   "sum_splits_kernel": "K1b sum_splits",
+                  "wattn_fwd_kernel": "K2 wattn_fwd",
                   "wattn_rpe_fwd_kernel": "K3 wattn_rpe_fwd",
                   "wattn_rpe_bwd_q_kernel": "K4 wattn_rpe_bwd_q",
                   "wattn_rpe_bwd_k_kernel": "K5 wattn_rpe_bwd_k"}
@@ -85,6 +101,29 @@ GRAD_LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-3
 GRAD_SPREADS = 4.0
 GRAD_FLOOR = 1e-3
+# the stage-2 student (configs/nuscenes/train/spformer_tsd_full_ours_star.yaml:
+# num_points_student, student_capacities, voxels of 0.05 m, im_cr 0.4 of
+# nuScenes' 900x1600 images, the validation protocol's 6 cameras); its
+# teacher at cr_t=2.0 takes the teacher's P and CAPS
+STUDENT_P = 65536
+STUDENT_CAPS = (65536, 32768, 16384, 8192, 4096)
+STUDENT_VOXEL = 0.05
+NUM_CAMS = 6
+IM_HW = (360, 640)
+STUDENT_SEEDS = (41, 42, 43)
+CR_T = 2.0
+# launches per student request, read from models/msp2ifm.py as for the
+# teacher: 34 ks=3 convs (stem 2, encoder 16, decoder 16; the stride-2 downs
+# and 1x1 shortcuts are not K1) and 8 attention branches; the teacher adds
+# its own 34 and 8
+STUDENT_LAUNCHES = {"rulebook_conv": 34, "flash_rpe_fwd": 8}
+WITH_TEACHER_LAUNCHES = {"rulebook_conv": 68, "flash_rpe_fwd": 16}
+# K2's main-path shape: the teacher's level-1 voxels (N = 65536 capacity),
+# h=4, d=16; the level's cubic windows (6 voxels of 0.1 m) and sphere
+# windows on cart2sphere coordinates
+WINDOW_CUBIC = (0.6, 0.6, 0.6)
+WINDOW_SPHERE = (2.0, 2.0, 120.0)
+WINDOW_HEADS = 4
 F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12    # H100 SXM dense bf16 FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -96,13 +135,22 @@ HBM_BYTES_S = 3.35e12
 # all V rows of an offset in f32 from the same (f32 or bf16) inputs as its
 # plain version and returns f32: 1e-4 either way. K4 and K5 compute in f32
 # from the same inputs and return f32; each of their outputs is held to 1e-4
-# of its own largest entry.
-TOL = {("rulebook_conv", "f32"): 1e-4, ("rulebook_conv", "bf16"): 1e-2,
+# of its own largest entry. K2 computes in f32 from the same (f32 or bf16)
+# inputs as its plain version and returns f32: 1e-4 either way.
+TOL = {("flash_window_sorted", "f32"): 1e-4, ("flash_window_sorted", "bf16"): 1e-4,
+       ("rulebook_conv", "f32"): 1e-4, ("rulebook_conv", "bf16"): 1e-2,
        ("rulebook_conv_dx", "f32"): 1e-4, ("rulebook_conv_dx", "bf16"): 1e-2,
        ("rulebook_conv_dw", "f32"): 1e-4, ("rulebook_conv_dw", "bf16"): 1e-4,
        ("flash_rpe_fwd", "f32"): 1e-4, ("flash_rpe_fwd", "bf16"): 1e-4,
        ("flash_rpe_bwd_q", "f32"): 1e-4, ("flash_rpe_bwd_q", "bf16"): 1e-4,
        ("flash_rpe_bwd_k", "f32"): 1e-4, ("flash_rpe_bwd_k", "bf16"): 1e-4}
+# a whole request through the kernels against the same request through the
+# plain versions on the card: each head's logits on its rows within
+# REQUEST_RTOL of the largest plain logit (f32 sums in another order, and
+# scatters that add in no fixed order), and its predictions agreeing on
+# ARGMAX_AGREEMENT of the rows (two logits closer than that may swap)
+REQUEST_RTOL = 1e-4
+ARGMAX_AGREEMENT = 0.999
 OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
 
@@ -134,6 +182,20 @@ def cuda_ms(fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _timed(fn, batch):
+    """fn(batch) between two CUDA events -> (output, device ms, wall ms)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn(batch)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
 def phase_env():
@@ -181,11 +243,11 @@ def _errors(outs, refs):
     return err, rel
 
 
-def _compare(name, dtype, case, kernel, plain, bound, plain_ms=None):
+def _compare(name, dtype, case, kernel, plain, bound, plain_ms=None, timed=None):
     """Run ``kernel`` and ``plain`` (each returning a tensor or a tuple of
     tensors), hold every output of the kernel to TOL of the largest entry of
     the plain one, then time both (the plain one unless its time comes as
-    ``plain_ms``)."""
+    ``plain_ms``; ``timed``, a (kernel, plain) pair, times those instead)."""
     import torch
 
     outs_k, outs_p = kernel(), plain()
@@ -201,6 +263,8 @@ def _compare(name, dtype, case, kernel, plain, bound, plain_ms=None):
     if not rel <= tol:
         raise AssertionError(f"{name} {dtype} {case} disagrees with its plain "
                              f"version: {row}")
+    if timed is not None:
+        kernel, plain = timed
     row["ms"] = cuda_ms(kernel)
     row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1) if plain_ms is None else plain_ms
     if case == "main_path":
@@ -273,12 +337,12 @@ def conv_cases(level0):
 
 
 def _pairs(rank):
-    """sum over windows of occupancy^2: the (query, key) pairs K3 attends."""
+    """sum over windows of occupancy^2: the (query, key) pairs K2 and K3
+    attend."""
     import torch
+    from u2mkd_tpu_torch.ops import wattn
 
-    new = torch.ones_like(rank, dtype=torch.bool)
-    new[1:] = rank[1:] != rank[:-1]
-    counts = torch.bincount(torch.cumsum(new.long(), 0) - 1)
+    counts = torch.bincount(torch.cumsum(wattn.window_starts(rank).long(), 0) - 1)
     return int((counts.long() ** 2).sum())
 
 
@@ -287,24 +351,18 @@ def _small_geometry(n, g, radial, gen):
     coordinates in [-1, G] (clipping exercised), per-tile key ranges."""
     import torch
     from types import SimpleNamespace
+    from u2mkd_tpu_torch.ops import wattn
 
     dev = gen.device
     rank = torch.sort(torch.randint(0, 40, (n,), device=dev, generator=gen)).values.float()
-    new = torch.ones(n, dtype=torch.bool, device=dev)
-    new[1:] = rank[1:] != rank[:-1]
-    last = torch.ones_like(new)
-    last[:-1] = new[1:]
-    idx = torch.arange(n, device=dev)
-    start = torch.cummax(torch.where(new, idx, 0), 0).values
-    end = torch.flip(torch.cummin(torch.flip(torch.where(last, idx + 1, n), [0]), 0).values,
-                     [0])
+    start, end = wattn.window_bounds_from_sorted(rank)
     return SimpleNamespace(
         rank=rank,
         quant=torch.randint(-1, g + 1, (n, 3), device=dev, generator=gen,
                             dtype=torch.int32),
         r=(torch.rand(n, device=dev, generator=gen) * 3) if radial else None,
-        kmin=start[::128].int().contiguous(),
-        kmax=torch.maximum(end[127::128], start[::128] + 1).int().contiguous())
+        kmin=start[::128].contiguous(),
+        kmax=torch.maximum(end[127::128], start[::128] + 1).contiguous())
 
 
 def attention_cases(geoms):
@@ -379,6 +437,88 @@ def attention_cases(geoms):
     return rows
 
 
+def _jagged_sdpa(qs, ks, vs, rank):
+    """The library yardstick of K2: windows are contiguous runs of the
+    sorted rows, so ``scaled_dot_product_attention`` over jagged nested
+    tensors with offsets at the window starts computes K2's function. ->
+    (a call returning [N, h, d], its output)."""
+    import torch
+    import torch.nn.functional as F
+    from u2mkd_tpu_torch.ops import wattn
+
+    n = rank.shape[0]
+    offsets = torch.cat([torch.nonzero(wattn.window_starts(rank))[:, 0],
+                         torch.tensor([n], device=rank.device)])
+    nts = [torch.nested.nested_tensor_from_jagged(x.contiguous(), offsets).transpose(1, 2)
+           for x in (qs, ks, vs)]
+
+    def call():
+        return F.scaled_dot_product_attention(*nts, scale=1.0).transpose(1, 2).values()
+
+    return call, call()
+
+
+def window_cases(xyz, valid):
+    """K2 through its entry point against the plain version, f32 and bf16:
+    a small random case and the main-path shape (the teacher's level-1
+    voxels, ``WINDOW_HEADS`` heads of d=16) on cubic and on sphere windows.
+    The times are of the kernel alone, its plain version and the jagged
+    SDPA, on the window-sorted rows."""
+    import torch
+    from u2mkd_tpu_torch.ops import wattn
+    from u2mkd_tpu_torch.ops.kernels import wattn_kernel as K
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d = 16
+    small_xyz = torch.rand(4096, 3, device=dev, generator=gen) * 16 - 8
+    small_valid = torch.rand(4096, device=dev, generator=gen) < 0.9
+    cases = (("small", "cubic", small_xyz, small_valid, (2.0, 2.0, 2.0), 2),
+             ("main_path", "cubic", xyz, valid, WINDOW_CUBIC, WINDOW_HEADS),
+             ("main_path", "sphere", wattn.cart2sphere(xyz), valid, WINDOW_SPHERE,
+              WINDOW_HEADS))
+    rows = []
+    for case, branch, pos, ok, ws, h in cases:
+        sw = K.sort_by_window(pos, ok, ws)
+        n, vcap = sw.rank.shape[0], pos.shape[0]
+        pairs = _pairs(sw.rank)
+        windows = int(wattn.window_starts(sw.rank[:vcap]).sum())
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (torch.randn(vcap, h, d, device=dev, generator=gen)
+                       .mul(s).to(dtype) for s in (d ** -0.5, 1.0, 1.0))
+            qs, ks, vs = (torch.cat([x[sw.order], x.new_zeros(n - vcap, h, d)]).contiguous()
+                          for x in (q, k, v))
+            es = q.element_size()
+            row = _compare(
+                "flash_window_sorted", tag, case,
+                lambda: K.sparse_window_attention_flash(q, k, v, pos, ok, ws),
+                lambda: K.sparse_window_attention_flash(q, k, v, pos, ok, ws, plain=True),
+                dict(_bound(es * 3 * n * h * d + 4 * n * h * d + 4 * n + 8 * (n // K.TILE),
+                            4.0 * pairs * h * d, F32_PEAK), pairs=pairs),
+                timed=(lambda: K.flash_window_sorted(qs, ks, vs, sw.rank, sw.kmin, sw.kmax),
+                       lambda: K.flash_window_sorted_plain(qs, ks, vs, sw.rank)))
+            row.update(branch=branch, heads=h, windows=windows,
+                       largest_window=int(torch.bincount(sw.rank[:vcap]).max()))
+            if case == "main_path":
+                call, lib = _jagged_sdpa(qs[:vcap], ks[:vcap], vs[:vcap], sw.rank[:vcap])
+                ref = K.flash_window_sorted_plain(qs[:vcap], ks[:vcap], vs[:vcap],
+                                                  sw.rank[:vcap])
+                row.update(library_ms=cuda_ms(call), library_dtype=tag,
+                           library_max_rel_err=_errors((lib,), (ref,))[1])
+            rows.append(row)
+    return rows
+
+
+def level1_voxels(raw):
+    """The level-1 voxel centres [V, 3] and mask [V] of one request's host
+    plumbing, on the card: K2's main-path rows."""
+    import torch
+
+    pl = raw["plumbing"]
+    return (torch.as_tensor(pl["voxxyz"][1][0], device=DEVICE),
+            torch.as_tensor(pl["vmask"][1][0], device=DEVICE).bool())
+
+
 def phase_kernels(model):
     import torch
     from u2mkd_tpu_torch.models.plumbing import from_precomputed
@@ -387,10 +527,39 @@ def phase_kernels(model):
     pl = from_precomputed(raw["plumbing"], raw["pmask"], DEVICE)
     rows = conv_cases(pl.levels[0])
     rows += attention_cases({b: pl.wgeom[b] for b in ("cubic", "sphere")})
+    rows += window_cases(*level1_voxels(raw))
     for row in rows:
         emit(dict(phase="kernels", **row))
     torch.cuda.synchronize()
-    return rows
+    return rows, raw
+
+
+def phase_window_entry(raw):
+    """K2's main path, its own entry point: ``sparse_window_attention_flash``
+    once on the level-1 voxels' cubic windows and once on their sphere
+    windows, f32; outputs finite, zero on invalid rows."""
+    import torch
+    from u2mkd_tpu_torch.ops import wattn
+    from u2mkd_tpu_torch.ops.kernels import wattn_kernel as K
+
+    xyz, valid = level1_voxels(raw)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    d = 16
+    q, k, v = (torch.randn(xyz.shape[0], WINDOW_HEADS, d, device=DEVICE, generator=gen)
+               .mul(s) for s in (d ** -0.5, 1.0, 1.0))
+    K.flash_window_sorted.launches = 0
+    for pos, ws in ((xyz, WINDOW_CUBIC), (wattn.cart2sphere(xyz), WINDOW_SPHERE)):
+        out = K.sparse_window_attention_flash(q, k, v, pos, valid, ws)
+        if not (bool(torch.isfinite(out).all()) and bool((out[~valid] == 0).all())):
+            raise AssertionError(f"K2's entry point gave non-finite or non-zero invalid rows "
+                                 f"on windows {ws}")
+    torch.cuda.synchronize()
+    launches = K.flash_window_sorted.launches
+    emit({"phase": "window_entry", "rows": int(xyz.shape[0]), "valid": int(valid.sum()),
+          "heads": WINDOW_HEADS, "launches": launches})
+    if launches != 2:
+        raise AssertionError(f"expected 2 K2 launches through its entry point: {launches}")
+    return launches
 
 
 def phase_main_path(model):
@@ -411,18 +580,11 @@ def phase_main_path(model):
     per_request, outs = [], []
     for seed, raw, host_ms in batches:
         before = [c.launches for c in counters]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = eval_fn(raw)
-        end.record()
-        end.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        out, device_ms, wall_ms = _timed(eval_fn, raw)
         logits = out["logits"]
         row = {"phase": "request", "seed": seed, "points": P,
                "valid_points": int(raw["pmask"].sum()), "host_ms": host_ms,
-               "device_ms": start.elapsed_time(end), "wall_ms": wall_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms,
                "logits_shape": list(logits.shape),
                "finite": bool(torch.isfinite(logits).all().item()),
                "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)},
@@ -448,28 +610,50 @@ def phase_main_path(model):
 
     # the same first request through the plain versions, on the card
     seed, raw, _ = batches[0]
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    _held_to_plain({"phase": "plain_check", "seed": seed, "points": P, "plain_wall_s": plain_s},
+                   outs[0], plain, (("vox", "logits", torch.as_tensor(raw["pmask"],
+                                                                      device=DEVICE)),))
+    emit({"phase": "main_path", "requests": len(per_request), "launches": launches,
+          "device_ms": [r["device_ms"] for r in per_request],
+          "host_ms": [r["host_ms"] for r in per_request]})
+    return launches
+
+
+def _plain_request(model, eval_fn, raw):
+    """``eval_fn(raw)`` through the plain versions on the card -> (its
+    output, wall s)."""
+    import torch
+
     model.set_plain(True)
     try:
         start = time.perf_counter()
         plain = eval_fn(raw)
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - start
+        return plain, time.perf_counter() - start
     finally:
         model.set_plain(False)
-    valid = torch.as_tensor(raw["pmask"], device=DEVICE)
-    agree = (plain["pred"] == outs[0]["pred"])[valid].float().mean().item()
-    diff = (plain["logits"] - outs[0]["logits"])[valid].abs().max().item()
-    scale = plain["logits"][valid].abs().max().item()
-    check = {"phase": "plain_check", "seed": seed, "points": P,
-             "argmax_agreement": agree, "max_logit_abs_diff": diff,
-             "max_abs_logit": scale, "plain_wall_s": plain_s}
+
+
+def _held_to_plain(check, out, plain, heads):
+    """Each head's argmax agreement, largest logit difference and largest
+    plain logit on its rows (``heads``: (name, logits key, bool rows))
+    between a request through the kernels, ``out``, and the same request
+    through the plain versions, ``plain``, added to ``check`` and emitted;
+    raises unless every head holds to REQUEST_RTOL and ARGMAX_AGREEMENT."""
+    for head, key, rows in heads:
+        got, want = out[key][rows], plain[key][rows]
+        check[f"argmax_agreement_{head}"] = (
+            got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        check[f"max_logit_abs_diff_{head}"] = (got - want).abs().max().item()
+        check[f"max_abs_logit_{head}"] = want.abs().max().item()
     emit(check)
-    if agree < 0.999:
-        raise AssertionError(f"kernel path disagrees with the plain path: {check}")
-    emit({"phase": "main_path", "requests": len(per_request), "launches": launches,
-          "device_ms": [r["device_ms"] for r in per_request],
-          "host_ms": [r["host_ms"] for r in per_request]})
-    return launches
+    for head, _, _ in heads:
+        if not (check[f"argmax_agreement_{head}"] >= ARGMAX_AGREEMENT
+                and check[f"max_logit_abs_diff_{head}"]
+                <= REQUEST_RTOL * check[f"max_abs_logit_{head}"]):
+            raise AssertionError(f"the kernel path disagrees with the plain path on the "
+                                 f"{head} head: {check}")
 
 
 def profile_by_kernel(fn, raw, reps, out_name):
@@ -536,17 +720,11 @@ def phase_train():
     steps = []
     for seed, raw, host_ms in batches:
         before = [c.launches for c in counters]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        loss = step_fn(raw)["loss"]
-        end.record()
-        end.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        out, device_ms, wall_ms = _timed(step_fn, raw)
+        loss = out["loss"]
         row = {"phase": "train_step", "seed": seed, "points": P,
                "valid_points": int(raw["pmask"].sum()), "host_ms": host_ms,
-               "device_ms": start.elapsed_time(end), "wall_ms": wall_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms,
                "loss": loss.item(), "finite": bool(torch.isfinite(loss).item()),
                "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)}}
         emit(row)
@@ -697,23 +875,221 @@ def phase_grad_check():
         raise AssertionError(f"kernel gradients disagree with the plain path: {row}")
 
 
-def kernels_line(rows, infer_launches, train_launches):
-    """One entry per port kernel. ``launches`` is its count over the two
-    main paths (the three requests and the three train steps; K1 counts its
-    forward and input-gradient launches), split in ``launches_by_path``; the
-    other numbers are from its slowest main-path-shape row in f32."""
+def student_batch(seed, model, with_teacher=False):
+    """A synthetic multimodal scan (``make_multimodal_batch``: the student
+    cloud with its cameras, and the teacher's multisweep cloud) with the
+    student's host plumbing (and the teacher's, ``with_teacher``) built;
+    -> (batch, host build ms)."""
+    from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
+
+    raw = synthetic.make_multimodal_batch(np.random.RandomState(seed), 1, STUDENT_P, P,
+                                          voxel_size=STUDENT_VOXEL, num_cams=NUM_CAMS,
+                                          im_hw=IM_HW)
+    parts = [("student", STUDENT_CAPS, model.model_s)]
+    if with_teacher:
+        parts.append(("teacher", CAPS, model.model_t))
+    t0 = time.perf_counter()
+    for part, caps, sub in parts:
+        b = raw[part]
+        b["plumbing"] = plumbing_host.batch_plumbing(
+            b["pcoords"], b["xyz"], b["pmask"], caps,
+            wgeom_params=wgeom_host.params_from_model(sub))
+    return raw, (time.perf_counter() - t0) * 1e3
+
+
+def _student_heads(raw):
+    """The student's heads and their rows for :func:`_held_to_plain`: the
+    voxel head on the valid points, the pixel head on those in a camera's
+    field of view."""
+    import torch
+
+    sb = raw["student"]
+    valid = torch.as_tensor(sb["pmask"], device=DEVICE)
+    return (("vox", "logits", valid),
+            ("pix", "logits_pix", valid & torch.as_tensor(sb["fov_mask"], device=DEVICE)))
+
+
+def phase_student(model):
+    """The stage-2 student's main path: three requests without the teacher,
+    each held to STUDENT_LAUNCHES; their profile; one request through the
+    plain versions on the card."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+    from u2mkd_tpu_torch.train import distill, metrics
+
+    eval_fn = distill.make_distill_eval_step(model, STUDENT_CAPS, CAPS, NUM_CLASSES)
+    batches = [(seed, *student_batch(seed, model)) for seed in STUDENT_SEEDS]
+    torch.cuda.synchronize()
+    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_request, outs = [], []
+    for seed, raw, host_ms in batches:
+        before = [c.launches for c in counters]
+        out, device_ms, wall_ms = _timed(eval_fn, raw)
+        sb = raw["student"]
+        fov = sb["pmask"] & sb["fov_mask"]
+        row = {"phase": "student_request", "seed": seed, "points": STUDENT_P,
+               "valid_points": int(sb["pmask"].sum()), "fov_points": int(fov.sum()),
+               "cameras": NUM_CAMS, "image_hw": list(IM_HW), "host_ms": host_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms,
+               "logits_shape": list(out["logits"].shape),
+               "logits_pix_shape": list(out["logits_pix"].shape),
+               "finite": bool(torch.isfinite(out["logits"]).all().item()
+                              and torch.isfinite(out["logits_pix"]).all().item()),
+               "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)},
+               "miou_vox_random_weights": metrics.compute_miou(
+                   {k: v.cpu().numpy() for k, v in out["counts_vox"].items()})[0],
+               "miou_pix_random_weights": metrics.compute_miou(
+                   {k: v.cpu().numpy() for k, v in out["counts_pix"].items()})[0]}
+        emit(row)
+        want = [1, STUDENT_P, NUM_CLASSES]
+        if not row["finite"] or row["logits_shape"] != want or row["logits_pix_shape"] != want:
+            raise AssertionError(f"bad student logits: {row}")
+        if row["launches"] != STUDENT_LAUNCHES:
+            raise AssertionError(f"expected {STUDENT_LAUNCHES} launches per request: {row}")
+        per_request.append(row)
+        outs.append(out)
+    launches = {c.__name__: c.launches for c in counters}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the student's path never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    warm_ms = float(np.median([r["device_ms"] for r in per_request[1:]]))
+    groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, batches[0][1],
+                                                     PROFILED_REQUESTS, "profile_student.txt")
+    emit({"phase": "student_profile", "requests": PROFILED_REQUESTS,
+          "device_busy_ms": busy_ms, "request_device_ms_unprofiled": warm_ms,
+          "device_busy_share": busy_ms / warm_ms,
+          "request_wall_ms_profiled": profiled_ms, "by_kernel": groups})
+
+    # the first request through the plain versions, on the card
+    seed, raw, _ = batches[0]
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    _held_to_plain({"phase": "student_plain_check", "seed": seed, "points": STUDENT_P,
+                    "plain_wall_s": plain_s}, outs[0], plain, _student_heads(raw))
+    emit({"phase": "student", "requests": len(per_request), "launches": launches,
+          "device_ms": [r["device_ms"] for r in per_request],
+          "host_ms": [r["host_ms"] for r in per_request],
+          "max_memory_allocated_bytes": peak})
+    return launches
+
+
+@contextlib.contextmanager
+def recording_conv_widths(widths):
+    """Inside, every K1 forward call appends its (Cin, Cout) to ``widths``
+    (the teacher's widest conv output, int(cr_t * 256), is twice the
+    student's).
+    The wrapper counts its launches on the function its module's name
+    holds, so the count is carried to the recorder and back."""
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S
+
+    kernel = S.rulebook_conv
+
+    def recorded(x, w, nbr):
+        widths.append(tuple(w.shape[1:]))
+        return kernel(x, w, nbr)
+
+    recorded.launches = kernel.launches
+    S.rulebook_conv = recorded
+    try:
+        yield widths
+    finally:
+        kernel.launches = recorded.launches
+        S.rulebook_conv = kernel
+
+
+def phase_student_with_teacher(model):
+    """One student request with the frozen teacher (cr_t=2.0) on its own
+    multisweep cloud: both models' launches, the teacher's widths among
+    them, and the points its IoU counters score (its valid keyframe points).
+    Then the request twice more: once with every K1 and K3 launch also run
+    through its plain version on the same arguments (the teacher's widths
+    up to 512 and its doubled head counts), each output held to TOL; and
+    once through the plain versions, the student's logits and the teacher's
+    held to the kernel request's as :func:`_held_to_plain` says."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+    from u2mkd_tpu_torch.train import distill
+
+    eval_fn = distill.make_distill_eval_step(model, STUDENT_CAPS, CAPS, NUM_CLASSES,
+                                             run_teacher=True)
+    raw, host_ms = student_batch(STUDENT_SEEDS[0], model, with_teacher=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd)
+    for c in counters:
+        c.launches = 0
+    widths = []
+    with recording_conv_widths(widths):
+        out, device_ms, wall_ms = _timed(eval_fn, raw)
+    launches = {c.__name__: c.launches for c in counters}
+    tb = raw["teacher"]
+    t_valid = tb["pmask"] & tb["keyframe_mask"] & (tb["labels"] != 0)
+    seen = np.bincount(tb["labels"][t_valid], minlength=NUM_CLASSES)
+    teacher_width = int(CR_T * 256)
+    row = {"phase": "student_with_teacher", "points": STUDENT_P, "teacher_points": P,
+           "teacher_valid_points": int(tb["pmask"].sum()), "host_ms": host_ms,
+           "device_ms": device_ms, "wall_ms": wall_ms, "launches": launches,
+           "largest_conv_out": max(w[1] for w in widths),
+           "counts_teacher_seen": out["counts_teacher"]["seen"].tolist(),
+           "finite": all(bool(torch.isfinite(out[k]).all().item())
+                         for k in ("logits", "logits_pix", "logits_teacher")),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(row)
+    if launches != WITH_TEACHER_LAUNCHES or len(widths) != WITH_TEACHER_LAUNCHES["rulebook_conv"]:
+        raise AssertionError(f"expected {WITH_TEACHER_LAUNCHES} launches with the teacher: "
+                             f"{row}")
+    if row["largest_conv_out"] != teacher_width or not row["finite"] \
+            or row["counts_teacher_seen"] != seen.tolist():
+        raise AssertionError(f"the teacher did not run at cr_t={CR_T} (widths up to "
+                             f"{teacher_width}) or scored other points: {row}")
+
+    per_launch = {}
+    with each_launch_held_to_plain(per_launch):
+        eval_fn(raw)
+    for name, r in per_launch.items():
+        r["tol_rel"] = TOL[(name, "f32")]
+    emit({"phase": "student_with_teacher_per_launch", "by_kernel": per_launch})
+    if {n: r["calls"] for n, r in per_launch.items()} != WITH_TEACHER_LAUNCHES \
+            or any(not r["max_rel_err"] <= r["tol_rel"] for r in per_launch.values()):
+        raise AssertionError(f"a kernel launch of the request with the teacher disagrees with "
+                             f"its plain version, or the launches are not "
+                             f"{WITH_TEACHER_LAUNCHES}: {per_launch}")
+
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    heads = _student_heads(raw) + (
+        ("teacher", "logits_teacher", torch.as_tensor(tb["pmask"], device=DEVICE)),)
+    _held_to_plain({"phase": "student_with_teacher_plain_check", "points": STUDENT_P,
+                    "teacher_points": P, "plain_wall_s": plain_s}, out, plain, heads)
+    return launches
+
+
+def kernels_line(rows, launches):
+    """One entry per port kernel. ``launches`` is its count over the main
+    paths that run it, each read from its own run (``launches[path]``: the
+    teacher's three requests "infer" and three train steps "train", the
+    student's three requests "student" and its request with the teacher
+    "student_teacher", K2's entry point "entry"; K1 counts its forward and
+    input-gradient launches), split in ``launches_by_path``; the other
+    numbers are from its slowest main-path-shape row in f32."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
+    def paths(name, *which):
+        return {p: launches[p][name] for p in which}
+
     by_path = {
-        "K1": {"infer": infer_launches["rulebook_conv"], "train": train_launches["rulebook_conv"],
-               "train_dx": train_launches["rulebook_conv_dx"]},
-        "K1b": {"train": train_launches["rulebook_conv_dw"]},
-        "K3": {"infer": infer_launches["flash_rpe_fwd"], "train": train_launches["flash_rpe_fwd"]},
-        "K4": {"train": train_launches["flash_rpe_bwd_q"]},
-        "K5": {"train": train_launches["flash_rpe_bwd_k"]},
+        "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher"),
+                   train_dx=launches["train"]["rulebook_conv_dx"]),
+        "K1b": paths("rulebook_conv_dw", "train"),
+        "K2": paths("flash_window_sorted", "entry"),
+        "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher"),
+        "K4": paths("flash_rpe_bwd_q", "train"),
+        "K5": paths("flash_rpe_bwd_k", "train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
+             ("K2", ("flash_window_sorted",), W.SOURCE_WINDOW, W.REPLACES_WINDOW),
              ("K3", ("flash_rpe_fwd",), W.SOURCE, W.REPLACES),
              ("K4", ("flash_rpe_bwd_q",), W.SOURCE_BWD_Q, W.REPLACES_BWD_Q),
              ("K5", ("flash_rpe_bwd_k",), W.SOURCE_BWD_K, W.REPLACES_BWD_K))
@@ -728,7 +1104,7 @@ def kernels_line(rows, infer_launches, train_launches):
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": None})
+                    "library_ms": rep.get("library_ms")})
     emit({"kernels": out})
 
 
@@ -743,6 +1119,7 @@ def main():
         return 1
     try:
         from u2mkd_tpu_torch.models.spvcnn import teacher_model
+        from u2mkd_tpu_torch.models.tsd import tsd_model
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
@@ -753,12 +1130,18 @@ def main():
     phase_env()
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
                           head_dim=16, seed=0, device=DEVICE)
-    rows = phase_kernels(model)
-    infer_launches = phase_main_path(model)
+    rows, raw = phase_kernels(model)
+    launches = {"infer": phase_main_path(model)}
     del model
-    train_launches = phase_train()
+    launches["train"] = phase_train()
     phase_grad_check()
-    kernels_line(rows, infer_launches, train_launches)
+    launches["entry"] = {"flash_window_sorted": phase_window_entry(raw)}
+    del raw
+    student = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
+                        head_dim=16, seed=0, device=DEVICE)
+    launches["student"] = phase_student(student)
+    launches["student_teacher"] = phase_student_with_teacher(student)
+    kernels_line(rows, launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

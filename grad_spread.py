@@ -56,7 +56,7 @@ def grads_of(raw, loss_kind, plain, nudge, deterministic):
         with torch.no_grad():
             for p in model.parameters():
                 p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, device=dev, generator=gen))
-    pl = from_precomputed(raw["plumbing"], raw["pmask"], dev)
+    pl = from_precomputed(raw["plumbing"], raw["pmask"], dev, model.point_levels)
     labels = torch.as_tensor(raw["labels"], device=dev, dtype=torch.int64)
     model.train(loss_kind != "smooth_eval")
     logits = model(torch.as_tensor(raw["feats"], device=dev, dtype=torch.float32), pl,

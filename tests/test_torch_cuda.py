@@ -19,9 +19,10 @@ import torch
 from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 from u2mkd_tpu_torch.models.plumbing import _window_geom_from_arrays
 from u2mkd_tpu_torch.models.spvcnn import teacher_model
+from u2mkd_tpu_torch.models.tsd import tsd_model
 from u2mkd_tpu_torch.ops import wattn
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
-from u2mkd_tpu_torch.train import optim, state
+from u2mkd_tpu_torch.train import distill, optim, state
 
 
 @pytest.fixture
@@ -140,6 +141,82 @@ def test_eval_step_kernels_match_plain(cuda_device):
     assert torch.isfinite(out["logits"]).all()
     assert _rel_err(out["logits"][valid], ref["logits"][valid]) <= 1e-4
     assert (out["pred"] == ref["pred"])[valid].float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_kernel_matches_plain(rng, cuda_device, dtype):
+    """K2 through its entry ``sparse_window_attention_flash`` against the
+    plain version on the same inputs: a skewed layout (one window of 3000
+    rows, so its tiles' key ranges span ~50 chunks, then single-row
+    windows) and random cubic and radial windows, every head dim. Both sides
+    compute in f32 from the same inputs and return f32: 1e-4 of the largest
+    output."""
+    v = 6000
+    skew = np.zeros((v, 3), np.float32)
+    skew[:3000] = 0.1
+    skew[3000:] = np.arange(3000)[:, None] * [2.0, 0, 0] + 10
+    rand = rng.uniform(-8, 8, (v, 3)).astype(np.float32)
+    cases = [(skew, (1.0, 1.0, 1.0), 16), (rand, (2.0, 2.0, 2.0), 4), (rand, (2.0, 2.0, 2.0), 8),
+             (wattn.cart2sphere(torch.from_numpy(rand)).numpy(), (20.0, 20.0, 120.0), 32)]
+    k2 = wattn_kernel.flash_window_sorted
+    for xyz, ws, d in cases:
+        q, k, vv = (torch.from_numpy(rng.randn(v, 2, d).astype(np.float32))
+                    .to(cuda_device, dtype) for _ in range(3))
+        valid = torch.from_numpy(rng.rand(v) < 0.9).to(cuda_device)
+        pos = torch.from_numpy(xyz).to(cuda_device)
+        before = k2.launches
+        out = wattn_kernel.sparse_window_attention_flash(q, k, vv, pos, valid, ws)
+        assert k2.launches == before + 1
+        ref = wattn_kernel.sparse_window_attention_flash(q, k, vv, pos, valid, ws, plain=True)
+        assert k2.launches == before + 1
+        assert out.dtype == torch.float32 and out.shape == (v, 2, d)
+        assert (out[~valid] == 0).all()
+        assert _rel_err(out, ref) <= 1e-4, (ws, d)
+    with pytest.raises(ValueError):
+        k2(q[:100], k[:100], vv[:100], valid.int()[:100], valid.int()[:1], valid.int()[:1])
+
+
+@pytest.mark.cuda
+def test_student_eval_step_kernels_match_plain(cuda_device):
+    """The stage-2 student's eval step at a small size (P=4096, 2 cameras at
+    72x128), without and with the cr_t=2.0 teacher: 34 K1 and 8 K3 launches
+    per student forward (68 and 16 with the teacher), and the same logits
+    and predictions as the plain versions on the card, the teacher's too.
+    The L2C scatter sums
+    with atomics in no fixed order, so predictions agree to 99.9%, logits
+    to 1e-4 of the largest."""
+    s_caps = (4096, 2048, 1024, 512, 256)
+    t_caps = (8192, 4096, 2048, 1024, 512)
+    model = tsd_model(num_classes=17, cr=1.0, cr_t=2.0, voxel_size=0.05, device=cuda_device)
+    raw = synthetic.make_multimodal_batch(np.random.RandomState(4), 1, 4096, 8192,
+                                          voxel_size=0.05, num_cams=2, im_hw=(72, 128))
+    valid = torch.from_numpy(raw["student"]["pmask"]).to(cuda_device)
+    fov = valid & torch.from_numpy(raw["student"]["fov_mask"]).to(cuda_device)
+    t_valid = torch.from_numpy(raw["teacher"]["pmask"]).to(cuda_device)
+    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd
+    for run_teacher, want in ((False, (34, 8)), (True, (68, 16))):
+        eval_fn = distill.make_distill_eval_step(model, s_caps, t_caps, 17,
+                                                 run_teacher=run_teacher)
+        before = (k1.launches, k3.launches)
+        out = eval_fn(raw)
+        assert (k1.launches - before[0], k3.launches - before[1]) == want
+        model.set_plain(True)
+        try:
+            ref = eval_fn(raw)
+        finally:
+            model.set_plain(False)
+        assert (k1.launches - before[0], k3.launches - before[1]) == want
+        heads = [("logits", valid), ("logits_pix", fov)]
+        if run_teacher:
+            heads.append(("logits_teacher", t_valid))
+        for key, rows in heads:
+            assert torch.isfinite(out[key]).all()
+            assert _rel_err(out[key][rows], ref[key][rows]) <= 1e-4, key
+            agree = (out[key].argmax(-1) == ref[key].argmax(-1))[rows].float().mean().item()
+            assert agree >= 0.999, key
+        assert ("counts_teacher" in out) == run_teacher
+        assert ("logits_teacher" in out) == run_teacher
 
 
 def _small_case(rng, cuda_device, radial, dtype, b=2, v=700, h=4, d=16, g=6):

@@ -44,6 +44,8 @@ def _random_variables(abstract, seed):
     def fill(path, leaf):
         name = path[-1].key
         shape = leaf.shape
+        if name == "kernel" and len(shape) == 4:       # flax nn.Conv, HWIO
+            return rng.randn(*shape) * (2.0 / np.prod(shape[:3])) ** 0.5
         if name == "kernel" and len(shape) == 3:
             b = (shape[0] * shape[1]) ** -0.5
             return rng.uniform(-b, b, shape)

@@ -1,9 +1,10 @@
 """Synthetic LiDAR-like scenes for tests and the chip smoke run.
 
-Port of ``make_scene`` and ``make_batch`` from ``u2mkd_tpu/data/synthetic.py``:
-a ground plane, a few box "vehicles", walls and a pole with consistent
-labels, drawn from a numpy ``RandomState`` so both packages see the same
-scans from one seed.
+Port of ``make_scene``, ``make_batch``, ``project_to_cameras`` and
+``make_multimodal_batch`` from ``u2mkd_tpu/data/synthetic.py``: a ground
+plane, a few box "vehicles", walls and a pole with consistent labels, and a
+fake camera rig, drawn from a numpy ``RandomState`` in the same order, so
+both packages see the same scans from one seed.
 """
 
 from __future__ import annotations
@@ -82,6 +83,86 @@ def make_scene(rng: np.random.RandomState, num_points: int, extent: float = 40.0
     intensity = rng.rand(num_points, 1).astype(np.float32)
     perm = rng.permutation(num_points)
     return xyz[perm], intensity[perm], labels[perm]
+
+
+def project_to_cameras(xyz: np.ndarray, num_cams: int = 6):
+    """Fake pinhole rig: cameras spaced around the azimuth, 90deg horizontal
+    FOV. Returns (coords [NCAM, N, 2] normalized [-1,1], masks [NCAM, N])."""
+    n = len(xyz)
+    coords = np.zeros((num_cams, n, 2), np.float32)
+    masks = np.zeros((num_cams, n), bool)
+    for ci in range(num_cams):
+        yaw = 2 * np.pi * ci / num_cams
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        left = np.array([-np.sin(yaw), np.cos(yaw), 0.0])
+        up = np.array([0.0, 0.0, 1.0])
+        d = xyz @ fwd
+        u = -(xyz @ left) / np.maximum(d, 1e-6)
+        v = -(xyz @ up - 1.5) / np.maximum(d, 1e-6)
+        ok = (d > 1.0) & (np.abs(u) < 1.0) & (np.abs(v) < 0.6)
+        coords[ci, :, 0] = np.clip(u, -1, 1)
+        coords[ci, :, 1] = np.clip(v / 0.6, -1, 1)
+        masks[ci] = ok
+    return coords, masks
+
+
+def make_multimodal_batch(
+    rng: np.random.RandomState,
+    batch_size: int,
+    num_points: int,
+    teacher_points: int,
+    voxel_size: float = 0.2,
+    num_cams: int = 2,
+    im_hw=(64, 96),
+):
+    """Paired student/teacher feed (reference
+    ``lc_semantic_nusc_tsd_full.py:458-462``): the student sees the
+    single-sweep cloud + cameras; the teacher sees the same keyframe points
+    plus extra 'sweep' points. ``t2s`` maps each student point to its row in
+    the teacher cloud."""
+    student = make_batch(rng, batch_size, num_points, voxel_size)
+    b = batch_size
+    h, w = im_hw
+    tp = teacher_points
+    teacher = dict(
+        pcoords=np.zeros((b, tp, 3), np.float32),
+        xyz=np.zeros((b, tp, 3), np.float32),
+        feats=np.zeros((b, tp, 4), np.float32),
+        labels=np.zeros((b, tp), np.int32),
+        pmask=np.zeros((b, tp), bool),
+        keyframe_mask=np.zeros((b, tp), bool),
+    )
+    t2s = np.full((b, num_points), -1, np.int32)
+    images = rng.rand(b, num_cams, h, w, 3).astype(np.float32)
+    pix_coords = np.zeros((b, num_cams, num_points, 2), np.float32)
+    cam_masks = np.zeros((b, num_cams, num_points), bool)
+    for i in range(b):
+        m = student["pmask"][i]
+        nm = int(m.sum())
+        # teacher cloud = student keyframe points first, then extra sweeps
+        n_extra = min(tp - nm, tp // 3)
+        extra_xyz = (rng.rand(n_extra, 3) * 30 - 15).astype(np.float32)
+        xyz_t = np.concatenate([student["xyz"][i, :nm], extra_xyz])
+        nt = len(xyz_t)
+        teacher["xyz"][i, :nt] = xyz_t
+        teacher["pcoords"][i, :nt] = np.round(xyz_t / voxel_size) - np.round(
+            xyz_t / voxel_size
+        ).min(0)
+        teacher["feats"][i, :nt, :3] = xyz_t
+        teacher["feats"][i, :nt, 3] = rng.rand(nt)
+        teacher["labels"][i, :nm] = student["labels"][i, :nm]
+        teacher["pmask"][i, :nt] = True
+        teacher["keyframe_mask"][i, :nm] = True
+        t2s[i, :nm] = np.arange(nm)
+        co, ma = project_to_cameras(student["xyz"][i, :nm], num_cams)
+        pix_coords[i, :, :nm] = co
+        cam_masks[i, :, :nm] = ma & m[None, :nm]
+    fov_mask = cam_masks.any(axis=1)
+    student.update(
+        images=images, pix_coords=pix_coords, cam_masks=cam_masks,
+        fov_mask=fov_mask,
+    )
+    return {"student": student, "teacher": teacher, "t2s": t2s}
 
 
 def make_batch(

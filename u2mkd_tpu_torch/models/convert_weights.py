@@ -1,15 +1,20 @@
 """Weight bridge from the JAX package's flax variables to the port.
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays of
-a flax SPVCNN (``variables["params"]``, ``variables["batch_stats"]``) and
-returns a state dict for the port's :class:`~u2mkd_tpu_torch.models.spvcnn.SPVCNN`.
-The port's module names mirror the flax tree, so the bridge is a rename:
+a flax model (``variables["params"]``, ``variables["batch_stats"]``) and
+returns a state dict for its counterpart in the port: a SPVCNN for
+:class:`~u2mkd_tpu_torch.models.spvcnn.SPVCNN`, a whole ``TSDFull`` tree
+(``model_s``, ``model_t``) for :class:`~u2mkd_tpu_torch.models.tsd.TSDFull`.
+The port's module names mirror the flax tree (the SwiftNet stages, the
+fusion layers and the learners included), so the bridge is a rename:
 
   * ``SparseConv_i`` / ``SparseDownConv_0`` / ``SparseDeconv_0`` -> ``conv{i}``,
     ``MaskedBatchNorm_i`` -> ``bn{i}``, ``Dense_i`` -> ``fc{i}``;
   * a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (``nn.Linear``);
-    a conv ``kernel`` [K, Cin, Cout] keeps the JAX layout;
-  * ``scale`` -> ``weight`` (LayerNorm and BN); BN ``mean``/``var`` from
+    a sparse conv ``kernel`` [K, Cin, Cout] keeps the JAX layout; a flax
+    ``nn.Conv`` kernel [kh, kw, Cin, Cout] (HWIO) becomes ``weight`` [Cout,
+    Cin, kh, kw] (``nn.Conv2d``);
+  * ``scale`` -> ``weight`` (LayerNorm and the BNs); BN ``mean``/``var`` from
     ``batch_stats`` -> ``running_mean``/``running_var``;
   * RPE tables ``rel_*`` [L2, 3, h, d] keep name and layout.
 """
@@ -49,18 +54,19 @@ def _key(path: Tuple[str, ...], leaf: str) -> str:
 
 def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """Flax ``params`` and ``batch_stats`` (nested dicts of arrays) -> a
-    state dict of f32 tensors for the port's SPVCNN."""
+    state dict of f32 tensors (copies) for the port's counterpart."""
     sd = {}
     for path, arr in _leaves(params):
         leaf = path[-1]
         if leaf == "kernel" and arr.ndim == 2:
             name, arr = "weight", arr.T
+        elif leaf == "kernel" and arr.ndim == 4:
+            name, arr = "weight", arr.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             name = "weight"
         else:
             name = leaf
-        sd[_key(path[:-1], name)] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        sd[_key(path[:-1], name)] = torch.from_numpy(np.array(arr, np.float32))
     for path, arr in _leaves(batch_stats):
-        sd[_key(path[:-1], _STAT_NAMES[path[-1]])] = torch.from_numpy(
-            np.ascontiguousarray(arr, np.float32))
+        sd[_key(path[:-1], _STAT_NAMES[path[-1]])] = torch.from_numpy(np.array(arr, np.float32))
     return sd

@@ -1,0 +1,239 @@
+"""The cross-modal student: an SPVCNN + SphereFormer LiDAR branch fused both
+ways with a SwiftNet-18 image branch (MSP2IFM).
+
+Port of ``u2mkd_tpu/models/msp2ifm.py``. Per encoder stage:
+
+  * sparse down conv, two residual blocks and a SphereFormer block (K1 and
+    K3; its window geometry comes from the host, ``level_geom``), then the
+    stage's point features (trilinear devoxelize);
+  * the image ResNet stage (and the SPP at stage 4);
+  * L2C: the point features scattered into each camera grid at 4 - idx
+    scales, averaged, then :class:`~fusion.L2CFusion`;
+  * C2L: image features gathered at the point projections, the learner's
+    pseudo-image features outside every field of view, then
+    :class:`~fusion.AttenFusionConv`;
+  * back into the voxel stream.
+
+The decoder is SPVCNN's; the pixel head decodes the image skips up to the
+image size and fetches per-point logits. ``lidar_only`` is the camera-free
+path: it skips the SphereFormer blocks, as the reference does, and fuses the
+learner's features. Attribute names mirror the flax module names.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from u2mkd_tpu_torch.models import blocks, fusion
+from u2mkd_tpu_torch.models import plumbing as P
+from u2mkd_tpu_torch.models.plumbing import UNetPlumbing, point_to_voxel, voxel_to_point
+from u2mkd_tpu_torch.models.sphereformer import SphereAttention, SphereFormerBlock
+from u2mkd_tpu_torch.models.swiftnet import (BNReluConv, SwiftNetResNet,
+                                             resize_bilinear_align_corners)
+from u2mkd_tpu_torch.ops import losses
+
+
+class SPVCNNSwiftNetMSP2IFM(nn.Module):
+    # the camera path meets the points at every level (L2C and C2L)
+    point_levels = (0, 1, 2, 3, 4)
+
+    def __init__(self, num_classes: int = 17, cr: float = 1.0, in_channel: int = 4,
+                 base_channels: Tuple[int, ...] = (32, 32, 64, 128, 256, 256, 128, 96, 96),
+                 dropout_rate: float = 0.3,
+                 window_size=(0.3, 0.3, 0.3), window_size_sphere=(2.0, 2.0, 120.0),
+                 quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
+                 window_size_scale=(2.0, 2.0), drop_path_rate: float = 0.3,
+                 sphere_a: float = 0.0125, head_dim: int = 16,
+                 adapt_out_ch: Optional[int] = None, run_pix_decoder: bool = True,
+                 generator=None):
+        super().__init__()
+        self.cr, self.head_dim = cr, head_dim
+        self.num_classes = num_classes
+        self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
+        self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
+        self.window_size_scale = tuple(window_size_scale)
+        self.adapt_out_ch, self.run_pix_decoder = adapt_out_ch, run_pix_decoder
+        cs = [int(cr * x) for x in base_channels]
+        gen = generator
+
+        self.pix_branch = SwiftNetResNet(generator=gen)
+        img_cs = self.pix_branch.img_cs
+        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, generator=gen)
+        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, generator=gen)
+        dpr = [float(x) for x in np.linspace(0, drop_path_rate, 7)]
+        ws, qs = list(window_size), list(quant_size)
+        wss, qss = list(window_size_sphere), list(quant_size_sphere)
+        wsc, wss_scale = window_size_scale
+        for idx in range(4):
+            c = cs[idx + 1]
+            setattr(self, f"down{idx}_conv",
+                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, generator=gen))
+            setattr(self, f"down{idx}_res0", blocks.SparseResBlock(cs[idx], c, generator=gen))
+            setattr(self, f"down{idx}_res1", blocks.SparseResBlock(c, c, generator=gen))
+            setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
+                dim=c, num_heads=c // head_dim, window_size=tuple(ws),
+                window_size_sphere=tuple(wss), quant_size=tuple(qs),
+                quant_size_sphere=tuple(qss), drop_path=dpr[idx + 1], a=sphere_a,
+                generator=gen))
+            ws = [w * wsc for w in ws]
+            qs = [q * wsc for q in qs]
+            wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
+            qss = [qss[0] * wss_scale, qss[1] * wss_scale, qss[2]]
+            setattr(self, f"l2c{idx}",
+                    fusion.L2CFusion(c, img_cs[idx + 1], img_cs[idx + 1], generator=gen))
+            setattr(self, f"learner{idx}", fusion.LearnerMLP(c, img_cs[idx + 1], generator=gen))
+            setattr(self, f"c2l{idx}",
+                    fusion.AttenFusionConv(c, img_cs[idx + 1], c, generator=gen))
+        if adapt_out_ch is not None:
+            self.adapt_fc = blocks.dense(cs[4], adapt_out_ch, gen)
+            self.adapt_bn = blocks.MaskedBatchNorm(adapt_out_ch)
+
+        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], generator=gen)
+        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], generator=gen)
+        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], generator=gen)
+        skips = (cs[3], cs[2], cs[1], cs[0])
+        for i in range(4):
+            cin, cout = cs[4 + i], cs[5 + i]
+            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, generator=gen))
+            setattr(self, f"up{i}_res0",
+                    blocks.SparseResBlock(cout + skips[i], cout, generator=gen))
+            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, generator=gen))
+        self.dropout = blocks.Dropout(dropout_rate)
+        self.classifier_vox = blocks.dense(cs[8], num_classes, gen)
+        if run_pix_decoder:
+            self.classifier_pix = BNReluConv(self.pix_branch.img_cs[4], num_classes, k=1,
+                                             generator=gen)
+
+    def set_plain(self, plain: bool) -> None:
+        """Run the kernels' plain versions (True) or the kernels (False) on
+        any device: the reference mode a card run is checked against."""
+        for m in self.modules():
+            if isinstance(m, (blocks.SparseConv, SphereAttention)):
+                m.plain = plain
+
+    def _l2c_map(self, pts_feat: torch.Tensor, pix_coords: torch.Tensor,
+                 cam_masks: torch.Tensor, size: Tuple[int, int], n_scales: int) -> torch.Tensor:
+        """The point features scattered into every camera grid at
+        ``n_scales`` scales (grid size halving), each resized to ``size``,
+        averaged: [B*NCAM, C, h, w]."""
+        ifh, ifw = size
+        l2c_map, cnt = 0.0, 1
+        for _ in range(n_scales):
+            c_ih = int(round(ifh / cnt + 0.01))
+            c_iw = int(round(ifw / cnt + 0.01))
+            grid = fusion.point_to_grid(pts_feat, pix_coords, cam_masks, (c_ih, c_iw))
+            l2c_map = l2c_map + resize_bilinear_align_corners(grid, (ifh, ifw))
+            cnt *= 2
+        return l2c_map / n_scales
+
+    def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
+                images: Optional[torch.Tensor], pix_coords: Optional[torch.Tensor],
+                cam_masks: Optional[torch.Tensor], fov_mask: Optional[torch.Tensor],
+                lidar_only: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """pfeats [B, P, Cin]; images [B, NCAM, H, W, 3] (the JAX package's
+        NHWC); pix_coords [B, NCAM, P, 2] in [-1, 1]; cam_masks [B, NCAM, P];
+        fov_mask [B, P]; the last four None with ``lidar_only``. The plumbing
+        carries the point maps of every level and the window geometry of
+        every encoder level. Returns {"x_vox" [B, P, classes]} and, on the
+        camera path, "x_pix" [B, P, classes] (zero outside every field of
+        view), "mse_loss" (one per stage) and "pts_feats" (the adapted
+        stage-4 features, with ``adapt_out_ch``)."""
+        lv = plumbing.levels
+        pmask = plumbing.pmask
+        caps = [l.grid.capacity for l in lv]
+        pb = self.pix_branch
+
+        x0 = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, caps[0])
+        x0 = self.stem1(self.stem0(x0, lv[0]), lv[0])
+        z0 = voxel_to_point(x0, plumbing.devox_idx[0], plumbing.devox_w[0])
+        if not lidar_only:
+            b, ncam, ih, iw, _ = images.shape
+            x_im = pb.forward_stem(images.reshape(b * ncam, ih, iw, 3).permute(0, 3, 1, 2))
+
+        vox_feats = [point_to_voxel(z0, plumbing.p2v[0], caps[0])]
+        img_skips, mse_losses = [], []
+        kd_feats = None
+        pts_feat = None
+        for idx in range(4):
+            f = getattr(self, f"down{idx}_conv")(
+                vox_feats[idx], lv[idx], down_nbr8=lv[idx + 1].down_nbr8,
+                out_mask=lv[idx + 1].grid.mask)
+            f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
+            f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
+            if not lidar_only:
+                geom = P.level_geom(plumbing, idx)
+                if geom is None:
+                    raise ValueError("the student's SphereFormer blocks need the host window "
+                                     "geometry (batch_plumbing with wgeom_params)")
+                f = getattr(self, f"sphereformer{idx + 1}")(
+                    f, lv[idx + 1].grid.mask, geom, generator)
+            pts_feat = voxel_to_point(f, plumbing.devox_idx[idx + 1],
+                                      plumbing.devox_w[idx + 1])
+            if idx == 3 and self.adapt_out_ch is not None:
+                kd_feats = torch.relu(self.adapt_bn(self.adapt_fc(pts_feat), pmask))
+
+            learner = getattr(self, f"learner{idx}")
+            c2l = getattr(self, f"c2l{idx}")
+            if lidar_only:
+                pts_feat = c2l(pts_feat, learner(pts_feat, pmask), pmask)
+            else:
+                x_im, skip = pb.forward_resblock(x_im, idx)
+                if idx == 3:
+                    skip = pb.forward_spp(skip)
+                size = tuple(skip.shape[-2:])
+                l2c_map = self._l2c_map(pts_feat, pix_coords, cam_masks, size, 4 - idx)
+                x_im, skip = getattr(self, f"l2c{idx}")(l2c_map, skip)
+                img_skips.append(skip)
+
+                ifc = skip.shape[1]
+                imf = fusion.feature_fetch(skip.reshape(b, ncam, ifc, *size), pix_coords,
+                                           cam_masks)
+                pseudo = learner(pts_feat, pmask)
+                imf = torch.where(fov_mask[..., None], imf, pseudo)
+                mse_losses.append(losses.masked_mse(
+                    pseudo.reshape(-1, ifc), imf.detach().reshape(-1, ifc),
+                    (fov_mask & pmask).reshape(-1)))
+                pts_feat = c2l(pts_feat, imf, pmask)
+            vox_feats.append(point_to_voxel(pts_feat, plumbing.p2v[idx + 1], caps[idx + 1]))
+
+        x1, x2, x3 = vox_feats[1:4]
+        # the stage-4 fused point features (reference :511)
+        z1 = pts_feat + self.point_transform0(z0, pmask)
+
+        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]), generator)
+        y1 = self.up0_deconv(y1, lv[3].up_parent, lv[3].up_koff, lv[3].grid.mask)
+        y1 = torch.cat([y1, x3], dim=-1)
+        y1 = self.up0_res1(self.up0_res0(y1, lv[3]), lv[3])
+
+        y2 = self.up1_deconv(y1, lv[2].up_parent, lv[2].up_koff, lv[2].grid.mask)
+        y2 = torch.cat([y2, x2], dim=-1)
+        y2 = self.up1_res1(self.up1_res0(y2, lv[2]), lv[2])
+        z2 = voxel_to_point(y2, plumbing.devox_idx[2], plumbing.devox_w[2])
+        z2 = z2 + self.point_transform1(z1, pmask)
+
+        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]), generator)
+        y3 = self.up2_deconv(y3, lv[1].up_parent, lv[1].up_koff, lv[1].grid.mask)
+        y3 = torch.cat([y3, x1], dim=-1)
+        y3 = self.up2_res1(self.up2_res0(y3, lv[1]), lv[1])
+
+        y4 = self.up3_deconv(y3, lv[0].up_parent, lv[0].up_koff, lv[0].grid.mask)
+        y4 = torch.cat([y4, x0], dim=-1)
+        y4 = self.up3_res1(self.up3_res0(y4, lv[0]), lv[0])
+        z3 = voxel_to_point(y4, plumbing.devox_idx[0], plumbing.devox_w[0])
+        z3 = z3 + self.point_transform2(z2, pmask)
+
+        out = {"x_vox": self.classifier_vox(z3)}
+        if not lidar_only:
+            out["mse_loss"] = mse_losses
+            if kd_feats is not None:
+                out["pts_feats"] = kd_feats
+            if self.run_pix_decoder:
+                fmap_pix = self.classifier_pix(pb.forward_up(img_skips, im_size=(ih, iw)))
+                out["x_pix"] = fusion.feature_fetch(
+                    fmap_pix.reshape(b, ncam, self.num_classes, ih, iw), pix_coords, cam_masks)
+        return out

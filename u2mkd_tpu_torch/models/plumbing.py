@@ -9,7 +9,7 @@ transfers are batched over the leading axis.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,16 +19,12 @@ from u2mkd_tpu_torch.core.structures import LevelContext, VoxelGrid, WindowGeom
 from u2mkd_tpu_torch.ops import voxelize
 
 
-# Levels at which SPVCNN's point branch meets the voxels (voxelize and
-# devoxelize); the point maps of the other levels stay on the host.
-POINT_LEVELS = (0, 2, 4)
-
-
 @dataclass
 class UNetPlumbing:
     levels: Tuple[LevelContext, ...]      # grids + rulebooks per level
     # [L] x [B, P] point -> voxel row (-1 none), [B, P, 8] trilinear rows and
-    # weights; None at levels outside POINT_LEVELS
+    # weights; None at the levels the model does not read
+    # (``point_levels`` of :func:`from_precomputed`)
     p2v: Tuple[Optional[torch.Tensor], ...]
     devox_idx: Tuple[Optional[torch.Tensor], ...]
     devox_w: Tuple[Optional[torch.Tensor], ...]
@@ -57,13 +53,17 @@ def _window_geom_from_arrays(g: dict, device) -> WindowGeom:
 
 
 def from_precomputed(arrays: Dict, pmask,
-                     device: Optional[Union[str, torch.device]] = None) -> UNetPlumbing:
+                     device: Optional[Union[str, torch.device]] = None,
+                     point_levels: Optional[Sequence[int]] = None) -> UNetPlumbing:
     """Assemble a UNetPlumbing on ``device`` (CUDA unless asked otherwise)
     from host arrays (``data/plumbing_host.batch_plumbing``): each entry is a
     list over levels of [B, ...] arrays. Only what the forward reads is
-    copied to the device."""
+    copied to the device: the point maps of ``point_levels`` (a model's
+    ``point_levels``; every level by default)."""
     dev = resolve_device(device)
     n_levels = len(arrays["vmask"])
+    if point_levels is None:
+        point_levels = range(n_levels)
     levels = []
     for li in range(n_levels):
         last = li == n_levels - 1
@@ -76,7 +76,7 @@ def from_precomputed(arrays: Dict, pmask,
             up_koff=None if last else _tensor(arrays["koff"][li], dev, torch.int32)))
 
     def point_maps(key, dtype):
-        return tuple(_tensor(x, dev, dtype) if li in POINT_LEVELS else None
+        return tuple(_tensor(x, dev, dtype) if li in point_levels else None
                      for li, x in enumerate(arrays[key]))
 
     p2v = point_maps("p2v", torch.int32)

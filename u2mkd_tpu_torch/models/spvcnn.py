@@ -24,6 +24,10 @@ from u2mkd_tpu_torch.models.sphereformer import SphereAttention, SphereFormerBlo
 
 
 class SPVCNN(nn.Module):
+    # levels at which the point branch meets the voxels (voxelize and
+    # devoxelize); the point maps of the other levels stay on the host
+    point_levels = (0, 2, 4)
+
     def __init__(self, num_classes: int = 17, cr: float = 1.0, in_channel: int = 4,
                  base_channels: Tuple[int, ...] = (32, 32, 64, 128, 256, 256, 128, 96, 96),
                  dropout_rate: float = 0.3,

@@ -1,0 +1,223 @@
+"""SwiftNet-ResNet-18 image branch.
+
+Port of ``u2mkd_tpu/models/swiftnet.py``: a ResNet-18 backbone with a
+stride-1 7x7 stem conv and a 3x3 stride-2 max-pool, BasicBlocks that return
+their post-ReLU sum as the skip (the reference's executed behaviour), a
+3-level spatial pyramid pooling bottleneck, and a light decoder (skip
+bottleneck + bilinear align-corners upsample + blend conv). The staged API
+(``forward_stem`` / ``forward_resblock`` / ``forward_spp`` / ``forward_up``)
+lets the fusion student interleave its LiDAR stages.
+
+The JAX package keeps images NHWC; the port keeps them NCHW, PyTorch's
+layout, and the fusion layers permute at the point boundaries. The
+convolutions are ``torch.nn.functional.conv2d`` (cuDNN on the card), as they
+were XLA convolutions outside any Pallas kernel. Attribute names mirror the
+flax module names, so ``models/convert_weights.py`` is a rename.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of x [N, C, H, W] to ``size`` with
+    ``align_corners=True`` (sample grid linspace(0, H-1, h); an output size
+    of 1 samples index 0), as the JAX package's resize."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+
+
+def _trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
+    """Truncated normal at +-2 std, scaled so that its std is ``std`` (flax's
+    ``variance_scaling(..., "truncated_normal")``)."""
+    s = std / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=s, a=-2 * s, b=2 * s, generator=generator)
+
+
+def conv(in_ch: int, out_ch: int, k: int, stride: int = 1, generator=None) -> nn.Conv2d:
+    """k x k conv with symmetric padding k // 2 and no bias, initialized
+    variance_scaling(2, fan_out, truncated normal) as the JAX package's."""
+    c = nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
+    _trunc_normal_(c.weight, (2.0 / (k * k * out_ch)) ** 0.5, generator)
+    return c
+
+
+def conv1x1(in_ch: int, out_ch: int, generator=None) -> nn.Conv2d:
+    """1x1 conv with a bias, initialized as flax's ``nn.Conv`` default
+    (lecun normal, zero bias)."""
+    c = nn.Conv2d(in_ch, out_ch, 1, bias=True)
+    _trunc_normal_(c.weight, (1.0 / in_ch) ** 0.5, generator)
+    with torch.no_grad():
+        c.bias.zero_()
+    return c
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm over NCHW maps with torch semantics: batch statistics in
+    training (biased variance to normalize, unbiased for the running
+    estimate), running statistics in eval."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            self.training, self.momentum, self.eps)
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock returning (relu(out), skip) with skip the same
+    post-ReLU tensor: the reference's in-place ReLU mutates the sum before
+    the pair is returned, and the JAX package follows what it executes."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, generator=None):
+        super().__init__()
+        self.conv1 = conv(in_ch, planes, 3, stride, generator)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = conv(planes, planes, 3, 1, generator)
+        self.bn2 = BatchNorm2d(planes)
+        if stride != 1 or in_ch != planes:
+            self.down_conv = conv(in_ch, planes, 1, stride, generator)
+            self.down_bn = BatchNorm2d(planes)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = self.down_bn(self.down_conv(x)) if hasattr(self, "down_conv") else x
+        act = torch.relu(out + residual)
+        return act, act
+
+
+class BNReluConv(nn.Module):
+    """BN -> ReLU -> conv (reference ``_BNReluConv``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 3, bn_momentum: float = 0.1,
+                 generator=None):
+        super().__init__()
+        self.norm = BatchNorm2d(in_ch, momentum=bn_momentum)
+        self.conv = conv(in_ch, out_ch, k, 1, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.relu(self.norm(x)))
+
+
+class SpatialPyramidPooling(nn.Module):
+    """3-level SPP (reference ``SpatialPyramidPooling``): a bottleneck, three
+    adaptive average pools to grids (g, max(1, round(aspect * g))), each
+    projected and resized back, and a fuse conv over the concatenation."""
+
+    def __init__(self, in_ch: int, bt_size: int = 128, level_size: int = 42,
+                 out_size: int = 128, grids: Sequence[int] = (8, 4, 2, 1),
+                 num_levels: int = 3, generator=None):
+        super().__init__()
+        self.grids, self.num_levels = tuple(grids), num_levels
+        self.spp_bn = BNReluConv(in_ch, bt_size, 1, 0.012, generator)
+        for i in range(num_levels):
+            setattr(self, f"spp{i}", BNReluConv(bt_size, level_size, 1, 0.012, generator))
+        self.spp_fuse = BNReluConv(bt_size + num_levels * level_size, out_size, 1, 0.012,
+                                   generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        ar = w / h
+        x = self.spp_bn(x)
+        levels = [x]
+        for i in range(self.num_levels):
+            g = self.grids[i]
+            # Python's round, as the JAX package (and the reference) take it
+            pooled = F.adaptive_avg_pool2d(x, (g, max(1, round(ar * g))))
+            lvl = getattr(self, f"spp{i}")(pooled)
+            levels.append(resize_bilinear_align_corners(lvl, (h, w)))
+        return self.spp_fuse(torch.cat(levels, dim=1))
+
+
+class Upsample(nn.Module):
+    """Skip bottleneck + align-corners upsample + blend (reference
+    ``_Upsample``)."""
+
+    def __init__(self, skip_ch: int, num_maps_in: int, num_maps_out: int, generator=None):
+        super().__init__()
+        self.bottleneck = BNReluConv(skip_ch, num_maps_in, 1, generator=generator)
+        self.blend_conv = BNReluConv(num_maps_in, num_maps_out, 3, generator=generator)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        skip = self.bottleneck(skip)
+        x = resize_bilinear_align_corners(x, skip.shape[-2:])
+        return self.blend_conv(x + skip)
+
+
+class SwiftNetResNet(nn.Module):
+    """ResNet-18 SwiftNet with the staged API; stage channels (stem and SPP
+    included) ``img_cs`` = [64, 64, 128, 256, 128]."""
+
+    PLANES = (64, 128, 256, 512)
+
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
+                 num_features: Sequence[int] = (128, 128, 128), generator=None):
+        super().__init__()
+        self.layers = tuple(layers)
+        nf = num_features[0]
+        self.img_cs = [64, 64, 128, 256, nf]
+        in_ch = 64
+        for li, n in enumerate(self.layers):
+            for bi in range(n):
+                stride = 2 if (li > 0 and bi == 0) else 1
+                setattr(self, f"layer{li + 1}_{bi}",
+                        BasicBlock(in_ch, self.PLANES[li], stride, generator))
+                in_ch = self.PLANES[li]
+        self.conv1 = conv(3, 64, 7, 1, generator)
+        self.bn1 = BatchNorm2d(64)
+        self.spp = SpatialPyramidPooling(in_ch, bt_size=nf, level_size=nf // 3, out_size=nf,
+                                         generator=generator)
+        for i, skip_ch in enumerate((256, 128, 64)):
+            setattr(self, f"up{i}", Upsample(skip_ch, nf, nf, generator))
+
+    def forward_stem(self, image: torch.Tensor) -> torch.Tensor:
+        """7x7/s1 conv + BN + ReLU + 3x3/s2 max-pool (padded with -inf);
+        image [N, 3, H, W]."""
+        x = torch.relu(self.bn1(self.conv1(image)))
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+
+    def forward_resblock(self, x: torch.Tensor, stage_idx: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        skip = None
+        for bi in range(self.layers[stage_idx]):
+            x, skip = getattr(self, f"layer{stage_idx + 1}_{bi}")(x)
+        return x, skip
+
+    def forward_spp(self, skip: torch.Tensor) -> torch.Tensor:
+        return self.spp(skip)
+
+    def forward_down(self, image: torch.Tensor) -> List[torch.Tensor]:
+        x = self.forward_stem(image)
+        feats = []
+        for i in range(4):
+            x, skip = self.forward_resblock(x, i)
+            feats.append(skip if i < 3 else self.forward_spp(skip))
+        return feats
+
+    def forward_up(self, features: Sequence[torch.Tensor],
+                   im_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        features = list(features)[::-1]
+        x = features[0]
+        for i, skip in enumerate(features[1:]):
+            x = getattr(self, f"up{i}")(x, skip)
+        if im_size is not None:
+            x = resize_bilinear_align_corners(x, im_size)
+        return x
+
+    def forward(self, image: torch.Tensor,
+                im_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        return self.forward_up(self.forward_down(image), im_size)

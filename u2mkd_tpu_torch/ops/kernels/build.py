@@ -23,8 +23,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("rulebook_conv", "rulebook_conv_bwd", "wattn_rpe_fwd", "wattn_rpe_bwd_q",
-                  "wattn_rpe_bwd_k")
+KERNEL_SOURCES = ("rulebook_conv", "rulebook_conv_bwd", "wattn_fwd", "wattn_rpe_fwd",
+                  "wattn_rpe_bwd_q", "wattn_rpe_bwd_k")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

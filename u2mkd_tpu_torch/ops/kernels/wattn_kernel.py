@@ -1,6 +1,14 @@
-"""Kernels K3, K4 and K5: window attention with contextual RPE on the H100,
-forward and backward.
+"""Kernels K2, K3, K4 and K5: window attention on the H100; K2 without
+position encoding (forward), K3, K4 and K5 with contextual RPE (forward and
+backward).
 
+  * K2, ``csrc/wattn_fwd.cu`` (:func:`flash_window_sorted`): RPE-free
+    attention within windows over a window-sorted sequence; it replaces the
+    TPU kernel of ``u2mkd_tpu/ops/pallas/wattn_kernel.py:
+    flash_window_attention_sorted``. :func:`sparse_window_attention_flash`,
+    the counterpart of ``sparse_window_attention_pallas``, is its entry: sort
+    by window, pad to the tile, attend, unsort, zero invalid rows. No model
+    path of the JAX package reaches it.
   * K3, ``csrc/wattn_rpe_fwd.cu`` (:func:`flash_rpe_fwd`): the forward and
     each row's log-sum-exp; it replaces the TPU kernel
     ``u2mkd_tpu/ops/pallas/wattn_kernel.py:_call_fwd`` with its XLA prologue
@@ -24,14 +32,16 @@ entry: gather by the host geometry's ``order``, attend, gather back by
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from u2mkd_tpu_torch.core.structures import WindowGeom
-from u2mkd_tpu_torch.ops import wattn
+from u2mkd_tpu_torch.ops import hashing, wattn
 from u2mkd_tpu_torch.ops.kernels import build
 
+SOURCE_WINDOW = "u2mkd_tpu_torch/csrc/wattn_fwd.cu"
+REPLACES_WINDOW = "u2mkd_tpu/ops/pallas/wattn_kernel.py:171"
 SOURCE = "u2mkd_tpu_torch/csrc/wattn_rpe_fwd.cu"
 REPLACES = "u2mkd_tpu/ops/pallas/wattn_kernel.py:909"
 SOURCE_BWD_Q = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_q.cu"
@@ -47,6 +57,114 @@ _I = ctypes.c_int
 flash_rpe_fwd_plain = wattn.window_attention_rpe_fwd
 flash_rpe_bwd_plain = wattn.window_attention_rpe_bwd
 flash_rpe_sorted_plain = wattn.window_attention_rpe
+flash_window_sorted_plain = wattn.window_attention_plain
+PAD_RANK = -7  # the window rank of the pad rows, as the JAX package sets it
+
+
+def flash_window_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                        rank: torch.Tensor, kmin: torch.Tensor,
+                        kmax: torch.Tensor) -> torch.Tensor:
+    """K2. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 128, q
+    pre-scaled; f32 or bf16), rank [N] int32, per-tile key ranges kmin/kmax
+    [N / 128] int32 -> f32 [N, h, d]: each row's softmax attention over the
+    keys of its own window. The arithmetic and the output are f32 for both
+    input dtypes."""
+    if qs.device.type == "cpu":
+        return flash_window_sorted_plain(qs, ks, vs, rank)
+    n, h, d = qs.shape
+    if qs.dtype not in (torch.float32, torch.bfloat16) or ks.dtype != qs.dtype \
+            or vs.dtype != qs.dtype:
+        raise TypeError(f"flash_window_sorted takes f32 or bf16 q/k/v of one dtype, "
+                        f"got {qs.dtype}, {ks.dtype}, {vs.dtype}")
+    if rank.dtype != torch.int32 or kmin.dtype != torch.int32 or kmax.dtype != torch.int32:
+        raise TypeError("flash_window_sorted: rank, kmin and kmax are int32")
+    if d not in HEAD_DIMS or n % TILE or ks.shape != qs.shape or vs.shape != qs.shape \
+            or tuple(rank.shape) != (n,) or tuple(kmin.shape) != (n // TILE,) \
+            or kmax.shape != kmin.shape:
+        raise ValueError(f"flash_window_sorted: q {tuple(qs.shape)} (head dim in "
+                         f"{HEAD_DIMS}, N a multiple of {TILE}), rank {tuple(rank.shape)}, "
+                         f"kmin {tuple(kmin.shape)}, kmax {tuple(kmax.shape)}")
+    build.check_tensors("flash_window_sorted", qs, ks, vs, rank, kmin, kmax)
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[qs.dtype]
+    fn = getattr(build.load("wattn_fwd"), f"wattn_fwd_{suffix}")
+    fn.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    fn.restype = _I
+    out = torch.empty(n, h, d, dtype=torch.float32, device=qs.device)
+    rc = fn(qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(), kmin.data_ptr(),
+            kmax.data_ptr(), out.data_ptr(), n, h, d, build.stream_of(qs))
+    build.check_rc(rc, "flash_window_sorted")
+    flash_window_sorted.launches += 1
+    return out
+
+
+flash_window_sorted.launches = 0
+
+
+class SortedWindows(NamedTuple):
+    """A sequence sorted by window and padded to the tile (the arrays
+    ``sparse_window_attention_pallas`` builds): ``order`` [V] sorted row ->
+    input row; ``rank`` [pad_to] int32 dense window id (pads ``PAD_RANK``);
+    per-tile key ranges ``kmin``/``kmax`` [pad_to / 128] int32."""
+
+    order: torch.Tensor
+    rank: torch.Tensor
+    kmin: torch.Tensor
+    kmax: torch.Tensor
+
+
+def sort_by_window(xyz: torch.Tensor, valid: torch.Tensor,
+                   window_size: Sequence[float]) -> SortedWindows:
+    """Stable sort of the rows of xyz [V, 3] by window key (invalid rows
+    last), padded to a multiple of the tile: pads get rank ``PAD_RANK``,
+    window start 0 and window end ``pad_to``; each tile's key range runs
+    from the start of its first row's window to the end of its last row's.
+
+    Each invalid row is a window of its own. The JAX package gives them one
+    shared key, so they attend each other, quadratic work whose output the
+    caller zeroes; here each attends itself only, which leaves every valid
+    row's output as it was."""
+    vcap = xyz.shape[0]
+    key_s, order = torch.sort(wattn.window_keys(xyz, valid, window_size), stable=True)
+    pad_to = -(-vcap // TILE) * TILE
+    padn = pad_to - vcap
+    new = wattn.window_starts(key_s) | (key_s == hashing.PACKED_INVALID)
+    seg_start, seg_end = wattn.run_bounds(new)
+    rank = torch.cumsum(new, 0, dtype=torch.int32) - 1
+
+    def pad(x, fill):
+        return torch.cat([x, x.new_full((padn,), fill)])
+
+    kmin = pad(seg_start, 0)[::TILE].contiguous()
+    kmax = torch.maximum(pad(seg_end, pad_to)[TILE - 1::TILE], kmin + 1).contiguous()
+    return SortedWindows(order, pad(rank, PAD_RANK), kmin, kmax)
+
+
+def sparse_window_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  xyz: torch.Tensor, valid: torch.Tensor,
+                                  window_size: Sequence[float],
+                                  plain: bool = False) -> torch.Tensor:
+    """RPE-free window attention over one sample: q/k/v [V, h, d] (q
+    pre-scaled), xyz [V, 3] window coordinates, valid [V] -> f32 [V, h, d],
+    zero on invalid rows. Sorts by window (:func:`sort_by_window`), runs K2
+    (its plain version with ``plain``, or for CPU tensors), unsorts. The
+    JAX function returns q's dtype; this one returns the kernel's f32, so
+    that a bf16 caller rounds once, where it chooses."""
+    vcap = q.shape[0]
+    sw = sort_by_window(xyz, valid, window_size)
+    padn = sw.rank.shape[0] - vcap
+
+    def sorted_padded(x):
+        x = x[sw.order]
+        return torch.cat([x, x.new_zeros((padn,) + x.shape[1:])]).contiguous()
+
+    qs, ks, vs = sorted_padded(q), sorted_padded(k), sorted_padded(v)
+    if plain:
+        out_s = flash_window_sorted_plain(qs, ks, vs, sw.rank)
+    else:
+        out_s = flash_window_sorted(qs, ks, vs, sw.rank, sw.kmin, sw.kmax)
+    out = torch.empty_like(out_s[:vcap])
+    out[sw.order] = out_s[:vcap]
+    return torch.where(valid[:, None, None], out, 0.0)
 
 
 def _kernel_fn(source: str, dtype: torch.dtype, n_ptrs: int):

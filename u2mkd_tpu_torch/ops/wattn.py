@@ -17,17 +17,98 @@ contiguous run of equal ``rank``. For query i and key j of one window:
 
 These versions enumerate every (query, key) pair of every window, which is
 exact and independent of the kernels' tiling.
+
+Also the RPE-free pieces of ``u2mkd_tpu/ops/wattn.py`` and
+``u2mkd_tpu/ops/pallas/wattn_kernel.py`` behind kernel K2 (the window sort of
+``sparse_window_attention_pallas``): :func:`cart2sphere`,
+:func:`window_keys`, :func:`window_bounds_from_sorted`, and
+:func:`window_attention_plain`, the plain version of K2.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from u2mkd_tpu_torch.ops import hashing
+
 # pairs per chunk, times heads: bounds the plain versions' transient memory
 _PAIR_BUDGET = 1 << 22
+
+
+def cart2sphere(xyz: torch.Tensor) -> torch.Tensor:
+    """(x, y, z) -> (theta_deg in [0, 360], beta_deg, r), as the JAX
+    package's ``wattn.cart2sphere``."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    theta = (torch.atan2(y, x) + math.pi) * (180.0 / math.pi)
+    beta = torch.atan2(torch.sqrt(x * x + y * y), z) * (180.0 / math.pi)
+    r = torch.sqrt(x * x + y * y + z * z)
+    return torch.stack([theta, beta, r], dim=-1)
+
+
+def window_keys(xyz: torch.Tensor, valid: torch.Tensor,
+                window_size: Sequence[float]) -> torch.Tensor:
+    """Packed window key [V] int64 of each row of xyz [V, 3] (unshifted
+    windows): cell = floor((pos - start) / ws) in f32 with start the
+    minimum over the valid rows (0 where there is none), packed by
+    :func:`hashing.pack_coords`; invalid rows, and cells outside the packable
+    range, get ``hashing.PACKED_INVALID``."""
+    ws = torch.as_tensor(window_size, dtype=xyz.dtype, device=xyz.device)
+    big = torch.where(valid[:, None], xyz, math.inf)
+    start = big.min(dim=0).values
+    start = torch.where(torch.isfinite(start), start, 0.0)
+    cell = torch.floor((xyz - start) / ws).to(torch.int32)
+    return hashing.pack_coords(cell, valid)
+
+
+def window_starts(key_s: torch.Tensor) -> torch.Tensor:
+    """Sorted window keys [N] -> bool [N]: True where a run of equal keys
+    begins."""
+    new = torch.ones(key_s.shape[0], dtype=torch.bool, device=key_s.device)
+    new[1:] = key_s[1:] != key_s[:-1]
+    return new
+
+
+def window_bounds_from_sorted(key_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted window keys [N] -> (seg_start, seg_end) int32 [N]: the first
+    index and one past the last index of each row's run of equal keys."""
+    return run_bounds(window_starts(key_s))
+
+
+def run_bounds(new: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run starts [N] bool -> (seg_start, seg_end) int32 [N] of each row's
+    run."""
+    n = new.shape[0]
+    idx = torch.arange(n, device=new.device)
+    last = torch.ones_like(new)
+    last[:-1] = new[1:]
+    start = torch.cummax(torch.where(new, idx, 0), 0).values
+    end = torch.flip(torch.cummin(torch.flip(torch.where(last, idx + 1, n), [0]), 0).values,
+                     [0])
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def window_attention_plain(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                           rank: torch.Tensor) -> torch.Tensor:
+    """Plain K2. Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), rank [N]
+    (equal within a window, windows contiguous) -> f32 [N, h, d]: the exact
+    softmax of q_i . k_j over the keys of each row's own window."""
+    n, h, d = qs.shape
+    dev = qs.device
+    q, k, v = qs.float(), ks.float(), vs.float()
+    outs = []
+    for lo, hi, qi, kj in _pair_chunks(rank, h):
+        s = (q[qi] * k[kj]).sum(-1)                                   # [M, h]
+        seg = qi - lo
+        smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
+            0, seg[:, None].expand(-1, h), s, "amax")
+        e = torch.exp(s - smax[seg])
+        den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
+        num = torch.zeros(hi - lo, h, d, device=dev).index_add(0, seg, e[..., None] * v[kj])
+        outs.append(num / den[..., None])
+    return torch.cat(outs)
 
 
 def exponential_split_index(rel_r: torch.Tensor, a: float) -> torch.Tensor:

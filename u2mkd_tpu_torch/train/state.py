@@ -19,13 +19,14 @@ from u2mkd_tpu_torch.ops import losses
 from u2mkd_tpu_torch.train import metrics
 
 
-def _batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
+def batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
     """-> (device, plumbing_of(batch), tensor_of(batch, key, dtype)).
 
     ``batch`` holds numpy arrays (``feats``, ``pmask``, ``keyframe_mask``,
     ``labels``, and ``pcoords``/``xyz``) as ``data/synthetic.make_batch``
     gives them; with a ``plumbing`` entry (``plumbing_host.batch_plumbing``)
-    the host build is skipped."""
+    the host build is skipped. The window geometry and the levels whose
+    point maps the plumbing carries are ``model``'s."""
     device = next(model.parameters()).device
     wparams = wgeom_host.params_from_model(model)
 
@@ -35,7 +36,7 @@ def _batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
             arrays = plumbing_host.batch_plumbing(
                 batch["pcoords"], batch["xyz"], batch["pmask"], capacities,
                 wgeom_params=wparams)
-        return P.from_precomputed(arrays, batch["pmask"], device)
+        return P.from_precomputed(arrays, batch["pmask"], device, model.point_levels)
 
     def tensor_of(batch: Dict, key: str, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(batch[key]).to(device=device, dtype=dtype)
@@ -54,7 +55,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``generator``, a seeded one on the model's device by default); then the
     backward, ``optimizer.step()`` and ``scheduler.step()``. The loss comes
     back as a device tensor, so the step does not wait for the device."""
-    device, plumbing_of, tensor_of = _batch_reader(model, capacities)
+    device, plumbing_of, tensor_of = batch_reader(model, capacities)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
@@ -81,7 +82,7 @@ def make_eval_step(model: torch.nn.Module, capacities: Sequence[int],
     """Returns ``eval_fn(batch) -> {"pred", "counts", "logits"}`` (argmax
     predictions, IoU counters and logits). Everything runs on the model's
     device."""
-    _, plumbing_of, tensor_of = _batch_reader(model, capacities)
+    _, plumbing_of, tensor_of = batch_reader(model, capacities)
 
     def eval_fn(batch: Dict) -> Dict:
         pl = plumbing_of(batch)
