@@ -10,12 +10,15 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      K4, K5) against its plain PyTorch version on the card, f32 and bf16, on
      a small random case and at the main path's real shapes, with errors,
      tolerances and CUDA-event times (and, at the real shapes, the bound:
-     the least time the card could take for the same work);
+     the least time the card could take for the same work; for K1 and K1b
+     also the rulebook plan's build ms, the slots multiplied per valid pair
+     with and without it, and a dense f32 GEMM of the same operations);
   3. main path: three teacher inference requests (SPVCNN + SphereFormer,
      cr=1.0, P=131072, B=1) through ``train.state.make_eval_step``, counting
      kernel launches;
   4. profile: three more requests under ``torch.profiler``, device time by
-     kernel, and the device's busy share against the unprofiled requests'
+     kernel (and of the ``conv_plan`` range, the rulebook plans' build),
+     and the device's busy share against the unprofiled requests'
      CUDA-event time, so that no cost of the profiler counts as idle time;
   5. plain check: one request through the plain versions on the card, its
      logits and predictions against the kernel request's;
@@ -75,6 +78,10 @@ PROFILE_GROUPS = {"rulebook_conv_kernel": "K1 rulebook_conv",
                   "wattn_rpe_fwd_kernel": "K3 wattn_rpe_fwd",
                   "wattn_rpe_bwd_q_kernel": "K4 wattn_rpe_bwd_q",
                   "wattn_rpe_bwd_k_kernel": "K5 wattn_rpe_bwd_k"}
+# ranges named in the port (torch.profiler.record_function), shown beside
+# the kernel groups with the device ms of the kernels they launched, which
+# the groups also count
+PROFILE_ANNOTATIONS = {"conv_plan": "conv_plan (K1/K1b plans, range)"}
 TRAIN_SEEDS = (21, 22, 23)
 PROFILED_STEPS = 2
 LR = 0.02
@@ -125,6 +132,9 @@ WINDOW_CUBIC = (0.6, 0.6, 0.6)
 WINDOW_SPHERE = (2.0, 2.0, 120.0)
 WINDOW_HEADS = 4
 F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+# K1 and K1b compute f32 in 3xTF32: three TF32 tensor-core products (495
+# TFLOP/s dense) per f32 product
+F32_3XTF32_PEAK = 495e12 / 3
 BF16_PEAK = 989e12    # H100 SXM dense bf16 FLOP/s
 HBM_BYTES_S = 3.35e12
 # max |kernel - plain| <= TOL * max|plain|: f32 sums in another order (K1
@@ -276,14 +286,61 @@ def _bound(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, "bound_peak_flop_s": peak}
+
+
+def _popcount(m):
+    """Set bits of each entry of an int32 tensor of masks (27 bits)."""
+    import torch
+
+    return ((m[..., None] >> torch.arange(27, device=m.device, dtype=torch.int32)) & 1).sum(-1)
+
+
+def conv_slots(nbr, plan, cin, cout):
+    """(row, offset) slots K1 and K1b multiply per valid pair of ``nbr``,
+    before the plan (PR 3's kernels: K1 a whole tile of 64 Morton rows at
+    every offset one of them has; K1b a whole chunk of 32 rows at every
+    offset one of them has) and with it (K1 the plan's mask-sorted tiles at
+    their offsets' union; K1b each range's pairs in steps of 32), read from
+    the plan on the host."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as K
+
+    b, k, v = nbr.shape
+    valid = (nbr >= 0) & (nbr < v)
+    n_valid = int(valid.sum())
+
+    def union_slots(valid_rows, tile):
+        pad = -v % tile
+        vv = torch.cat([valid_rows, valid_rows.new_zeros(b, k, pad)], 2)
+        return int(vv.view(b, k, -1, tile).any(-1).sum()) * tile
+
+    tile = K.PLAN_TILE
+    k1_after = int(_popcount(plan.tile_mask).sum()) * tile
+    seg = plan.seg.tolist()
+    splits = K.dw_splits(b * v, cin, cout,
+                         torch.cuda.get_device_properties(nbr.device).multi_processor_count)
+    total, k1b_after = seg[-1], 0
+    for s in range(splits):
+        p0, p1 = total * s // splits, total * (s + 1) // splits
+        for kk in range(k):
+            n = min(p1, seg[kk + 1]) - max(p0, seg[kk])
+            k1b_after += -(-n // 32) * 32 if n > 0 else 0
+    return {"K1": (union_slots(valid, 64) / n_valid, k1_after / n_valid),
+            "K1b": (union_slots(valid, 32) / n_valid, k1b_after / n_valid)}
 
 
 def conv_cases(level0):
     """K1 at the largest launch of the main path (level 0, Cin 128 -> Cout
     96: up3_res0's first conv) on the real rulebook, and a small case; K1 as
     that conv's input gradient (96 -> 128 with the reversed weights) and
-    K1b, its weight gradient, likewise."""
+    K1b, its weight gradient, likewise. Each case builds its plan once and
+    hands it to the kernels, as a level does for its convs; the main-path
+    rows carry the plan's build ms, the slots multiplied per valid pair
+    before and after the plan (:func:`conv_slots`) and ``dense_gemm_ms``,
+    one ``torch.matmul`` of the same operations as a dense product of
+    n_valid rows in the row's dtype (a yardstick of the arithmetic alone,
+    not the same function). The f32 bound is at the 3xTF32 rate."""
     import torch
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as K
 
@@ -297,12 +354,16 @@ def conv_cases(level0):
     small_nbr = torch.randint(-1, 310, (2, 27, 300), device=dev, generator=gen,
                               dtype=torch.int32)  # includes -1 and >= V rows
     small_valid = int(((small_nbr >= 0) & (small_nbr < 300)).sum())
-    for dtype, tag, peak in ((torch.float32, "f32", F32_PEAK),
+    plans = {"small": K.conv_plan(small_nbr), "main_path": K.conv_plan(nbr27)}
+    plan_ms = cuda_ms(lambda: K.conv_plan(nbr27))
+    slots = conv_slots(nbr27, plans["main_path"], 128, 96)
+    for dtype, tag, peak in ((torch.float32, "f32", F32_3XTF32_PEAK),
                              (torch.bfloat16, "bf16", BF16_PEAK)):
         for case, nbr, cin, cout, vmask, nv in (
                 ("small", small_nbr, 40, 72, None, small_valid),
                 ("main_path", nbr27, 128, 96, mask, n_valid)):
             b, k, vv = nbr.shape
+            plan = plans[case]
 
             def rand(*shape):
                 t = torch.randn(*shape, device=dev, generator=gen)
@@ -315,24 +376,37 @@ def conv_cases(level0):
                  * (k * cin) ** -0.5).to(dtype).contiguous()
             es = x.element_size()
             flops = 2.0 * cin * cout * nv
-            rows.append(_compare(
+            dense = [torch.randn(*s, device=dev, generator=gen).to(dtype)
+                     for s in ((nv, cin), (cin, cout), (nv, cout), (cout, cin))]
+
+            def extra(kid, gemm):
+                return ({"slots_per_pair_before": slots[kid][0],
+                         "slots_per_pair_after": slots[kid][1], "plan_ms": plan_ms,
+                         "dense_gemm_ms": cuda_ms(gemm), "n_valid": nv}
+                        if case == "main_path" else {})
+
+            row = _compare(
                 "rulebook_conv", tag, case,
-                lambda: K.rulebook_conv(x, w, nbr),
+                lambda: K.rulebook_conv(x, w, nbr, plan),
                 lambda: K.rulebook_conv_plain(x, w, nbr),
                 _bound(es * (x.numel() + w.numel() + b * vv * cout) + 4 * nbr.numel(),
-                       flops, peak)))
-            rows.append(_compare(
+                       flops, peak))
+            rows.append(dict(row, **extra("K1", lambda: dense[0] @ dense[1])))
+            row = _compare(
                 "rulebook_conv_dx", tag, case,
-                lambda: K.rulebook_conv_dx(g, w, nbr),
+                lambda: K.rulebook_conv_dx(g, w, nbr, plan),
                 lambda: K.rulebook_conv_plain(g, K.reversed_weights(w), nbr),
                 _bound(es * (g.numel() + w.numel() + b * vv * cin) + 4 * nbr.numel(),
-                       flops, peak)))
-            rows.append(_compare(
+                       flops, peak))
+            rows.append(dict(row, **extra("K1", lambda: dense[2] @ dense[3])))
+            row = _compare(
                 "rulebook_conv_dw", tag, case,
-                lambda: K.rulebook_conv_dw(x, g, nbr),
+                lambda: K.rulebook_conv_dw(x, g, nbr, plan),
                 lambda: K.rulebook_conv_dw_plain(x, g, nbr),
                 _bound(es * (x.numel() + g.numel()) + 4 * (nbr.numel() + w.numel()),
-                       flops, peak)))
+                       flops, peak))
+            rows.append(dict(row, **extra("K1b", lambda: dense[0].T @ dense[2])))
+            del dense
     return rows
 
 
@@ -658,7 +732,8 @@ def _held_to_plain(check, out, plain, heads):
 
 def profile_by_kernel(fn, raw, reps, out_name):
     """Device time per call of ``fn(raw)`` by kernel under
-    ``torch.profiler`` (the 15 largest groups), its sum, and the profiled
+    ``torch.profiler`` (the 15 largest groups, and the named ranges of
+    PROFILE_ANNOTATIONS), the kernels' sum, and the profiled
     host wall ms per call; the profiler's table goes to ``OUT_DIR``. A
     busy share divides the device time by the median CUDA-event time of
     unprofiled calls, so that no host cost of the profiler can count as
@@ -672,9 +747,17 @@ def profile_by_kernel(fn, raw, reps, out_name):
             fn(raw)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
-    groups = {}
+    groups, annotated = {}, {}
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        on_device = getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        if e.key in PROFILE_ANNOTATIONS:
+            # the range's own event: the device time of the kernels it
+            # launched, apart from the kernels' groups (not added twice)
+            if not on_device:
+                annotated[PROFILE_ANNOTATIONS[e.key]] = {
+                    "ms": e.device_time_total / 1e3 / reps, "calls": e.count // reps}
+            continue
+        if not on_device:
             continue
         name = next((v for k, v in PROFILE_GROUPS.items() if k in e.key), e.key)
         g = groups.setdefault(name, {"ms": 0.0, "calls": 0})
@@ -685,8 +768,8 @@ def profile_by_kernel(fn, raw, reps, out_name):
         raise AssertionError("torch.profiler recorded no device time")
     with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    return (dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:15]), busy_ms,
-            profiled_ms)
+    return (dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:15], **annotated),
+            busy_ms, profiled_ms)
 
 
 def _train_setup(seed, generator_seed):
@@ -770,10 +853,13 @@ def _plain_of_launch():
         out = W.flash_rpe_bwd_plain(*args[:12], *args[14:])
         return tuple(out[i] for i in picks)
 
-    return {"rulebook_conv": (S, S.rulebook_conv_plain),
-            "rulebook_conv_dx": (S, lambda g, w, nbr: S.rulebook_conv_plain(
+    # the conv wrappers' last argument, the plan, is no input of the plain
+    # versions
+    return {"rulebook_conv": (S, lambda x, w, nbr, plan=None: S.rulebook_conv_plain(x, w, nbr)),
+            "rulebook_conv_dx": (S, lambda g, w, nbr, plan=None: S.rulebook_conv_plain(
                 g, S.reversed_weights(w), nbr)),
-            "rulebook_conv_dw": (S, S.rulebook_conv_dw_plain),
+            "rulebook_conv_dw": (S, lambda x, g, nbr, plan=None: S.rulebook_conv_dw_plain(
+                x, g, nbr)),
             "flash_rpe_fwd": (W, lambda *a: W.flash_rpe_fwd_plain(*a[:9], *a[11:])),
             "flash_rpe_bwd_q": (W, lambda *a: bwd(a, (0, 3, 5))),
             "flash_rpe_bwd_k": (W, lambda *a: bwd(a, (1, 2, 4)))}
@@ -986,9 +1072,9 @@ def recording_conv_widths(widths):
 
     kernel = S.rulebook_conv
 
-    def recorded(x, w, nbr):
+    def recorded(x, w, nbr, plan=None):
         widths.append(tuple(w.shape[1:]))
-        return kernel(x, w, nbr)
+        return kernel(x, w, nbr, plan)
 
     recorded.launches = kernel.launches
     S.rulebook_conv = recorded

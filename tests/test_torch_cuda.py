@@ -332,6 +332,63 @@ def test_rulebook_conv_backward_kernels_match_plain(cuda_device, dtype):
         assert _rel_err(gx, ref) <= dx_tol, (cin, cout)
 
 
+def _conv_case(case, dtype, device):
+    """(x, g, w, nbr) of one edge case of K1 and K1b: widths that are no
+    multiple of a tile (Cin 40, Cout 72) with V = 1000 (no multiple of 64
+    rows) and B=2; a rulebook with every row absent; Cout 512 (two K1
+    tiles, four K1b tiles); and a real host rulebook (B=2, mask-sorted
+    tiles of many offsets)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, v, cin, cout = {"narrow": (2, 1000, 40, 72), "absent": (1, 300, 32, 64),
+                       "wide": (1, 700, 64, 512), "host": (2, 2048, 96, 64)}[case]
+    if case == "host":
+        raw = synthetic.make_batch(np.random.RandomState(7), b, 4096, voxel_size=0.2)
+        pl = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                          (2048, 1024, 512, 256, 128))
+        nbr = torch.from_numpy(pl["nbr27"][0]).to(device)
+    else:
+        nbr = torch.randint(-1, v + 10, (b, 27, v), device=device, generator=gen,
+                            dtype=torch.int32)
+        if case == "absent":
+            nbr.fill_(-1)
+    x = torch.randn(b, v, cin, device=device, generator=gen).to(dtype)
+    g = torch.randn(b, v, cout, device=device, generator=gen).to(dtype)
+    w = (torch.randn(27, cin, cout, device=device, generator=gen) * (27 * cin) ** -0.5).to(dtype)
+    return x, g, w, nbr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow", "absent", "wide", "host"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rulebook_conv_kernel_edge_cases(cuda_device, dtype, case):
+    """K1, K1 as dX and K1b on one plan against their plain versions; an
+    absent rulebook gives exact zeros."""
+    x, g, w, nbr = _conv_case(case, dtype, cuda_device)
+    plan = spconv_kernel.conv_plan(nbr)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    out = spconv_kernel.rulebook_conv(x, w, nbr, plan)
+    gx = spconv_kernel.rulebook_conv_dx(g, w, nbr, plan)
+    gw = spconv_kernel.rulebook_conv_dw(x, g, nbr, plan)
+    if case == "absent":
+        assert not out.any() and not gx.any() and not gw.any()
+        return
+    assert _rel_err(out, spconv_kernel.rulebook_conv_plain(x, w, nbr)) <= tol
+    ref = spconv_kernel.rulebook_conv_plain(g, spconv_kernel.reversed_weights(w), nbr)
+    assert _rel_err(gx, ref) <= tol
+    assert _rel_err(gw, spconv_kernel.rulebook_conv_dw_plain(x, g, nbr)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rulebook_conv_kernels_deterministic(cuda_device, dtype):
+    """Two launches of K1 and two of K1b give bitwise the same result: K1
+    writes each row once, K1b sums its row ranges in a fixed order."""
+    x, g, w, nbr = _conv_case("host", dtype, cuda_device)
+    for fn, args in ((spconv_kernel.rulebook_conv, (x, w, nbr)),
+                     (spconv_kernel.rulebook_conv_dw, (x, g, nbr))):
+        assert torch.equal(fn(*args), fn(*args)), fn.__name__
+
+
 @pytest.mark.cuda
 def test_rulebook_conv_grads_match_autograd(cuda_device):
     """RulebookConv on the card, on a real (symmetric) host rulebook, against

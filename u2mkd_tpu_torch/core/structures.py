@@ -53,7 +53,11 @@ class LevelContext:
                  the ks=2/s=2 conv (None at level 0);
       up_parent: [B, V] row of the coarser level each voxel receives from in
                  the transposed conv, with ``up_koff`` [B, V] its offset in
-                 [0, 8) (None at the deepest level).
+                 [0, 8) (None at the deepest level);
+      conv_plan: what the CUDA conv kernels read of ``nbr27``
+                 (``ops/kernels/spconv_kernel.ConvPlan``), built on the
+                 device at the level's first kernel conv and kept for the
+                 level's other convs and their gradients.
     """
 
     grid: VoxelGrid
@@ -61,3 +65,4 @@ class LevelContext:
     down_nbr8: Optional[torch.Tensor] = None
     up_parent: Optional[torch.Tensor] = None
     up_koff: Optional[torch.Tensor] = None
+    conv_plan: Optional[object] = None

@@ -8,9 +8,10 @@ plain rename.
 
 Every ks=3 stride-1 conv runs through kernels K1 and K1b
 (``spconv_kernel.RulebookConv``: forward, input gradient, weight gradient) at
-every width; ``plain = True`` on a :class:`SparseConv` runs its plain forward
-instead, differentiated by autograd, on any device (the reference a card run
-is held against).
+every width, on the plan of the level's rulebook (built at the level's first
+conv on the card and kept on its :class:`LevelContext`); ``plain = True`` on
+a :class:`SparseConv` runs its plain forward instead, differentiated by
+autograd, on any device (the reference a card run is held against).
 
 The random draws of training (:class:`DropPath`, :class:`Dropout`) take an
 explicit ``torch.Generator`` on the features' device, handed in by the
@@ -84,7 +85,8 @@ class SparseConv(nn.Module):
         if self.plain:
             out = spconv_kernel.rulebook_conv_plain(f, wc, level.nbr27)
         else:
-            out = spconv_kernel.RulebookConv.apply(f, wc, level.nbr27)
+            plan = spconv_kernel.level_plan(level) if f.is_cuda else None
+            out = spconv_kernel.RulebookConv.apply(f, wc, level.nbr27, plan)
         return out.to(feats.dtype)
 
 
