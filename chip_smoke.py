@@ -12,7 +12,11 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      tolerances and CUDA-event times (and, at the real shapes, the bound:
      the least time the card could take for the same work; for K1 and K1b
      also the rulebook plan's build ms, the slots multiplied per valid pair
-     with and without it, and a dense f32 GEMM of the same operations);
+     with and without it, and a dense f32 GEMM of the same operations; for
+     K4 and K5 the window occupancy, the lane steps per pair of a walk over
+     each tile's key range and of one over each row's own window
+     (``wattn_kernel.walk_counts``), and the kernel's shared bytes per block
+     and resident blocks and warps per SM);
   3. main path: three teacher inference requests (SPVCNN + SphereFormer,
      cr=1.0, P=131072, B=1) through ``train.state.make_eval_step``, counting
      kernel launches;
@@ -490,6 +494,13 @@ def attention_cases(geoms):
             # of both
             ref = K.flash_rpe_bwd_plain(*bwd, g, a)
             plain_ms = cuda_ms(lambda: K.flash_rpe_bwd_plain(*bwd, g, a), reps=5, warmup=1)
+            # beside K4's and K5's times, what sets them: how far a walk
+            # over each tile's key range (K3's) and one over each row's own
+            # window (K4's and K5's) go per pair, and the warps the launch
+            # keeps resident on an SM
+            walk = K.walk_counts(gm.rank, gm.kmin, gm.kmax)
+            occ = {src: K.flash_rpe_bwd_occupancy(src, dtype, d, g, radial)
+                   for src in ("wattn_rpe_bwd_q", "wattn_rpe_bwd_k")}
             # per pair and head, K4: two d-dots, the dq update, nine lookups
             # and six mass adds; K5: two d-dots, the dk and dv updates, nine
             # lookups and three mass adds
@@ -498,13 +509,15 @@ def attention_cases(geoms):
                 lambda: K.flash_rpe_bwd_q(*bwd, gm.kmin, gm.kmax, g, a),
                 lambda: (ref[0], ref[3], ref[5]),
                 dict(_bound(bytes_in + 4 * n * h * d + 2 * proj,
-                            pairs * h * (6 * d + 18), F32_PEAK), pairs=pairs), plain_ms))
+                            pairs * h * (6 * d + 18), F32_PEAK),
+                     **walk, **occ["wattn_rpe_bwd_q"]), plain_ms))
             rows.append(_compare(
                 "flash_rpe_bwd_k", tag, case,
                 lambda: K.flash_rpe_bwd_k(*bwd, gm.kmin, gm.kmax, g, a),
                 lambda: (ref[1], ref[2], ref[4]),
                 dict(_bound(bytes_in + 8 * n * h * d + proj,
-                            pairs * h * (8 * d + 14), F32_PEAK), pairs=pairs), plain_ms))
+                            pairs * h * (8 * d + 14), F32_PEAK),
+                     **walk, **occ["wattn_rpe_bwd_k"]), plain_ms))
             del ref
             for row in rows[-3:]:
                 row.update(branch=branch, level=level, heads=h)
@@ -732,7 +745,8 @@ def _held_to_plain(check, out, plain, heads):
 
 def profile_by_kernel(fn, raw, reps, out_name):
     """Device time per call of ``fn(raw)`` by kernel under
-    ``torch.profiler`` (the 15 largest groups, and the named ranges of
+    ``torch.profiler`` (the 15 largest groups, every group of
+    PROFILE_GROUPS that ran, and the named ranges of
     PROFILE_ANNOTATIONS), the kernels' sum, and the profiled
     host wall ms per call; the profiler's table goes to ``OUT_DIR``. A
     busy share divides the device time by the median CUDA-event time of
@@ -768,8 +782,10 @@ def profile_by_kernel(fn, raw, reps, out_name):
         raise AssertionError("torch.profiler recorded no device time")
     with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    return (dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:15], **annotated),
-            busy_ms, profiled_ms)
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1]["ms"])
+    named = set(PROFILE_GROUPS.values())
+    shown = [kv for i, kv in enumerate(ranked) if i < 15 or kv[0] in named]
+    return dict(shown, **annotated), busy_ms, profiled_ms
 
 
 def _train_setup(seed, generator_seed):

@@ -446,3 +446,129 @@ def test_train_step_kernels_match_plain(cuda_device):
         assert launched == ([0] * 6 if plain else [34, 33, 34, 8, 8, 8])
     assert np.isfinite(losses[0])
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+def _bwd_inputs(rank, quant, r, h, d, g, dtype, device, seed=0):
+    """The twelve inputs K4 and K5 take (as ``FlashRPE.backward`` builds
+    them: K3's lse, a random output gradient) over window-sorted rows with
+    geometry rank, quant, r."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = rank.shape[0]
+    l2 = 2 * g if r is not None else 2 * g - 1
+    q, k, v = (torch.randn(n, h, d, device=device, generator=gen).mul(s).to(dtype)
+               for s in (d ** -0.5, 1.0, 1.0))
+    tq, tk, tv = (0.02 * torch.randn(l2, 3, h, d, device=device, generator=gen)
+                  for _ in range(3))
+    qT, kT = wattn.table_projections(q, tq), wattn.table_projections(k, tk)
+    out, lse = wattn_kernel.flash_rpe_fwd_plain(q, k, v, qT, kT, tv, rank, quant, r, g, 0.0125)
+    do = torch.randn(n, h, d, device=device, generator=gen)
+    return (q, k, v, qT, kT, wattn.table_projections(do, tv), rank, quant, r, lse, do,
+            (do * out).sum(-1))
+
+
+def _bwd_matches_plain(args, kmin, kmax, g, a=0.0125):
+    k4, k5 = wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k
+    before = (k4.launches, k5.launches)
+    got = k4(*args, kmin, kmax, g, a) + k5(*args, kmin, kmax, g, a)
+    assert (k4.launches, k5.launches) == (before[0] + 1, before[1] + 1)
+    dq, mq, pm, dk, dv, mk = got
+    ref = wattn_kernel.flash_rpe_bwd_plain(*args, g, a)
+    for name, out, want in zip(("dq", "dk", "dv", "mq", "mk", "pm"),
+                               (dq, dk, dv, mq, mk, pm), ref):
+        assert out.dtype == torch.float32 and out.shape == want.shape, name
+        assert torch.isfinite(out).all(), name
+        assert _rel_err(out, want) <= 1e-4, name
+
+
+def _host_level1(device, radial):
+    """Level 1 of a teacher's host geometry (cr=1.0, G=24) on a synthetic
+    scan of 131072 points: windows of up to hundreds of rows on the sphere
+    branch, windows across tile bounds, pad rows."""
+    model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.1, head_dim=16, device="cpu")
+    raw = synthetic.make_batch(np.random.RandomState(11), 1, 131072, voxel_size=0.1)
+    pl = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                      (131072, 65536, 32768, 16384, 8192),
+                                      wgeom_params=wgeom_host.params_from_model(model))
+    geo = pl["wgeom"]["sphere" if radial else "cubic"][0]
+    return (_window_geom_from_arrays(geo, device),
+            int(np.asarray(pl["vmask"][1]).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+def test_attention_backward_kernels_host_geometry(cuda_device, radial):
+    """K4 and K5 against the plain backward on the teacher's level-1 host
+    geometry at G=24 (h=2, d=16): every output to 1e-4 of its largest
+    entry."""
+    geom, n_valid = _host_level1(cuda_device, radial)
+    n = geom.rank.shape[0]
+    counts = wattn_kernel.walk_counts(geom.rank, geom.kmin, geom.kmax)
+    start, end, _ = wattn_kernel.warp_run_bounds(geom.rank)
+    assert n > n_valid                                  # pad and invalid rows
+    assert bool(((start // 128) != ((end - 1) // 128)).any())  # windows across tiles
+    if radial:
+        assert counts["occupancy_max"] > 128
+    args = _bwd_inputs(geom.rank, geom.quant, geom.r, 2, 16, 24, torch.float32, cuda_device)
+    _bwd_matches_plain(args, geom.kmin, geom.kmax, 24)
+
+
+def _edge_geometry(case, radial, device, g=24):
+    """(rank, quant, r, kmin, kmax, h, d, dtype) of one edge case: one window
+    of all N rows; windows of 1-300 rows at D = 4, at D = 32, at h = 8, and
+    with bf16 q/k/v."""
+    rng = np.random.RandomState(9)
+    n = 512 if case == "one_window" else 2048
+    if case == "one_window":
+        ids = np.zeros(n)
+    else:
+        ids = np.repeat(np.arange(n), rng.choice([1, 2, 5, 40, 150, 300], n))[:n]
+    rank = torch.from_numpy(ids.astype(np.float32)).to(device)
+    quant = torch.from_numpy(rng.randint(-1, g + 1, (n, 3)).astype(np.int32)).to(device)
+    r = torch.from_numpy(rng.rand(n).astype(np.float32) * 3).to(device) if radial else None
+    start, end = wattn.run_bounds(wattn.window_starts(rank))
+    kmin = start[::128].contiguous()
+    kmax = torch.maximum(end[127::128], kmin + 1).contiguous()
+    h, d, dtype = {"one_window": (2, 16, torch.float32), "d4": (2, 4, torch.float32),
+                   "d32": (2, 32, torch.float32), "h8": (8, 16, torch.float32),
+                   "bf16": (2, 16, torch.bfloat16)}[case]
+    return rank, quant, r, kmin, kmax, h, d, dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+@pytest.mark.parametrize("case", ["one_window", "d4", "d32", "h8", "bf16"])
+def test_attention_backward_kernels_edge_cases(cuda_device, case, radial):
+    """K4 and K5 against the plain backward: a window of all N rows (every
+    warp scans back to row 0 and on to row N), head dims 4 and 32, 8 heads,
+    bf16 inputs; coordinates outside [0, G) exercise the clipping."""
+    rank, quant, r, kmin, kmax, h, d, dtype = _edge_geometry(case, radial, cuda_device)
+    args = _bwd_inputs(rank, quant, r, h, d, 24, dtype, cuda_device)
+    _bwd_matches_plain(args, kmin, kmax, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+def test_attention_backward_kernels_deterministic(cuda_device, radial):
+    """Two launches of K4, and two of K5, on the same inputs give bitwise the
+    same outputs: each sum is taken by the lane that owns its row, in key
+    order, with no atomics."""
+    geom, _ = _host_level1(cuda_device, radial)
+    args = _bwd_inputs(geom.rank, geom.quant, geom.r, 1, 16, 24, torch.float32, cuda_device)
+    for fn in (wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k):
+        first = fn(*args, geom.kmin, geom.kmax, 24, 0.0125)
+        second = fn(*args, geom.kmin, geom.kmax, 24, 0.0125)
+        for a_, b_ in zip(first, second):
+            assert torch.equal(a_, b_), fn.__name__
+
+
+@pytest.mark.cuda
+def test_attention_backward_occupancy(cuda_device):
+    """The launch's shared bytes and resident warps per SM at G=24, d=16,
+    beside the L1 its carveout leaves: at least 6 warps for K4 and 12 for K5
+    on both branches, f32 and bf16."""
+    for radial in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = wattn_kernel.flash_rpe_bwd_occupancy("wattn_rpe_bwd_q", dtype, 16, 24, radial)
+            k = wattn_kernel.flash_rpe_bwd_occupancy("wattn_rpe_bwd_k", dtype, 16, 24, radial)
+            assert q["warps_per_sm"] >= 6 and k["warps_per_sm"] >= 12, (radial, dtype, q, k)
+            assert 0 < k["smem_bytes"] < q["smem_bytes"] < 48 * 1024

@@ -1,5 +1,5 @@
 // Window attention with contextual relative position encoding, backward over
-// query tiles (kernel K4).
+// query rows (kernel K4).
 //
 // The forward (K3, wattn_rpe_fwd.cu) computes, per head, for query i and key
 // j of one window (bins idx_a as in wattn_rpe_common.cuh):
@@ -28,53 +28,65 @@
 // matmul, and splits heads into groups (_split_heads) to fit its scoped
 // VMEM; neither is needed here.
 //
-// What bounds it on the H100. Per pair and head: ~6*D flops (two dot
-// products and the dq update), nine table lookups, an exp, six mass updates
-// and, on the sphere branch, a log for the radial bin; each row's bytes are
-// read once per tile. The pairs' arithmetic bounds it. Design:
-//   * one block per (128-query tile, head); thread t owns query t of the
-//     tile, with q, do and the dq sum in registers;
-//   * a query's partner keys have one coordinate c in [0, G) per difference
-//     axis, so its lookups qT[i, a, idx_a] and edo[i, a, idx_a] and its masses
-//     are indexed by c (the "shifted mass" of the TPU epilogue): 3G floats a
-//     row (4G with the 2G radial bins) instead of 3 * L2. The block keeps four
-//     such rows per query in shared memory (lookups of qT and edo, the two
-//     masses), at an odd stride, so the 32 threads of a warp, which read the
-//     same key at once, touch 32 distinct banks;
-//   * the block walks its tile's key range [kmin, kmax) from the host
-//     geometry in chunks of 32 keys staged in shared memory (k, v, the key
-//     projections, rank, coordinates, range), skipping keys of other windows;
+// What bounds it on the H100. The bytes: the dense [N, h, 3, L2] f32 arrays
+// (qT, kT and edo read, mq and pm written) dominate them. Per pair and head
+// the work is ~6*D flops, nine table lookups, an exp, six mass updates and,
+// on the sphere branch, a log for the radial bin, far below the f32 rate at
+// these pair counts; what costs is moving the lookups to the lanes, six of
+// them from the lane's own row, which no other lane shares. Design:
+//   * one block is one warp of 32 consecutive query rows of one head; lane t
+//     owns query row t, with q, do and the dq sum in registers. Warps share
+//     nothing and never wait for each other;
+//   * each lane walks the keys of its own window only: windows are contiguous
+//     runs of the sorted rows, and wattn::warp_run_bounds finds each lane's
+//     run from one ballot of its warp's run-start flags. No step lands on a
+//     key of another window; the tile ranges kmin/kmax are not needed;
+//   * a key's row (k, v, kT, coordinates, range) is read through the
+//     read-only cache: lanes of one window read the same key at once, so the
+//     reads broadcast. The lane's own lookups qT[i, a, idx_a] and
+//     edo[i, a, idx_a] are read from its own row the same way: 32 rows per
+//     warp-wide load, so L1 must hold the warps' rows, and the launch leaves
+//     it room (wattn::BWD_SMEM_CARVEOUT);
+//   * only the two masses sit in shared memory, indexed by the partner's
+//     coordinate c in [0, G) per difference axis (the "shifted mass" of the
+//     TPU epilogue): 3G floats a row (4G with the 2G radial bins) instead of
+//     3 * L2, at an odd stride, so that lanes adding to the same slot of
+//     their own rows touch distinct banks. At G = 24 a block takes 19-26 KB:
+//     six to nine warps resident on an SM beside that L1;
+//   * a lane takes NK = 2 keys per step: their scores and exps are
+//     independent chains (a step past the run's end repeats its last key, so
+//     that no branch splits them), and their terms are then added in key
+//     order, so the result is that of one key at a time;
 //   * at the end the masses are written back in the [3, L2] bin layout,
 //     coalesced, with zeros in the bins no partner reaches.
-// At G = 24 the block takes ~220 KB of shared memory: one block per SM.
+// No atomics: every sum is taken by the lane that owns its row, in key
+// order, so two launches give the same bits.
 // q, k, v may be f32 or bf16; everything else is f32, and so are the outputs.
 
 #include "wattn_rpe_common.cuh"
 
 namespace {
 
-using wattn::KC;
-using wattn::TQ;
+using wattn::WARP;
 using wattn::clip_quant;
+using wattn::load_row;
 using wattn::mass_width;
 using wattn::odd_stride;
 using wattn::radial_bin;
-using wattn::to_f;
 
-template <int D>
-size_t smem_bytes(int G, int L2, bool radial) {
-  const int ms = odd_stride(mass_width(radial, G));
-  const int rs = odd_stride(3 * L2);
-  return sizeof(float) * ((size_t)4 * TQ * ms + (size_t)KC * rs + 2 * KC * D + 2 * KC) +
-         sizeof(int) * (3 * KC + 3 * TQ);
+constexpr int NK = 2;         // keys per step of a lane
+constexpr int MIN_BLOCKS = 8;  // resident warps per SM the registers must allow
+
+size_t smem_bytes(int G, bool radial) {
+  return sizeof(float) * (size_t)2 * WARP * odd_stride(mass_width(radial, G)) +
+         sizeof(int) * 3 * WARP;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(TQ)
+__global__ void __launch_bounds__(WARP, MIN_BLOCKS)
 wattn_rpe_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const float* __restrict__ rank, const int32_t* __restrict__ quant,
-                       const float* __restrict__ r, const int32_t* __restrict__ kmin,
-                       const int32_t* __restrict__ kmax, const float* __restrict__ qT,
+                       const float* __restrict__ r, const float* __restrict__ qT,
                        const float* __restrict__ kT, const float* __restrict__ edo,
                        const float* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ dfac, float* __restrict__ dq,
@@ -82,135 +94,104 @@ wattn_rpe_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        float a) {
   extern __shared__ float smem[];
   const bool radial = r != nullptr;
-  const int MW = mass_width(radial, G), MS = odd_stride(MW);
-  const int W = 3 * L2, RS = odd_stride(W);
-  float* qsel = smem;                // [TQ][MS] qT of each query by partner slot
-  float* esel = qsel + TQ * MS;      // [TQ][MS] edo likewise
-  float* mq_s = esel + TQ * MS;      // [TQ][MS] ds masses
-  float* pm_s = mq_s + TQ * MS;      // [TQ][MS] p masses
-  float* kT_s = pm_s + TQ * MS;      // [KC][RS]
-  float* k_s = kT_s + KC * RS;       // [KC][D]
-  float* v_s = k_s + KC * D;         // [KC][D]
-  float* rank_s = v_s + KC * D;      // [KC]
-  float* r_s = rank_s + KC;          // [KC]
-  int* cq_s = reinterpret_cast<int*>(r_s + KC);  // [KC][3]
-  int* cqt_s = cq_s + 3 * KC;                     // [TQ][3] the tile's own
+  const int MS = odd_stride(mass_width(radial, G));
+  const int W = 3 * L2;
+  float* mq_s = smem;                                  // [WARP][MS] ds masses
+  float* pm_s = mq_s + WARP * MS;                      // [WARP][MS] p masses
+  int* cq_s = reinterpret_cast<int*>(pm_s + WARP * MS);  // [WARP][3] the rows' own
 
-  const int tile = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int i = tile * TQ + tid;
-  const size_t row0 = (size_t)tile * TQ;
-
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) cqt_s[tid * 3 + ax] = clip_quant(quant[i * 3 + ax], G);
-  __syncthreads();
-  // slot m of a row: axis min(m / G, 2), partner coordinate (or radial bin)
-  // c = m - axis * G, table column cq - c + G - 1 (or c on the radial axis)
-  for (int e = tid; e < TQ * MW; e += TQ) {
-    const int row = e / MW, m = e % MW;
-    const int ax = min(m / G, 2), c = m - ax * G;
-    const int col = (ax == 2 && radial) ? c : cqt_s[row * 3 + ax] - c + G - 1;
-    const size_t gi = ((row0 + row) * H + h) * W + ax * L2 + col;
-    qsel[row * MS + m] = qT[gi];
-    esel[row * MS + m] = edo[gi];
-    mq_s[row * MS + m] = 0.f;
-    pm_s[row * MS + m] = 0.f;
-  }
-
-  float qv[D], dov[D], acc[D];
-#pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    qv[dd] = to_f(q[((size_t)i * H + h) * D + dd]);
-    dov[dd] = dout[((size_t)i * H + h) * D + dd];
-    acc[dd] = 0.f;
-  }
-  const float my_rank = rank[i];
-  const float ri = radial ? r[i] : 0.f;
-  const float lse_i = lse[(size_t)i * H + h];
-  const float dfac_i = dfac[(size_t)i * H + h];
+  const int lane = threadIdx.x, h = blockIdx.y;
+  const int row0 = blockIdx.x * WARP, i = row0 + lane;
+  const int n = gridDim.x * WARP;
+  for (int e = lane; e < 2 * WARP * MS; e += WARP) smem[e] = 0.f;
   int cqi[3];
 #pragma unroll
-  for (int ax = 0; ax < 3; ++ax) cqi[ax] = cqt_s[tid * 3 + ax];
-  float* my_q = qsel + tid * MS;
-  float* my_e = esel + tid * MS;
-  float* my_mq = mq_s + tid * MS;
-  float* my_pm = pm_s + tid * MS;
+  for (int ax = 0; ax < 3; ++ax) {
+    cqi[ax] = clip_quant(quant[i * 3 + ax], G);
+    cq_s[lane * 3 + ax] = cqi[ax];
+  }
+  const int2 run = wattn::warp_run_bounds(rank, row0, n, lane);
+  __syncwarp();
 
-  const int k0 = kmin[tile], k1 = kmax[tile];
-  for (int c0 = k0; c0 < k1; c0 += KC) {
-    const int nk = min(KC, k1 - c0);
-    __syncthreads();  // the previous chunk is consumed; the tile staging is complete
-    for (int e = tid; e < nk * W; e += TQ) {
-      const int row = e / W, col = e % W;
-      kT_s[row * RS + col] = kT[((size_t)(c0 + row) * H + h) * W + col];
-    }
-    for (int e = tid; e < nk * D; e += TQ) {
-      const int row = e / D, dd = e % D;
-      const size_t gi = ((size_t)(c0 + row) * H + h) * D + dd;
-      k_s[e] = to_f(k[gi]);
-      v_s[e] = to_f(v[gi]);
-    }
-    if (tid < nk) {
-      const int j = c0 + tid;
-      rank_s[tid] = rank[j];
-      r_s[tid] = radial ? r[j] : 0.f;
+  const size_t hi = (size_t)i * H + h;
+  float qv[D], dov[D], acc[D];
+  load_row<D>(q + hi * D, qv);
+  load_row<D>(dout + hi * D, dov);
 #pragma unroll
-      for (int ax = 0; ax < 3; ++ax) cq_s[tid * 3 + ax] = clip_quant(quant[j * 3 + ax], G);
-    }
-    __syncthreads();
+  for (int dd = 0; dd < D; ++dd) acc[dd] = 0.f;
+  const float ri = radial ? r[i] : 0.f;
+  const float lse_i = lse[hi], dfac_i = dfac[hi];
+  const float* qT_i = qT + hi * W;
+  const float* e_i = edo + hi * W;
+  float* my_mq = mq_s + lane * MS;
+  float* my_pm = pm_s + lane * MS;
 
-    for (int j = 0; j < nk; ++j) {
-      if (rank_s[j] != my_rank) continue;
-      int slot[3], col[3];
+  for (int j0 = run.x; j0 < run.y; j0 += NK) {
+    float p[NK], ds[NK], kk[NK][D];
+    int slot[NK][3];
+#pragma unroll
+    for (int u = 0; u < NK; ++u) {
+      const int j = min(j0 + u, run.y - 1);
+      int col[3];
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
-        const int c = cq_s[j * 3 + ax];
-        slot[ax] = ax * G + c;
+        const int c = clip_quant(__ldg(quant + j * 3 + ax), G);
+        slot[u][ax] = ax * G + c;
         col[ax] = ax * L2 + cqi[ax] - c + G - 1;
       }
       if (radial) {
-        const int l = radial_bin(ri - r_s[j], a, 2 * G);
-        slot[2] = 2 * G + l;
+        const int l = radial_bin(ri - __ldg(r + j), a, 2 * G);
+        slot[u][2] = 2 * G + l;
         col[2] = 2 * L2 + l;
       }
+      const size_t hj = (size_t)j * H + h;
+      float vv[D];
+      load_row<D>(k + hj * D, kk[u]);
+      load_row<D>(v + hj * D, vv);
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int dd = 0; dd < D; ++dd) {
-        s = fmaf(qv[dd], k_s[j * D + dd], s);
-        dp = fmaf(dov[dd], v_s[j * D + dd], dp);
+        s = fmaf(qv[dd], kk[u][dd], s);
+        dp = fmaf(dov[dd], vv[dd], dp);
       }
+      const float* kT_j = kT + hj * W;
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
-        s += my_q[slot[ax]] + kT_s[j * RS + col[ax]];
-        dp += my_e[slot[ax]];
+        s += __ldg(qT_i + col[ax]) + __ldg(kT_j + col[ax]);
+        dp += __ldg(e_i + col[ax]);
       }
-      const float p = expf(s - lse_i);
-      const float ds = p * (dp - dfac_i);
+      p[u] = expf(s - lse_i);
+      ds[u] = p[u] * (dp - dfac_i);
+    }
 #pragma unroll
-      for (int dd = 0; dd < D; ++dd) acc[dd] = fmaf(ds, k_s[j * D + dd], acc[dd]);
+    for (int u = 0; u < NK; ++u) {
+      if (j0 + u >= run.y) continue;
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) acc[dd] = fmaf(ds[u], kk[u][dd], acc[dd]);
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
-        my_mq[slot[ax]] += ds;
-        my_pm[slot[ax]] += p;
+        my_mq[slot[u][ax]] += ds[u];
+        my_pm[slot[u][ax]] += p[u];
       }
     }
   }
 
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) dq[((size_t)i * H + h) * D + dd] = acc[dd];
-  __syncthreads();
+  for (int dd = 0; dd < D; ++dd) dq[hi * D + dd] = acc[dd];
+  __syncwarp();
   // back to the [3, L2] bin layout: bin l of a difference axis holds the mass
   // of partner coordinate c = cq + G - 1 - l
-  for (int e = tid; e < TQ * W; e += TQ) {
+  for (int e = lane; e < WARP * W; e += WARP) {
     const int row = e / W, col = e % W;
     const int ax = col / L2, l = col % L2;
     int m;
     if (ax == 2 && radial) {
       m = 2 * G + l;
     } else {
-      const int c = cqt_s[row * 3 + ax] + G - 1 - l;
+      const int c = cq_s[row * 3 + ax] + G - 1 - l;
       m = (c >= 0 && c < G) ? ax * G + c : -1;
     }
-    const size_t gi = ((row0 + row) * H + h) * W + col;
+    const size_t gi = ((size_t)(row0 + row) * H + h) * W + col;
     mq[gi] = m >= 0 ? mq_s[row * MS + m] : 0.f;
     pm[gi] = m >= 0 ? pm_s[row * MS + m] : 0.f;
   }
@@ -218,41 +199,60 @@ wattn_rpe_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* rank, const void* quant,
-           const void* r, const void* kmin, const void* kmax, const void* qT, const void* kT,
-           const void* edo, const void* dout, const void* lse, const void* dfac, void* dq,
-           void* mq, void* pm, int N, int H, int G, int L2, float a, void* stream) {
-  const size_t smem = smem_bytes<D>(G, L2, r != nullptr);
+           const void* r, const void* qT, const void* kT, const void* edo, const void* dout,
+           const void* lse, const void* dfac, void* dq, void* mq, void* pm, int N, int H, int G,
+           int L2, float a, void* stream) {
+  if (N % WARP || !wattn::row_aligned(q, D, sizeof(T)) || !wattn::row_aligned(k, D, sizeof(T)) ||
+      !wattn::row_aligned(v, D, sizeof(T)) || !wattn::row_aligned(dout, D, sizeof(float)))
+    return (int)cudaErrorMisalignedAddress;
+  const size_t smem = smem_bytes(G, r != nullptr);
   auto kern = wattn_rpe_bwd_q_kernel<T, D>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = wattn::configure_bwd(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(N / TQ, H);
-  kern<<<grid, TQ, smem, (cudaStream_t)stream>>>(
+  dim3 grid(N / WARP, H);
+  kern<<<grid, WARP, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)rank, (const int32_t*)quant,
-      (const float*)r, (const int32_t*)kmin, (const int32_t*)kmax, (const float*)qT,
-      (const float*)kT, (const float*)edo, (const float*)dout, (const float*)lse,
-      (const float*)dfac, (float*)dq, (float*)mq, (float*)pm, H, G, L2, a);
+      (const float*)r, (const float*)qT, (const float*)kT, (const float*)edo,
+      (const float*)dout, (const float*)lse, (const float*)dfac, (float*)dq, (float*)mq,
+      (float*)pm, H, G, L2, a);
   return (int)cudaGetLastError();
 }
 
+// out[0] = dynamic shared bytes per block, out[1] = resident blocks per SM,
+// out[2] = resident warps per SM, for the kernel of one (T, D) at G
+template <typename T, int D>
+int occupancy(int G, bool radial, int* out) {
+  const size_t smem = smem_bytes(G, radial);
+  auto kern = wattn_rpe_bwd_q_kernel<T, D>;
+  cudaError_t e = wattn::configure_bwd(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, WARP, smem);
+  out[0] = (int)smem;
+  out[1] = blocks;
+  out[2] = blocks;  // one warp a block
+  return (int)e;
+}
+
+#define WATTN_BWD_Q_SWITCH(D, CALL) \
+  switch (D) {                      \
+    case 4: return CALL(4);         \
+    case 8: return CALL(8);         \
+    case 16: return CALL(16);       \
+    case 32: return CALL(32);       \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, const void* rank,
-             const void* quant, const void* r, const void* kmin, const void* kmax,
-             const void* qT, const void* kT, const void* edo, const void* dout, const void* lse,
-             const void* dfac, void* dq, void* mq, void* pm, int N, int H, int G, int L2,
-             float a, void* stream) {
-#define WATTN_BWD_Q_CASE(DD)                                                                  \
-  case DD:                                                                                    \
-    return launch<T, DD>(q, k, v, rank, quant, r, kmin, kmax, qT, kT, edo, dout, lse, dfac,  \
-                         dq, mq, pm, N, H, G, L2, a, stream);
-  switch (D) {
-    WATTN_BWD_Q_CASE(4)
-    WATTN_BWD_Q_CASE(8)
-    WATTN_BWD_Q_CASE(16)
-    WATTN_BWD_Q_CASE(32)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef WATTN_BWD_Q_CASE
+             const void* quant, const void* r, const void* qT, const void* kT, const void* edo,
+             const void* dout, const void* lse, const void* dfac, void* dq, void* mq, void* pm,
+             int N, int H, int G, int L2, float a, void* stream) {
+#define WATTN_BWD_Q_LAUNCH(DD)                                                               \
+  launch<T, DD>(q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq, mq, pm, N, H, G, \
+                L2, a, stream)
+  WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_LAUNCH)
+#undef WATTN_BWD_Q_LAUNCH
 }
 
 }  // namespace
@@ -260,17 +260,19 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* ran
 extern "C" {
 
 // Sorted inputs: q, k, v [N, H, D]; rank [N] f32; quant [N, 3] int32; r [N]
-// f32 or NULL (cubic branch); kmin, kmax [N / 128] int32; qT, kT, edo
+// f32 or NULL (cubic branch); kmin, kmax [N / 128] int32 (the host
+// geometry's tile ranges, unused here); qT, kT, edo
 // [N, H, 3, L2] f32; dout [N, H, D] f32; lse, dfac [N, H] f32. Outputs: dq
-// [N, H, D] f32; mq, pm [N, H, 3, L2] f32. D in {4, 8, 16, 32}. Returns the
+// [N, H, D] f32; mq, pm [N, H, 3, L2] f32. D in {4, 8, 16, 32}, N a multiple
+// of 32, q, k, v and dout aligned to their rows' loads. Returns the
 // cudaError_t of the launch.
 int wattn_rpe_bwd_q_f32(const void* q, const void* k, const void* v, const void* rank,
                         const void* quant, const void* r, const void* kmin, const void* kmax,
                         const void* qT, const void* kT, const void* edo, const void* dout,
                         const void* lse, const void* dfac, void* dq, void* mq, void* pm, int N,
                         int H, int D, int G, int L2, float a, void* stream) {
-  return dispatch<float>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, edo, dout, lse, dfac,
-                         dq, mq, pm, N, H, G, L2, a, stream);
+  return dispatch<float>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq, mq, pm,
+                         N, H, G, L2, a, stream);
 }
 
 int wattn_rpe_bwd_q_bf16(const void* q, const void* k, const void* v, const void* rank,
@@ -278,8 +280,23 @@ int wattn_rpe_bwd_q_bf16(const void* q, const void* k, const void* v, const void
                          const void* qT, const void* kT, const void* edo, const void* dout,
                          const void* lse, const void* dfac, void* dq, void* mq, void* pm, int N,
                          int H, int D, int G, int L2, float a, void* stream) {
-  return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, kmin, kmax, qT, kT, edo, dout, lse,
-                                 dfac, dq, mq, pm, N, H, G, L2, a, stream);
+  return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq,
+                                 mq, pm, N, H, G, L2, a, stream);
+}
+
+// The kernel's shared bytes per block and resident blocks and warps per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into out[3], for bf16 (1)
+// or f32 (0) inputs of head dim D at G, on the sphere branch (radial 1) or
+// the cubic one. Returns the cudaError_t.
+int wattn_rpe_bwd_q_occupancy(int bf16, int D, int G, int radial, int* out) {
+#define WATTN_BWD_Q_OCC_F32(DD) occupancy<float, DD>(G, radial != 0, out)
+#define WATTN_BWD_Q_OCC_BF16(DD) occupancy<__nv_bfloat16, DD>(G, radial != 0, out)
+  if (bf16) {
+    WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_OCC_BF16)
+  }
+  WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_OCC_F32)
+#undef WATTN_BWD_Q_OCC_F32
+#undef WATTN_BWD_Q_OCC_BF16
 }
 
 }  // extern "C"

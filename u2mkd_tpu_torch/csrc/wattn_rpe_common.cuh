@@ -51,4 +51,118 @@ __host__ __device__ __forceinline__ int mass_width(bool radial, int G) {
   return radial ? 4 * G : 3 * G;
 }
 
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The share of an SM's unified L1 and shared memory, in percent, that K4 and
+// K5 ask to be shared memory (cudaFuncAttributePreferredSharedMemoryCarveout):
+// 164 KB of the 256. The rest is L1, which holds the rows of the [N, h, 3,
+// L2] projections each lane reads its own lookups from; the full 228 KB of
+// shared memory keeps more warps resident but leaves L1 too small for those
+// rows, and measured slower on the sphere branch.
+constexpr int BWD_SMEM_CARVEOUT = 72;
+
+// Let a K4 or K5 kernel take `smem` bytes of dynamic shared memory, with the
+// carveout above.
+template <typename Kernel>
+cudaError_t configure_bwd(Kernel kern, size_t smem) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             BWD_SMEM_CARVEOUT);
+  return e;
+}
+
+// True where a run of equal rank begins among the n window-sorted rows;
+// row n (past the end) counts as a start, so that it closes the last run.
+__device__ __forceinline__ bool run_starts_at(const float* __restrict__ rank, int j, int n) {
+  return j <= 0 || j >= n || __ldg(rank + j) != __ldg(rank + j - 1);
+}
+
+// The run [x, y) of equal rank that holds row base + lane, for the 32 rows
+// of one warp from base (a multiple of 32; n a multiple of 32 too). Windows
+// are contiguous runs of the sorted rows, so a row's run is its window. The
+// warp takes one ballot of its own rows' start flags; a lane's start is the
+// highest flag at or below it (__clz), its end the lowest flag above it
+// (__ffs). Lanes whose run begins before the warp share the start of row
+// base's run, found by one ballot per 32 rows going back; lanes whose run
+// ends after the warp share the end of row base + 31's run, found likewise
+// going forward. So a window of any length costs a lane no step, and the
+// warp one ballot per 32 rows of the windows it straddles. All 32 lanes must
+// call it.
+__device__ __forceinline__ int2 warp_run_bounds(const float* __restrict__ rank, int base, int n,
+                                                int lane) {
+  const unsigned own = __ballot_sync(FULL_MASK, run_starts_at(rank, base + lane, n));
+  const unsigned upto = lane == WARP - 1 ? FULL_MASK : (2u << lane) - 1u;
+  const unsigned below = own & upto, above = own & ~upto;
+  int first = base;  // start of row base's run
+  if (!(own & 1u)) {
+    for (int c = base - WARP;; c -= WARP) {  // row 0 starts a run: c stays >= 0
+      const unsigned f = __ballot_sync(FULL_MASK, run_starts_at(rank, c + lane, n));
+      if (f) {
+        first = c + WARP - 1 - __clz(f);
+        break;
+      }
+    }
+  }
+  int last = n;  // end of row base + 31's run
+  for (int c = base + WARP;; c += WARP) {  // row n counts as a start: the loop ends
+    const unsigned f = __ballot_sync(FULL_MASK, run_starts_at(rank, c + lane, n));
+    if (f) {
+      last = c + __ffs(f) - 1;
+      break;
+    }
+  }
+  return make_int2(below ? base + WARP - 1 - __clz(below) : first,
+                   above ? base + __ffs(above) - 1 : last);
+}
+
+// A D-wide row of q, k, v (f32 or bf16) or of an f32 gradient, read through
+// the read-only cache in 16-byte (or, for 4 bf16, 8-byte) loads; rows start
+// at multiples of D elements, so a base pointer aligned to D * sizeof(T)
+// bytes, up to 16, aligns every row (see row_aligned).
+template <int D>
+__device__ __forceinline__ void load_row(const float* __restrict__ p, float (&out)[D]) {
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p) + c);
+    out[4 * c] = x.x;
+    out[4 * c + 1] = x.y;
+    out[4 * c + 2] = x.z;
+    out[4 * c + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void unpack_bf16x2(unsigned w, float* out) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  out[0] = f.x;
+  out[1] = f.y;
+}
+
+template <int D>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p, float (&out)[D]) {
+  if constexpr (D % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      unpack_bf16x2(x.x, out + 8 * c);
+      unpack_bf16x2(x.y, out + 8 * c + 2);
+      unpack_bf16x2(x.z, out + 8 * c + 4);
+      unpack_bf16x2(x.w, out + 8 * c + 6);
+    }
+  } else {
+    static_assert(D == 4, "bf16 rows of 4 or a multiple of 8");
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack_bf16x2(x.x, out);
+    unpack_bf16x2(x.y, out + 2);
+  }
+}
+
+// Whether load_row may read rows of D elements of `bytes` each from p.
+inline bool row_aligned(const void* p, int D, int bytes) {
+  const int need = D * bytes < 16 ? D * bytes : 16;
+  return reinterpret_cast<uintptr_t>(p) % need == 0;
+}
+
 }  // namespace wattn

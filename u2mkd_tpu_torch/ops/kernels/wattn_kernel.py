@@ -32,7 +32,7 @@ entry: gather by the host geometry's ``order``, attend, gather back by
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,7 +48,8 @@ SOURCE_BWD_Q = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_q.cu"
 REPLACES_BWD_Q = "u2mkd_tpu/ops/pallas/wattn_kernel.py:948"
 SOURCE_BWD_K = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_k.cu"
 REPLACES_BWD_K = "u2mkd_tpu/ops/pallas/wattn_kernel.py:988"
-TILE = 128  # rows per block; the host geometry's kmin/kmax tile
+TILE = 128  # rows per block of K2 and K3; the host geometry's kmin/kmax tile
+WARP = 32  # rows per block of K4 and K5: one warp
 HEAD_DIMS = (4, 8, 16, 32)
 
 _P = ctypes.c_void_p
@@ -297,6 +298,109 @@ def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin
 
 
 flash_rpe_bwd_k.launches = 0
+
+
+def flash_rpe_bwd_occupancy(source: str, dtype: torch.dtype, head_dim: int, grid_len: int,
+                            radial: bool) -> Dict[str, int]:
+    """K4's (``source`` "wattn_rpe_bwd_q") or K5's ("wattn_rpe_bwd_k") launch
+    on the current card for q/k/v of ``dtype`` and ``head_dim`` at G =
+    ``grid_len``: its dynamic shared bytes per block, and the blocks and
+    warps per SM that ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    lets be resident at once."""
+    suffix = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    fn = getattr(build.load(source), f"{source}_occupancy")
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * 3)()
+    build.check_rc(fn(suffix, int(head_dim), int(grid_len), int(radial), out),
+                   f"{source}_occupancy")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1], "warps_per_sm": out[2]}
+
+
+def _highest_bit(x: torch.Tensor) -> torch.Tensor:
+    """Index of the highest set bit of each positive int64 below 2^53."""
+    return torch.frexp(x.double()).exponent.long() - 1
+
+
+def warp_run_bounds(rank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rule by which K4 and K5 find each row's window
+    (``wattn::warp_run_bounds``, ``csrc/wattn_rpe_common.cuh``), step for
+    step in torch: rank [N] of window-sorted rows, N a multiple of
+    ``WARP`` -> (start, end) int64 [N] of each row's run of equal rank, and
+    the ballots [N / WARP] int64 each warp takes. A warp's ballot holds its
+    rows' run-start flags as bits; a lane's start is the highest flag at or
+    below it, its end the lowest above it; lanes with none take the start of
+    the warp's first row's run (the highest flag of the first non-zero
+    ballot going back, taken only when that row starts no run) or the end of
+    its last row's run (the lowest flag of the first non-zero ballot going
+    forward; row N counts as a start)."""
+    n = rank.shape[0]
+    if n % WARP:
+        raise ValueError(f"warp_run_bounds: N={n} is no multiple of {WARP}")
+    dev = rank.device
+    flags = torch.ones(n + WARP, dtype=torch.bool, device=dev)
+    flags[1:n] = rank[1:] != rank[:-1]
+    lane = torch.arange(WARP, device=dev)
+    words = (flags.view(-1, WARP).long() << lane).sum(1)        # [n / WARP + 1]
+    nw = n // WARP
+    idx = torch.arange(nw + 1, device=dev)
+    nonzero = words != 0
+    # the last non-zero word before each warp, the first after it
+    prev = torch.cummax(torch.where(nonzero, idx, -1), 0).values
+    nxt = torch.flip(torch.cummin(torch.flip(torch.where(nonzero, idx, nw), [0]), 0).values,
+                     [0])
+    w = idx[:nw]
+    own = words[:nw, None]
+    back = torch.where((own[:, 0] & 1) != 0, w,
+                       prev[(w - 1).clamp(min=0)])              # word holding the start
+    first = torch.where(back == w, w * WARP,
+                        back * WARP + _highest_bit(words[back].clamp(min=1)))
+    fwd = nxt[w + 1]
+    low = words[fwd] & -words[fwd]
+    last = fwd * WARP + _highest_bit(low)
+    upto = (2 << lane) - 1
+    below, above = own & upto, own & ~upto
+    base = (w * WARP)[:, None]
+    start = torch.where(below != 0, base + _highest_bit(below.clamp(min=1)), first[:, None])
+    end = torch.where(above != 0, base + _highest_bit((above & -above).clamp(min=1)),
+                      last[:, None])
+    ballots = 1 + (w - back) + (fwd - w)
+    return start.reshape(n), end.reshape(n), ballots
+
+
+def walk_counts(rank: torch.Tensor, kmin: torch.Tensor, kmax: torch.Tensor) -> Dict[str, float]:
+    """How much walking the attention kernels do on one geometry (rank [N]
+    window-sorted, N a multiple of 128; per-tile key ranges kmin/kmax):
+
+      * ``occupancy_mean``, ``_p99``, ``_max``: rows per window (a run of
+        equal rank; each invalid or pad row of the host geometry is a window
+        of one);
+      * ``pairs``: the (query, key) pairs of the windows, sum of occupancy^2;
+      * ``lane_steps_per_pair_tile``: steps of a walk over each 128-row
+        tile's whole key range, one lane per row (K3's walk), 128 *
+        sum(kmax - kmin) over pairs;
+      * ``lane_steps_per_pair_window``: steps of a walk over each row's own
+        window (K4 and K5): 1 by construction, counted from
+        :func:`warp_run_bounds`;
+      * ``warp_slots_per_pair_window``: lane slots a warp of 32 rows spends
+        there, 32 * its longest window, over pairs (lanes of shorter
+        windows idle);
+      * ``ballots_per_warp``: the ballots :func:`warp_run_bounds` takes."""
+    start, end, ballots = warp_run_bounds(rank)
+    length = end - start
+    new = wattn.window_starts(rank)
+    occ = torch.diff(torch.cat([torch.nonzero(new)[:, 0],
+                                torch.tensor([rank.shape[0]], device=rank.device)]))
+    pairs = int((occ * occ).sum())
+    tile_steps = TILE * int((kmax.long() - kmin.long()).sum())
+    warp_slots = WARP * int(length.view(-1, WARP).max(1).values.sum())
+    return {"occupancy_mean": float(occ.double().mean()),
+            "occupancy_p99": float(torch.quantile(occ.double(), 0.99)),
+            "occupancy_max": int(occ.max()), "pairs": pairs,
+            "lane_steps_per_pair_tile": tile_steps / pairs,
+            "lane_steps_per_pair_window": int(length.sum()) / pairs,
+            "warp_slots_per_pair_window": warp_slots / pairs,
+            "ballots_per_warp": float(ballots.double().mean())}
 
 
 class FlashRPE(torch.autograd.Function):
