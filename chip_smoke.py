@@ -13,7 +13,7 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      the least time the card could take for the same work; for K1 and K1b
      also the rulebook plan's build ms, the slots multiplied per valid pair
      with and without it, and a dense f32 GEMM of the same operations; for
-     K4 and K5 the window occupancy, the lane steps per pair of a walk over
+     K2-K5 the window occupancy, the lane steps per pair of a walk over
      each tile's key range and of one over each row's own window
      (``wattn_kernel.walk_counts``), and the kernel's shared bytes per block
      and resident blocks and warps per SM);
@@ -41,7 +41,8 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      (N=65536, h=4, d=16) on its cubic and its sphere windows, counting K2's
      launches; its kernel rows (small, and both main-path shapes, f32 and
      bf16, with the jagged ``scaled_dot_product_attention`` as the library
-     yardstick) are in phase 2;
+     yardstick and the compiled ``flex_attention`` with a document mask as
+     a second one) are in phase 2;
   9. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
      cr_t=2.0; P=65536, capacities (65536 ... 4096), 6 cameras at 360x640,
      B=1) through ``train.distill.make_distill_eval_step`` without the
@@ -476,13 +477,21 @@ def attention_cases(geoms):
             pairs = _pairs(gm.rank)
             es = q.element_size()
             proj = 4 * n * h * 3 * l2                      # one [N, h, 3, L2] f32
-            rows_in = 3 * es * n * h * d + 4 * n * (1 + 3 + radial) + 8 * (n // 128)
+            rows_in = 3 * es * n * h * d + 4 * n * (1 + 3 + radial)
+            # beside each kernel's time, what sets it: how far a walk over
+            # each tile's key range (the earlier design of K3) and one over
+            # each row's own window (K3's, K4's and K5's) go per pair, and
+            # the warps the launch keeps resident on an SM
+            walk = K.walk_counts(gm.rank, gm.kmin, gm.kmax)
+            occ = {src: K.window_attention_occupancy(src, dtype, d, g, radial)
+                   for src in ("wattn_rpe_fwd", "wattn_rpe_bwd_q", "wattn_rpe_bwd_k")}
             rows.append(_compare(
                 "flash_rpe_fwd", tag, case,
                 lambda: K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a),
                 lambda: K.flash_rpe_fwd_plain(q, k, v, qT, kT, tv, *geo, g, a),
                 dict(_bound(rows_in + 2 * proj + 4 * tv.numel() + 4 * n * h * (d + 1),
-                            pairs * h * (7 * d + 6), F32_PEAK), pairs=pairs)))
+                            pairs * h * (7 * d + 6), F32_PEAK),
+                     **walk, **occ["wattn_rpe_fwd"])))
             out, lse = K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a)
             do = torch.randn(n, h, d, device=dev, generator=gen)
             dfac = (do * out).sum(-1)
@@ -494,13 +503,6 @@ def attention_cases(geoms):
             # of both
             ref = K.flash_rpe_bwd_plain(*bwd, g, a)
             plain_ms = cuda_ms(lambda: K.flash_rpe_bwd_plain(*bwd, g, a), reps=5, warmup=1)
-            # beside K4's and K5's times, what sets them: how far a walk
-            # over each tile's key range (K3's) and one over each row's own
-            # window (K4's and K5's) go per pair, and the warps the launch
-            # keeps resident on an SM
-            walk = K.walk_counts(gm.rank, gm.kmin, gm.kmax)
-            occ = {src: K.flash_rpe_bwd_occupancy(src, dtype, d, g, radial)
-                   for src in ("wattn_rpe_bwd_q", "wattn_rpe_bwd_k")}
             # per pair and head, K4: two d-dots, the dq update, nine lookups
             # and six mass adds; K5: two d-dots, the dk and dv updates, nine
             # lookups and three mass adds
@@ -545,12 +547,52 @@ def _jagged_sdpa(qs, ks, vs, rank):
     return call, call()
 
 
+def _flex_windows(qs, ks, vs, sw):
+    """The second library yardstick of K2: ``flex_attention``, compiled, with
+    a document mask (key j counts for query i where rank_i == rank_j) over
+    the window-sorted, padded rows of ``sw`` (a ``SortedWindows``). Its
+    block mask lists, for each 128-query block, the key blocks of the tile's
+    key range [kmin, kmax), so no N x N mask is built. -> (a call returning
+    [N, h, d], its output). The compiler's caches go under the build
+    directory."""
+    import torch
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+    from u2mkd_tpu_torch.ops.kernels import build
+
+    cache = build.BUILD_DIR / "inductor"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+    import torch._inductor.config as inductor_config
+
+    inductor_config.compile_threads = 1   # no pool of compile workers
+    rank, n = sw.rank, sw.rank.shape[0]
+    blk = 128
+    lo, hi = sw.kmin.long() // blk, (sw.kmax.long() + blk - 1) // blk
+    idx = lo[:, None] + torch.arange(n // blk, device=rank.device)
+    idx = torch.where(idx < hi[:, None], idx, 0).int()
+
+    def same_window(b, h, q_idx, kv_idx):
+        return rank[q_idx] == rank[kv_idx]
+
+    mask = BlockMask.from_kv_blocks((hi - lo).int()[None, None], idx[None, None],
+                                    BLOCK_SIZE=blk, mask_mod=same_window, seq_lengths=(n, n))
+    fn = torch.compile(flex_attention)
+    q4, k4, v4 = (x.transpose(0, 1)[None].contiguous() for x in (qs, ks, vs))
+
+    def call():
+        return fn(q4, k4, v4, block_mask=mask, scale=1.0)[0].transpose(0, 1)
+
+    return call, call()
+
+
 def window_cases(xyz, valid):
     """K2 through its entry point against the plain version, f32 and bf16:
     a small random case and the main-path shape (the teacher's level-1
     voxels, ``WINDOW_HEADS`` heads of d=16) on cubic and on sphere windows.
-    The times are of the kernel alone, its plain version and the jagged
-    SDPA, on the window-sorted rows."""
+    The times are of the kernel alone, its plain version and two library
+    calls (the jagged SDPA and the compiled ``flex_attention``), on the
+    window-sorted rows; beside them the walk counts and the kernel's
+    resident warps."""
     import torch
     from u2mkd_tpu_torch.ops import wattn
     from u2mkd_tpu_torch.ops.kernels import wattn_kernel as K
@@ -580,8 +622,10 @@ def window_cases(xyz, valid):
                 "flash_window_sorted", tag, case,
                 lambda: K.sparse_window_attention_flash(q, k, v, pos, ok, ws),
                 lambda: K.sparse_window_attention_flash(q, k, v, pos, ok, ws, plain=True),
-                dict(_bound(es * 3 * n * h * d + 4 * n * h * d + 4 * n + 8 * (n // K.TILE),
-                            4.0 * pairs * h * d, F32_PEAK), pairs=pairs),
+                dict(_bound(es * 3 * n * h * d + 4 * n * h * d + 4 * n,
+                            4.0 * pairs * h * d, F32_PEAK),
+                     **K.walk_counts(sw.rank, sw.kmin, sw.kmax),
+                     **K.window_attention_occupancy("wattn_fwd", dtype, d, 0, False)),
                 timed=(lambda: K.flash_window_sorted(qs, ks, vs, sw.rank, sw.kmin, sw.kmax),
                        lambda: K.flash_window_sorted_plain(qs, ks, vs, sw.rank)))
             row.update(branch=branch, heads=h, windows=windows,
@@ -592,6 +636,15 @@ def window_cases(xyz, valid):
                                                   sw.rank[:vcap])
                 row.update(library_ms=cuda_ms(call), library_dtype=tag,
                            library_max_rel_err=_errors((lib,), (ref,))[1])
+                # a yardstick, not a check: where flex_attention does not
+                # compile on this card, its error stands in the row instead
+                try:
+                    call, lib = _flex_windows(qs, ks, vs, sw)
+                    row.update(library_flex_ms=cuda_ms(call), library_flex_max_rel_err=_errors(
+                        (lib[:vcap],), (ref,))[1])
+                except Exception as e:  # noqa: BLE001
+                    row.update(library_flex_ms=None,
+                               library_flex_error=f"{type(e).__name__}: {e}"[:300])
             rows.append(row)
     return rows
 
@@ -1206,7 +1259,9 @@ def kernels_line(rows, launches):
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": rep.get("library_ms")})
+                    "library_ms": rep.get("library_ms"),
+                    **({"library_flex_ms": rep["library_flex_ms"]}
+                       if "library_flex_ms" in rep else {})})
     emit({"kernels": out})
 
 

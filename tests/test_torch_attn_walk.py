@@ -1,12 +1,14 @@
-"""How K4 and K5 find each row's window, and the walk counters beside them.
+"""How K2-K5 find each row's window, and the walk counters beside them.
 
-K4 and K5 (``csrc/wattn_rpe_bwd_q.cu``, ``wattn_rpe_bwd_k.cu``) walk each
-row's own window, a run of equal rank among the window-sorted rows, found by
-``wattn::warp_run_bounds`` from ballots of run-start flags.
+K2, K3, K4 and K5 (``csrc/wattn_fwd.cu``, ``wattn_rpe_fwd.cu``,
+``wattn_rpe_bwd_q.cu``, ``wattn_rpe_bwd_k.cu``) walk each row's own window,
+a run of equal rank among the window-sorted rows, found by
+``wattn::warp_run_bounds`` from ballots of run-start flags: on the host
+geometry's f32 ranks (K3-K5) and on the int32 ranks of K2's window sort.
 ``wattn_kernel.warp_run_bounds`` is that rule written in torch; it is held
 here against ``wattn.run_bounds``, the port's plain run bounds, and
 ``wattn_kernel.walk_counts`` (the occupancy and lane-step counters of
-``chip_smoke.py``'s K4 and K5 rows) against counts by brute force. CPU only.
+``chip_smoke.py``'s K2-K5 rows) against counts by brute force. CPU only.
 """
 
 import numpy as np
@@ -157,3 +159,71 @@ def test_walk_counts_on_host_geometry(radial):
         assert got[key] == pytest.approx(want[key], rel=1e-12), key
     assert got["lane_steps_per_pair_tile"] > 1.0
     assert got["occupancy_max"] >= int(geo["occ"][0])
+
+
+SORT_CASES = ["mixed", "long", "one_window", "all_invalid"]
+
+
+def _sorted_windows(case, rng):
+    """K2's own geometry, from ``sort_by_window``: int32 ranks with pad rows
+    at PAD_RANK (V off the tile) and each invalid row a window of its own."""
+    ws = (1.0, 1.0, 1.0)
+    if case == "mixed":        # a random cloud, 10% invalid rows
+        v = 1000
+        xyz = rng.uniform(-8, 8, (v, 3))
+        valid = rng.rand(v) < 0.9
+        ws = (2.0, 2.0, 2.0)
+    elif case == "long":       # windows of 1-300 rows, across warp and tile bounds
+        sizes = [40, 150, 300, 3, 70, 1, 300]
+        xyz = np.concatenate([rng.uniform(0, 0.9, (s_, 3)) + [10.0 * w, 0, 0]
+                              for w, s_ in enumerate(sizes)])
+        valid = np.ones(len(xyz), bool)
+        valid[rng.choice(len(xyz), 5, replace=False)] = False
+    elif case == "one_window":  # all N rows in one window, no pad
+        xyz = rng.uniform(0, 0.9, (512, 3))
+        valid = np.ones(512, bool)
+    else:                      # every row invalid: windows of one, then pads
+        xyz = rng.uniform(-8, 8, (300, 3))
+        valid = np.zeros(300, bool)
+    sw = wattn_kernel.sort_by_window(torch.from_numpy(xyz.astype(np.float32)),
+                                     torch.from_numpy(valid), ws)
+    return sw, int(valid.sum()), len(valid)
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_warp_run_bounds_on_window_sort(case):
+    """K2's ballot rule on the int32 ranks of ``sort_by_window`` gives every
+    row the run ``wattn.run_bounds`` gives it: pads share one run at
+    PAD_RANK, each invalid row is a run of one, windows are longer than a
+    warp and a tile, or one window holds all N rows."""
+    sw, n_valid, v = _sorted_windows(case, np.random.RandomState(13))
+    rank = sw.rank
+    assert rank.dtype == torch.int32 and rank.shape[0] % 128 == 0
+    start, end, ballots = wattn_kernel.warp_run_bounds(rank)
+    want = wattn.run_bounds(wattn.window_starts(rank))
+    assert torch.equal(start, want[0].long()) and torch.equal(end, want[1].long())
+    assert ballots.shape == (rank.shape[0] // 32,) and int(ballots.min()) >= 2
+    length = end - start
+    n = rank.shape[0]
+    assert (length[n_valid:v] == 1).all()                         # invalid rows alone
+    assert (rank[v:] == wattn_kernel.PAD_RANK).all()
+    assert (length[v:] == n - v).all()                            # pads: one run
+    if case == "long":
+        assert int(length.max()) > 128 and bool(((start // 128) != ((end - 1) // 128)).any())
+    if case == "one_window":
+        assert (start == 0).all() and (end == n).all()
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_walk_counts_on_window_sort(case):
+    """``walk_counts`` on K2's geometry (its tile ranges included) equals the
+    counts by brute force, and the window walk takes one lane step per
+    pair."""
+    sw, _, _ = _sorted_windows(case, np.random.RandomState(17))
+    (start, end), want = _brute(sw.rank, sw.kmin, sw.kmax)
+    got = wattn_kernel.walk_counts(sw.rank, sw.kmin, sw.kmax)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=1e-12), key
+    assert got["lane_steps_per_pair_window"] == 1.0
+    assert wattn_kernel.warp_run_bounds(sw.rank)[0].tolist() == start

@@ -568,7 +568,130 @@ def test_attention_backward_occupancy(cuda_device):
     on both branches, f32 and bf16."""
     for radial in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
-            q = wattn_kernel.flash_rpe_bwd_occupancy("wattn_rpe_bwd_q", dtype, 16, 24, radial)
-            k = wattn_kernel.flash_rpe_bwd_occupancy("wattn_rpe_bwd_k", dtype, 16, 24, radial)
+            q = wattn_kernel.window_attention_occupancy("wattn_rpe_bwd_q", dtype, 16, 24, radial)
+            k = wattn_kernel.window_attention_occupancy("wattn_rpe_bwd_k", dtype, 16, 24, radial)
             assert q["warps_per_sm"] >= 6 and k["warps_per_sm"] >= 12, (radial, dtype, q, k)
             assert 0 < k["smem_bytes"] < q["smem_bytes"] < 48 * 1024
+
+
+# K3 and K2 walk each row's own window (one warp per block, one row per
+# lane): layouts of window sizes that put runs across warp and tile bounds
+FWD_EDGE_CASES = {
+    "warp_cross": (256, [20, 30, 17, 45, 9]),   # runs across 32-row warps
+    "long": (1024, [40, 150, 300, 1, 2]),      # longer than 32 and than 128
+    "one_window": (512, None),                 # one window of all N rows
+    "singletons": (256, [1]),
+    "n32": (32, [1, 3, 7, 9]),
+    "n160": (160, [5, 37, 70, 2]),             # N a multiple of 32, not of 128
+}
+
+
+def _fwd_edge_rank(case, device):
+    """Window-sorted rank [N] (float32) of one of FWD_EDGE_CASES, with the
+    per-128-row key ranges of its tiles (the last tile may be short)."""
+    n, sizes = FWD_EDGE_CASES[case]
+    if sizes is None:
+        ids = np.zeros(n)
+    else:
+        ids = np.repeat(np.arange(n), np.resize(sizes, n))[:n]
+    rank = torch.from_numpy(ids.astype(np.float32)).to(device)
+    start, end = wattn.run_bounds(wattn.window_starts(rank))
+    first = torch.arange(0, n, 128, device=device)
+    kmin = start[first].contiguous()
+    kmax = torch.maximum(end[(first + 127).clamp(max=n - 1)], kmin + 1).contiguous()
+    return rank, kmin, kmax
+
+
+def _fwd_inputs(rank, radial, h, d, g, dtype, device, seed=0):
+    """K3's inputs over window-sorted rows of rank: q, k, v, qT, kT, tv,
+    rank, quant (coordinates in [-1, G], so clipping counts), r."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = rank.shape[0]
+    l2 = 2 * g if radial else 2 * g - 1
+    q, k, v = (torch.randn(n, h, d, device=device, generator=gen).mul(s).to(dtype)
+               for s in (d ** -0.5, 1.0, 1.0))
+    tq, tk, tv = (0.02 * torch.randn(l2, 3, h, d, device=device, generator=gen)
+                  for _ in range(3))
+    quant = torch.randint(-1, g + 1, (n, 3), device=device, generator=gen, dtype=torch.int32)
+    r = torch.rand(n, device=device, generator=gen) * 3 if radial else None
+    return (q, k, v, wattn.table_projections(q, tq), wattn.table_projections(k, tk), tv,
+            rank, quant, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+@pytest.mark.parametrize("case", sorted(FWD_EDGE_CASES))
+def test_attention_forward_kernel_edge_cases(cuda_device, case, radial):
+    """K3 against its plain version (out and lse, f32 and bf16 q/k/v) on
+    windows across warp bounds, longer than a warp and a tile, one window of
+    all N rows, all windows of one row, and N = 32 and 160."""
+    rank, kmin, kmax = _fwd_edge_rank(case, cuda_device)
+    k3 = wattn_kernel.flash_rpe_fwd
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _fwd_inputs(rank, radial, 2, 16, 24, dtype, cuda_device)
+        before = k3.launches
+        out, lse = k3(*args, kmin, kmax, 24, 0.0125)
+        assert k3.launches == before + 1
+        ref, lse_ref = wattn_kernel.flash_rpe_fwd_plain(*args, 24, 0.0125)
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        assert _rel_err(out, ref) <= 1e-4, dtype
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FWD_EDGE_CASES))
+def test_window_kernel_edge_cases(cuda_device, case):
+    """K2 on int32 ranks against its plain version, f32 and bf16, every head
+    dim, on the layouts of the K3 edge cases; a pad run at PAD_RANK closes
+    the long case."""
+    rank, kmin, kmax = _fwd_edge_rank(case, cuda_device)
+    rank = rank.int()
+    if case == "long":
+        rank[-100:] = wattn_kernel.PAD_RANK
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    k2 = wattn_kernel.flash_window_sorted
+    for d in wattn_kernel.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(rank.shape[0], 3, d, device=cuda_device, generator=gen)
+                       .to(dtype) for _ in range(3))
+            before = k2.launches
+            out = k2(q, k, v, rank, kmin, kmax)
+            assert k2.launches == before + 1
+            ref = wattn_kernel.flash_window_sorted_plain(q, k, v, rank)
+            assert out.dtype == torch.float32 and torch.isfinite(out).all()
+            assert _rel_err(out, ref) <= 1e-4, (d, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radial", [False, True])
+def test_forward_kernels_deterministic(cuda_device, radial):
+    """Two launches of K3 on the teacher's level-1 host geometry, and two of
+    K2 on its long-window layout, give bitwise the same outputs: each row's
+    sums are taken by its own lane, in key order, with no atomics."""
+    geom, _ = _host_level1(cuda_device, radial)
+    args = _fwd_inputs(geom.rank, radial, 1, 16, 24, torch.float32, cuda_device)
+    k3 = wattn_kernel.flash_rpe_fwd
+    first = k3(*args, geom.kmin, geom.kmax, 24, 0.0125)
+    second = k3(*args, geom.kmin, geom.kmax, 24, 0.0125)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(first, second))
+    rank, kmin, kmax = _fwd_edge_rank("long", cuda_device)
+    q, k, v = args[0][:1024], args[1][:1024], args[2][:1024]
+    k2 = wattn_kernel.flash_window_sorted
+    assert torch.equal(k2(q, k, v, rank.int(), kmin, kmax), k2(q, k, v, rank.int(), kmin, kmax))
+
+
+@pytest.mark.cuda
+def test_forward_kernels_occupancy(cuda_device):
+    """K3 holds only the head's value table in shared memory, its rows at an
+    odd stride, and leaves half of the SM's unified memory to L1; K2 uses
+    none. The launch's shared bytes and resident warps per SM at G=24,
+    d=16."""
+    for radial in (False, True):
+        l2 = 48 if radial else 47
+        for dtype in (torch.float32, torch.bfloat16):
+            k3 = wattn_kernel.window_attention_occupancy("wattn_rpe_fwd", dtype, 16, 24, radial)
+            assert k3["smem_bytes"] == 4 * 3 * l2 * 17, k3
+            assert k3["warps_per_sm"] >= 8, (radial, dtype, k3)
+            k2 = wattn_kernel.window_attention_occupancy("wattn_fwd", dtype, 16, 0, False)
+            assert k2["smem_bytes"] == 0 and k2["warps_per_sm"] >= 16, (dtype, k2)

@@ -6,6 +6,8 @@ same host geometry, at the sizes of
 ``tests/test_wgeom.py::test_pregeom_matches_injit``.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,3 +179,69 @@ def test_plain_forward_lse(rng):
     ref = torch.logsumexp(torch.where(same[..., None], s, -torch.inf), dim=1)
     np.testing.assert_allclose(lse.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
     assert out.shape == (len(cq), h, d)
+
+
+def _lane_walk_fwd(qs, ks, vs, qT, kT, tv, rank, quant, r, g, a, nk=2):
+    """K3's walk (``csrc/wattn_rpe_fwd.cu``) in torch: each row steps through
+    its own run [start, end) from ``wattn_kernel.warp_run_bounds`` in key
+    order, ``nk`` keys per step, and joins a step's keys to its online
+    softmax as ``wattn::softmax_join`` does: one rescale to the largest of
+    the running max and the step's live scores, then the keys' terms in key
+    order; keys past the run's end take no part. A key's value row is v_j
+    plus the three value-table rows. -> (out [N, h, d], lse [N, h])."""
+    start, end, _ = wattn_kernel.warp_run_bounds(rank)
+    n, h, d = qs.shape
+    cq = quant.long().clamp(0, g - 1)
+    rows = torch.arange(n)
+    m = torch.full((n, h), -math.inf)
+    l, acc = torch.zeros(n, h), torch.zeros(n, h, d)
+    for t0 in range(0, int((end - start).max()), nk):
+        live, s, val = [], [], []
+        for u in range(nk):
+            ok = start + t0 + u < end
+            j = torch.where(ok, start + t0 + u, rows)
+            idx = wattn._bins(cq, r, rows, j, g, a)
+            live.append(ok[:, None])
+            s.append(wattn._scores(qs, ks, qT, kT, rows, j, idx))
+            val.append(vs[j] + tv[idx[:, 0], 0] + tv[idx[:, 1], 1] + tv[idx[:, 2], 2])
+        mx = m
+        for ok, su in zip(live, s):
+            mx = torch.where(ok, torch.maximum(mx, su), mx)
+        sc = torch.exp(m - mx)
+        p = [torch.where(ok, torch.exp(su - mx), 0.0) for ok, su in zip(live, s)]
+        l = l * sc
+        acc = acc * sc[..., None]
+        for pu, vu in zip(p, val):
+            l = l + pu
+            acc = acc + pu[..., None] * vu
+        m = mx
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("radial", [False, True])
+def test_lane_walk_matches_plain_and_jax(rng, radial):
+    """K3's per-lane walk over each row's own window, written in torch,
+    against the plain forward (out and lse, f32, a few ulps: sums in another
+    order) and, gathered back by ``inv`` with invalid rows zeroed, against
+    the JAX flash path in interpret mode (RTOL, ATOL as above), on the host
+    geometry of ``test_pregeom_matches_jax_flash``."""
+    g = 6
+    ws = (4.0, 4.0, 4.0)
+    coords, valid, q, k, v, (tq, tk, tv) = _inputs(rng, radial=radial)
+    jax_geom, geom = _geoms(coords, valid, ws, tuple(w / g for w in ws), radial)
+    b, vcap, h, d = q.shape
+    sq, sk, sv = (torch.from_numpy(x).reshape(b * vcap, h, d)[geom.order] for x in (q, k, v))
+    tq_, tk_, tv_ = map(torch.from_numpy, (tq, tk, tv))
+    qT, kT = wattn.table_projections(sq, tq_), wattn.table_projections(sk, tk_)
+    args = (sq, sk, sv, qT, kT, tv_, geom.rank, geom.quant, geom.r)
+    out_s, lse = _lane_walk_fwd(*args, g, 0.5)
+    ref_s, lse_ref = wattn.window_attention_rpe_fwd(*args, g, 0.5)
+    torch.testing.assert_close(out_s, ref_s, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-6, atol=1e-6)
+    ref = jax_pk.flash_pregeom_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid), jax_geom,
+        jnp.asarray(tq), jnp.asarray(tk), jnp.asarray(tv), grid_len=g, a=0.5,
+        interpret=True)
+    out = torch.where(torch.from_numpy(valid).reshape(-1)[:, None, None], out_s[geom.inv], 0.0)
+    np.testing.assert_allclose(out.reshape(q.shape).numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)

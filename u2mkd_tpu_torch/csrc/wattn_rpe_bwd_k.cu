@@ -175,7 +175,7 @@ int launch(const void* q, const void* k, const void* v, const void* rank, const 
     return (int)cudaErrorMisalignedAddress;
   const size_t smem = smem_bytes(G, r != nullptr);
   auto kern = wattn_rpe_bwd_k_kernel<T, D>;
-  cudaError_t e = wattn::configure_bwd(kern, smem);
+  cudaError_t e = wattn::configure_smem(kern, smem, wattn::BWD_SMEM_CARVEOUT);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(N / WARP, H);
   kern<<<grid, WARP, smem, (cudaStream_t)stream>>>(
@@ -186,30 +186,12 @@ int launch(const void* q, const void* k, const void* v, const void* rank, const 
   return (int)cudaGetLastError();
 }
 
-// out[0] = dynamic shared bytes per block, out[1] = resident blocks per SM,
-// out[2] = resident warps per SM, for the kernel of one (T, D) at G
+// the launch's shared bytes and resident blocks and warps per SM into out[3]
 template <typename T, int D>
 int occupancy(int G, bool radial, int* out) {
-  const size_t smem = smem_bytes(G, radial);
-  auto kern = wattn_rpe_bwd_k_kernel<T, D>;
-  cudaError_t e = wattn::configure_bwd(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, WARP, smem);
-  out[0] = (int)smem;
-  out[1] = blocks;
-  out[2] = blocks;  // one warp a block
-  return (int)e;
+  return wattn::warp_occupancy(wattn_rpe_bwd_k_kernel<T, D>, smem_bytes(G, radial),
+                               wattn::BWD_SMEM_CARVEOUT, out);
 }
-
-#define WATTN_BWD_K_SWITCH(D, CALL) \
-  switch (D) {                      \
-    case 4: return CALL(4);         \
-    case 8: return CALL(8);         \
-    case 16: return CALL(16);       \
-    case 32: return CALL(32);       \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, const void* rank,
@@ -219,7 +201,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* ran
 #define WATTN_BWD_K_LAUNCH(DD)                                                               \
   launch<T, DD>(q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dk, dv, mk, N, H, G, \
                 L2, a, stream)
-  WATTN_BWD_K_SWITCH(D, WATTN_BWD_K_LAUNCH)
+  WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_K_LAUNCH)
 #undef WATTN_BWD_K_LAUNCH
 }
 
@@ -231,19 +213,19 @@ extern "C" {
 // [N, H, 3, L2] f32. D in {4, 8, 16, 32}. Returns the cudaError_t of the
 // launch.
 int wattn_rpe_bwd_k_f32(const void* q, const void* k, const void* v, const void* rank,
-                        const void* quant, const void* r, const void* kmin, const void* kmax,
-                        const void* qT, const void* kT, const void* edo, const void* dout,
-                        const void* lse, const void* dfac, void* dk, void* dv, void* mk, int N,
-                        int H, int D, int G, int L2, float a, void* stream) {
+                        const void* quant, const void* r, const void* qT, const void* kT,
+                        const void* edo, const void* dout, const void* lse, const void* dfac,
+                        void* dk, void* dv, void* mk, int N, int H, int D, int G, int L2, float a,
+                        void* stream) {
   return dispatch<float>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dk, dv, mk,
                          N, H, G, L2, a, stream);
 }
 
 int wattn_rpe_bwd_k_bf16(const void* q, const void* k, const void* v, const void* rank,
-                         const void* quant, const void* r, const void* kmin, const void* kmax,
-                         const void* qT, const void* kT, const void* edo, const void* dout,
-                         const void* lse, const void* dfac, void* dk, void* dv, void* mk, int N,
-                         int H, int D, int G, int L2, float a, void* stream) {
+                         const void* quant, const void* r, const void* qT, const void* kT,
+                         const void* edo, const void* dout, const void* lse, const void* dfac,
+                         void* dk, void* dv, void* mk, int N, int H, int D, int G, int L2, float a,
+                         void* stream) {
   return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dk,
                                  dv, mk, N, H, G, L2, a, stream);
 }
@@ -253,9 +235,9 @@ int wattn_rpe_bwd_k_occupancy(int bf16, int D, int G, int radial, int* out) {
 #define WATTN_BWD_K_OCC_F32(DD) occupancy<float, DD>(G, radial != 0, out)
 #define WATTN_BWD_K_OCC_BF16(DD) occupancy<__nv_bfloat16, DD>(G, radial != 0, out)
   if (bf16) {
-    WATTN_BWD_K_SWITCH(D, WATTN_BWD_K_OCC_BF16)
+    WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_K_OCC_BF16)
   }
-  WATTN_BWD_K_SWITCH(D, WATTN_BWD_K_OCC_F32)
+  WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_K_OCC_F32)
 #undef WATTN_BWD_K_OCC_F32
 #undef WATTN_BWD_K_OCC_BF16
 }

@@ -40,7 +40,7 @@
 //   * each lane walks the keys of its own window only: windows are contiguous
 //     runs of the sorted rows, and wattn::warp_run_bounds finds each lane's
 //     run from one ballot of its warp's run-start flags. No step lands on a
-//     key of another window; the tile ranges kmin/kmax are not needed;
+//     key of another window, and no tile range is needed;
 //   * a key's row (k, v, kT, coordinates, range) is read through the
 //     read-only cache: lanes of one window read the same key at once, so the
 //     reads broadcast. The lane's own lookups qT[i, a, idx_a] and
@@ -207,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, const void* rank, const 
     return (int)cudaErrorMisalignedAddress;
   const size_t smem = smem_bytes(G, r != nullptr);
   auto kern = wattn_rpe_bwd_q_kernel<T, D>;
-  cudaError_t e = wattn::configure_bwd(kern, smem);
+  cudaError_t e = wattn::configure_smem(kern, smem, wattn::BWD_SMEM_CARVEOUT);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(N / WARP, H);
   kern<<<grid, WARP, smem, (cudaStream_t)stream>>>(
@@ -218,30 +218,12 @@ int launch(const void* q, const void* k, const void* v, const void* rank, const 
   return (int)cudaGetLastError();
 }
 
-// out[0] = dynamic shared bytes per block, out[1] = resident blocks per SM,
-// out[2] = resident warps per SM, for the kernel of one (T, D) at G
+// the launch's shared bytes and resident blocks and warps per SM into out[3]
 template <typename T, int D>
 int occupancy(int G, bool radial, int* out) {
-  const size_t smem = smem_bytes(G, radial);
-  auto kern = wattn_rpe_bwd_q_kernel<T, D>;
-  cudaError_t e = wattn::configure_bwd(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, WARP, smem);
-  out[0] = (int)smem;
-  out[1] = blocks;
-  out[2] = blocks;  // one warp a block
-  return (int)e;
+  return wattn::warp_occupancy(wattn_rpe_bwd_q_kernel<T, D>, smem_bytes(G, radial),
+                               wattn::BWD_SMEM_CARVEOUT, out);
 }
-
-#define WATTN_BWD_Q_SWITCH(D, CALL) \
-  switch (D) {                      \
-    case 4: return CALL(4);         \
-    case 8: return CALL(8);         \
-    case 16: return CALL(16);       \
-    case 32: return CALL(32);       \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, const void* rank,
@@ -251,7 +233,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* ran
 #define WATTN_BWD_Q_LAUNCH(DD)                                                               \
   launch<T, DD>(q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq, mq, pm, N, H, G, \
                 L2, a, stream)
-  WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_LAUNCH)
+  WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_Q_LAUNCH)
 #undef WATTN_BWD_Q_LAUNCH
 }
 
@@ -260,26 +242,24 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* ran
 extern "C" {
 
 // Sorted inputs: q, k, v [N, H, D]; rank [N] f32; quant [N, 3] int32; r [N]
-// f32 or NULL (cubic branch); kmin, kmax [N / 128] int32 (the host
-// geometry's tile ranges, unused here); qT, kT, edo
-// [N, H, 3, L2] f32; dout [N, H, D] f32; lse, dfac [N, H] f32. Outputs: dq
-// [N, H, D] f32; mq, pm [N, H, 3, L2] f32. D in {4, 8, 16, 32}, N a multiple
-// of 32, q, k, v and dout aligned to their rows' loads. Returns the
-// cudaError_t of the launch.
+// f32 or NULL (cubic branch); qT, kT, edo [N, H, 3, L2] f32; dout [N, H, D]
+// f32; lse, dfac [N, H] f32. Outputs: dq [N, H, D] f32; mq, pm [N, H, 3, L2]
+// f32. D in {4, 8, 16, 32}, N a multiple of 32, q, k, v and dout aligned to
+// their rows' loads. Returns the cudaError_t of the launch.
 int wattn_rpe_bwd_q_f32(const void* q, const void* k, const void* v, const void* rank,
-                        const void* quant, const void* r, const void* kmin, const void* kmax,
-                        const void* qT, const void* kT, const void* edo, const void* dout,
-                        const void* lse, const void* dfac, void* dq, void* mq, void* pm, int N,
-                        int H, int D, int G, int L2, float a, void* stream) {
+                        const void* quant, const void* r, const void* qT, const void* kT,
+                        const void* edo, const void* dout, const void* lse, const void* dfac,
+                        void* dq, void* mq, void* pm, int N, int H, int D, int G, int L2, float a,
+                        void* stream) {
   return dispatch<float>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq, mq, pm,
                          N, H, G, L2, a, stream);
 }
 
 int wattn_rpe_bwd_q_bf16(const void* q, const void* k, const void* v, const void* rank,
-                         const void* quant, const void* r, const void* kmin, const void* kmax,
-                         const void* qT, const void* kT, const void* edo, const void* dout,
-                         const void* lse, const void* dfac, void* dq, void* mq, void* pm, int N,
-                         int H, int D, int G, int L2, float a, void* stream) {
+                         const void* quant, const void* r, const void* qT, const void* kT,
+                         const void* edo, const void* dout, const void* lse, const void* dfac,
+                         void* dq, void* mq, void* pm, int N, int H, int D, int G, int L2, float a,
+                         void* stream) {
   return dispatch<__nv_bfloat16>(D, q, k, v, rank, quant, r, qT, kT, edo, dout, lse, dfac, dq,
                                  mq, pm, N, H, G, L2, a, stream);
 }
@@ -292,9 +272,9 @@ int wattn_rpe_bwd_q_occupancy(int bf16, int D, int G, int radial, int* out) {
 #define WATTN_BWD_Q_OCC_F32(DD) occupancy<float, DD>(G, radial != 0, out)
 #define WATTN_BWD_Q_OCC_BF16(DD) occupancy<__nv_bfloat16, DD>(G, radial != 0, out)
   if (bf16) {
-    WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_OCC_BF16)
+    WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_Q_OCC_BF16)
   }
-  WATTN_BWD_Q_SWITCH(D, WATTN_BWD_Q_OCC_F32)
+  WATTN_HEAD_DIM_SWITCH(D, WATTN_BWD_Q_OCC_F32)
 #undef WATTN_BWD_Q_OCC_F32
 #undef WATTN_BWD_Q_OCC_BF16
 }

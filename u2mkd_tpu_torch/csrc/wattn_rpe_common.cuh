@@ -1,14 +1,16 @@
-// Shared pieces of the contextual-RPE window attention kernels: K3
-// (wattn_rpe_fwd.cu), K4 (wattn_rpe_bwd_q.cu) and K5 (wattn_rpe_bwd_k.cu).
+// Shared pieces of the window attention kernels: K3 (wattn_rpe_fwd.cu), K4
+// (wattn_rpe_bwd_q.cu) and K5 (wattn_rpe_bwd_k.cu) with contextual RPE, and
+// K2 (wattn_fwd.cu) without it.
 //
-// Over a window-sorted sequence of N rows (N a multiple of TQ), for query i
+// Over a window-sorted sequence of N rows (N a multiple of 32), for query i
 // and key j of the same window (rank_i == rank_j), per head:
 //
 //   idx_a = clip(q_i^a, 0, G-1) - clip(q_j^a, 0, G-1) + G - 1   (difference axes)
 //   idx_2 = clip(expsplit(r_i - r_j) + 24, 0, 2G-1)              (radial axis, sphere branch)
 //
-// Every kernel computes the bins with the functions below, so the forward
-// and the two backward kernels agree bin for bin.
+// Every RPE kernel computes the bins with the functions below, so the
+// forward and the two backward kernels agree bin for bin; every kernel finds
+// each row's window with warp_run_bounds.
 
 #pragma once
 
@@ -18,9 +20,6 @@
 #include <stdint.h>
 
 namespace wattn {
-
-constexpr int TQ = 128;  // rows per block: the host geometry's tile
-constexpr int KC = 32;   // partner rows staged per chunk
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -62,21 +61,37 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 // rows, and measured slower on the sphere branch.
 constexpr int BWD_SMEM_CARVEOUT = 72;
 
-// Let a K4 or K5 kernel take `smem` bytes of dynamic shared memory, with the
-// carveout above.
+// Let a kernel take `smem` bytes of dynamic shared memory, with `carveout`
+// percent of the SM's unified L1 and shared memory as shared memory.
 template <typename Kernel>
-cudaError_t configure_bwd(Kernel kern, size_t smem) {
+cudaError_t configure_smem(Kernel kern, size_t smem, int carveout) {
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             BWD_SMEM_CARVEOUT);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
   return e;
+}
+
+// out[0] = dynamic shared bytes per block, out[1] = resident blocks per SM,
+// out[2] = resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// for a kernel of one-warp blocks, configured as configure_smem does.
+template <typename Kernel>
+int warp_occupancy(Kernel kern, size_t smem, int carveout, int* out) {
+  cudaError_t e = configure_smem(kern, smem, carveout);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, WARP, smem);
+  out[0] = (int)smem;
+  out[1] = blocks;
+  out[2] = blocks;  // one warp a block
+  return (int)e;
 }
 
 // True where a run of equal rank begins among the n window-sorted rows;
 // row n (past the end) counts as a start, so that it closes the last run.
-__device__ __forceinline__ bool run_starts_at(const float* __restrict__ rank, int j, int n) {
+// Ranks are f32 (the host geometry's, K3-K5) or int32 (K2's window sort).
+template <typename R>
+__device__ __forceinline__ bool run_starts_at(const R* __restrict__ rank, int j, int n) {
   return j <= 0 || j >= n || __ldg(rank + j) != __ldg(rank + j - 1);
 }
 
@@ -91,7 +106,8 @@ __device__ __forceinline__ bool run_starts_at(const float* __restrict__ rank, in
 // going forward. So a window of any length costs a lane no step, and the
 // warp one ballot per 32 rows of the windows it straddles. All 32 lanes must
 // call it.
-__device__ __forceinline__ int2 warp_run_bounds(const float* __restrict__ rank, int base, int n,
+template <typename R>
+__device__ __forceinline__ int2 warp_run_bounds(const R* __restrict__ rank, int base, int n,
                                                 int lane) {
   const unsigned own = __ballot_sync(FULL_MASK, run_starts_at(rank, base + lane, n));
   const unsigned upto = lane == WARP - 1 ? FULL_MASK : (2u << lane) - 1u;
@@ -116,6 +132,34 @@ __device__ __forceinline__ int2 warp_run_bounds(const float* __restrict__ rank, 
   }
   return make_int2(below ? base + WARP - 1 - __clz(below) : first,
                    above ? base + __ffs(above) - 1 : last);
+}
+
+// Join NK scored keys (scores s, value rows val) to a lane's online softmax
+// (running max m, sum l and D-wide output acc) at once: one rescale to the
+// group's max, then the keys' terms in key order, so two launches give the
+// same bits. Keys from `live` on take no part. K2 and K3 call it.
+template <int NK, int D>
+__device__ __forceinline__ void softmax_join(const float (&s)[NK], const float (&val)[NK][D],
+                                             int live, float& m, float& l, float (&acc)[D]) {
+  float mx = m;
+#pragma unroll
+  for (int u = 0; u < NK; ++u)
+    if (u < live) mx = fmaxf(mx, s[u]);
+  const float sc = expf(m - mx);
+  float p[NK];
+#pragma unroll
+  for (int u = 0; u < NK; ++u) p[u] = u < live ? expf(s[u] - mx) : 0.f;
+  l *= sc;
+#pragma unroll
+  for (int u = 0; u < NK; ++u) l += p[u];
+#pragma unroll
+  for (int dd = 0; dd < D; ++dd) {
+    float x = acc[dd] * sc;
+#pragma unroll
+    for (int u = 0; u < NK; ++u) x = fmaf(p[u], val[u][dd], x);
+    acc[dd] = x;
+  }
+  m = mx;
 }
 
 // A D-wide row of q, k, v (f32 or bf16) or of an f32 gradient, read through
@@ -166,3 +210,15 @@ inline bool row_aligned(const void* p, int D, int bytes) {
 }
 
 }  // namespace wattn
+
+// Each attention kernel is a template on its head dim D; its C entry points
+// `return CALL(D)` for the D they were given, through this switch, and
+// cudaErrorInvalidValue for another.
+#define WATTN_HEAD_DIM_SWITCH(D, CALL)          \
+  switch (D) {                                  \
+    case 4: return CALL(4);                     \
+    case 8: return CALL(8);                     \
+    case 16: return CALL(16);                   \
+    case 32: return CALL(32);                   \
+    default: return (int)cudaErrorInvalidValue; \
+  }

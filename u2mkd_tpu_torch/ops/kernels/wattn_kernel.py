@@ -18,8 +18,11 @@ backward).
   * K5, ``csrc/wattn_rpe_bwd_k.cu`` (:func:`flash_rpe_bwd_k`): dk, dv and the
     key-side bin masses; it replaces ``_call_bwd_k``.
 
-Each wrapper launches its kernel for CUDA tensors and takes the plain
-version (``ops/wattn.py``) only for tensors on the CPU. :class:`FlashRPE` is
+All four run one warp of 32 rows per block, one row per lane, and each lane
+walks the keys of its own window only, found by one rule
+(:func:`warp_run_bounds` is its torch twin). Each wrapper launches its
+kernel for CUDA tensors and takes the plain version (``ops/wattn.py``) only
+for tensors on the CPU. :class:`FlashRPE` is
 the autograd function over them. Its inputs are the window-sorted q, k, v,
 the table projections qT = q . Tq and kT = k . Tk, and the value table; the
 projections are computed outside it, so autograd's einsum backward turns the
@@ -48,8 +51,8 @@ SOURCE_BWD_Q = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_q.cu"
 REPLACES_BWD_Q = "u2mkd_tpu/ops/pallas/wattn_kernel.py:948"
 SOURCE_BWD_K = "u2mkd_tpu_torch/csrc/wattn_rpe_bwd_k.cu"
 REPLACES_BWD_K = "u2mkd_tpu/ops/pallas/wattn_kernel.py:988"
-TILE = 128  # rows per block of K2 and K3; the host geometry's kmin/kmax tile
-WARP = 32  # rows per block of K4 and K5: one warp
+TILE = 128  # the host geometry's tile: its padding and its kmin/kmax ranges
+WARP = 32  # rows per block of K2-K5: one warp
 HEAD_DIMS = (4, 8, 16, 32)
 
 _P = ctypes.c_void_p
@@ -65,11 +68,12 @@ PAD_RANK = -7  # the window rank of the pad rows, as the JAX package sets it
 def flash_window_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                         rank: torch.Tensor, kmin: torch.Tensor,
                         kmax: torch.Tensor) -> torch.Tensor:
-    """K2. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 128, q
-    pre-scaled; f32 or bf16), rank [N] int32, per-tile key ranges kmin/kmax
-    [N / 128] int32 -> f32 [N, h, d]: each row's softmax attention over the
-    keys of its own window. The arithmetic and the output are f32 for both
-    input dtypes."""
+    """K2. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 32, q
+    pre-scaled; f32 or bf16), rank [N] int32 -> f32 [N, h, d]: each row's
+    softmax attention over the keys of its own window. The arithmetic and
+    the output are f32 for both input dtypes. kmin/kmax, the per-tile key
+    ranges of :func:`sort_by_window`, come with the rank; the kernel finds
+    each row's window from the rank alone and does not read them."""
     if qs.device.type == "cpu":
         return flash_window_sorted_plain(qs, ks, vs, rank)
     n, h, d = qs.shape
@@ -77,22 +81,20 @@ def flash_window_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
             or vs.dtype != qs.dtype:
         raise TypeError(f"flash_window_sorted takes f32 or bf16 q/k/v of one dtype, "
                         f"got {qs.dtype}, {ks.dtype}, {vs.dtype}")
-    if rank.dtype != torch.int32 or kmin.dtype != torch.int32 or kmax.dtype != torch.int32:
-        raise TypeError("flash_window_sorted: rank, kmin and kmax are int32")
-    if d not in HEAD_DIMS or n % TILE or ks.shape != qs.shape or vs.shape != qs.shape \
-            or tuple(rank.shape) != (n,) or tuple(kmin.shape) != (n // TILE,) \
-            or kmax.shape != kmin.shape:
+    if rank.dtype != torch.int32:
+        raise TypeError(f"flash_window_sorted: rank is int32, got {rank.dtype}")
+    if d not in HEAD_DIMS or n % WARP or ks.shape != qs.shape or vs.shape != qs.shape \
+            or tuple(rank.shape) != (n,):
         raise ValueError(f"flash_window_sorted: q {tuple(qs.shape)} (head dim in "
-                         f"{HEAD_DIMS}, N a multiple of {TILE}), rank {tuple(rank.shape)}, "
-                         f"kmin {tuple(kmin.shape)}, kmax {tuple(kmax.shape)}")
-    build.check_tensors("flash_window_sorted", qs, ks, vs, rank, kmin, kmax)
+                         f"{HEAD_DIMS}, N a multiple of {WARP}), rank {tuple(rank.shape)}")
+    build.check_tensors("flash_window_sorted", qs, ks, vs, rank)
     suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[qs.dtype]
     fn = getattr(build.load("wattn_fwd"), f"wattn_fwd_{suffix}")
-    fn.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     fn.restype = _I
     out = torch.empty(n, h, d, dtype=torch.float32, device=qs.device)
-    rc = fn(qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(), kmin.data_ptr(),
-            kmax.data_ptr(), out.data_ptr(), n, h, d, build.stream_of(qs))
+    rc = fn(qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(), out.data_ptr(),
+            n, h, d, build.stream_of(qs))
     build.check_rc(rc, "flash_window_sorted")
     flash_window_sorted.launches += 1
     return out
@@ -176,7 +178,7 @@ def _kernel_fn(source: str, dtype: torch.dtype, n_ptrs: int):
     return fn
 
 
-def _check(what: str, qs, ks, vs, rank, quant, r, kmin, kmax, f32s) -> None:
+def _check(what: str, qs, ks, vs, rank, quant, r, f32s) -> None:
     """Raise unless the inputs are what the kernels take; ``f32s`` are the
     further f32 inputs."""
     n, h, d = qs.shape
@@ -184,21 +186,19 @@ def _check(what: str, qs, ks, vs, rank, quant, r, kmin, kmax, f32s) -> None:
             or vs.dtype != qs.dtype:
         raise TypeError(f"{what} takes f32 or bf16 q/k/v of one dtype, "
                         f"got {qs.dtype}, {ks.dtype}, {vs.dtype}")
-    if d not in HEAD_DIMS or n % TILE or tuple(kmin.shape) != (n // TILE,) \
-            or ks.shape != qs.shape or vs.shape != qs.shape:
+    if d not in HEAD_DIMS or n % WARP or ks.shape != qs.shape or vs.shape != qs.shape:
         raise ValueError(f"{what}: head dim {d} (takes {HEAD_DIMS}), N={n} (a "
-                         f"multiple of {TILE}), kmin {tuple(kmin.shape)}")
+                         f"multiple of {WARP})")
     if (rank.dtype != torch.float32 or quant.dtype != torch.int32
-            or kmin.dtype != torch.int32 or kmax.dtype != torch.int32
             or (r is not None and r.dtype != torch.float32)
             or any(t.dtype != torch.float32 for t in f32s)):
         raise TypeError(f"{what}: rank/r and the projections and gradients are "
-                        f"f32, quant/kmin/kmax int32")
+                        f"f32, quant int32")
     if tuple(quant.shape) != (n, 3) or tuple(rank.shape) != (n,):
         raise ValueError(f"{what}: quant {tuple(quant.shape)}, rank "
                          f"{tuple(rank.shape)} for N={n}")
     extra = () if r is None else (r,)
-    build.check_tensors(what, qs, ks, vs, rank, quant, kmin, kmax, *f32s, *extra)
+    build.check_tensors(what, qs, ks, vs, rank, quant, *f32s, *extra)
 
 
 def flash_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
@@ -206,10 +206,12 @@ def flash_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                   rank: torch.Tensor, quant: torch.Tensor, r: Optional[torch.Tensor],
                   kmin: torch.Tensor, kmax: torch.Tensor, grid_len: int,
                   a: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3. Window-sorted qs/ks/vs [N, h, d] (N = pad_to, q pre-scaled; f32
-    or bf16), projections qT/kT [N, h, 3, L2] f32, table_v [L2, 3, h, d],
-    rank [N] f32, quant [N, 3] int32, r [N] f32 or None, per-tile key ranges
-    kmin/kmax [N / 128] int32 -> (out f32 [N, h, d], lse f32 [N, h])."""
+    """K3. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 32, as the host
+    geometry's pad_to is; q pre-scaled; f32 or bf16), projections qT/kT [N,
+    h, 3, L2] f32, table_v [L2, 3, h, d], rank [N] f32, quant [N, 3] int32,
+    r [N] f32 or None -> (out f32 [N, h, d], lse f32 [N, h]). kmin/kmax, the
+    host geometry's per-tile key ranges, come with the geometry; K3, K4 and
+    K5 find each row's window from the rank alone and do not read them."""
     if qs.device.type == "cpu":
         return flash_rpe_fwd_plain(qs, ks, vs, qT, kT, table_v, rank, quant, r,
                                    grid_len, a)
@@ -220,15 +222,14 @@ def flash_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
             or tuple(tv.shape) != (l2, 3, h, d):
         raise ValueError(f"flash_rpe_fwd: qT {tuple(qT.shape)}, kT {tuple(kT.shape)}, "
                          f"table_v {tuple(tv.shape)} for N={n}, h={h}, d={d}")
-    _check("flash_rpe_fwd", qs, ks, vs, rank, quant, r, kmin, kmax, (qT, kT, tv))
+    _check("flash_rpe_fwd", qs, ks, vs, rank, quant, r, (qT, kT, tv))
     out = torch.empty(n, h, d, dtype=torch.float32, device=qs.device)
     lse = torch.empty(n, h, dtype=torch.float32, device=qs.device)
-    rc = _kernel_fn("wattn_rpe_fwd", qs.dtype, 13)(
+    rc = _kernel_fn("wattn_rpe_fwd", qs.dtype, 11)(
         qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(),
-        quant.data_ptr(), None if r is None else r.data_ptr(), kmin.data_ptr(),
-        kmax.data_ptr(), qT.data_ptr(), kT.data_ptr(), tv.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), n, h, d, int(grid_len), l2, float(a),
-        build.stream_of(qs))
+        quant.data_ptr(), None if r is None else r.data_ptr(), qT.data_ptr(),
+        kT.data_ptr(), tv.data_ptr(), out.data_ptr(), lse.data_ptr(), n, h, d,
+        int(grid_len), l2, float(a), build.stream_of(qs))
     build.check_rc(rc, "flash_rpe_fwd")
     flash_rpe_fwd.launches += 1
     return out, lse
@@ -238,7 +239,7 @@ flash_rpe_fwd.launches = 0
 
 
 def _bwd_launch(source: str, what: str, qs, ks, vs, qT, kT, edo, rank, quant, r,
-                lse, do, dfac, kmin, kmax, grid_len, a, out_shapes):
+                lse, do, dfac, grid_len, a, out_shapes):
     n, h, d = qs.shape
     l2 = qT.shape[-1]
     if (tuple(qT.shape) != (n, h, 3, l2) or kT.shape != qT.shape or edo.shape != qT.shape
@@ -247,11 +248,11 @@ def _bwd_launch(source: str, what: str, qs, ks, vs, qT, kT, edo, rank, quant, r,
         raise ValueError(f"{what}: qT {tuple(qT.shape)}, kT {tuple(kT.shape)}, edo "
                          f"{tuple(edo.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)}, dfac {tuple(dfac.shape)} for N={n}, h={h}")
-    _check(what, qs, ks, vs, rank, quant, r, kmin, kmax, (qT, kT, edo, do, lse, dfac))
+    _check(what, qs, ks, vs, rank, quant, r, (qT, kT, edo, do, lse, dfac))
     outs = [torch.empty(s, dtype=torch.float32, device=qs.device) for s in out_shapes]
-    rc = _kernel_fn(source, qs.dtype, 17)(
+    rc = _kernel_fn(source, qs.dtype, 15)(
         qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), rank.data_ptr(), quant.data_ptr(),
-        None if r is None else r.data_ptr(), kmin.data_ptr(), kmax.data_ptr(),
+        None if r is None else r.data_ptr(),
         qT.data_ptr(), kT.data_ptr(), edo.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dfac.data_ptr(), *(o.data_ptr() for o in outs), n, h, d, int(grid_len), l2,
         float(a), build.stream_of(qs))
@@ -272,8 +273,7 @@ def flash_rpe_bwd_q(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin
     n, h, d = qs.shape
     m = (n, h, 3, qT.shape[-1])
     dq, mq, pm = _bwd_launch("wattn_rpe_bwd_q", "flash_rpe_bwd_q", qs, ks, vs, qT, kT, edo,
-                             rank, quant, r, lse, do, dfac, kmin, kmax, grid_len, a,
-                             ((n, h, d), m, m))
+                             rank, quant, r, lse, do, dfac, grid_len, a, ((n, h, d), m, m))
     flash_rpe_bwd_q.launches += 1
     return dq, mq, pm
 
@@ -291,7 +291,7 @@ def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin
         return dk, dv, mk
     n, h, d = qs.shape
     dk, dv, mk = _bwd_launch("wattn_rpe_bwd_k", "flash_rpe_bwd_k", qs, ks, vs, qT, kT, edo,
-                             rank, quant, r, lse, do, dfac, kmin, kmax, grid_len, a,
+                             rank, quant, r, lse, do, dfac, grid_len, a,
                              ((n, h, d), (n, h, d), (n, h, 3, qT.shape[-1])))
     flash_rpe_bwd_k.launches += 1
     return dk, dv, mk
@@ -300,13 +300,15 @@ def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin
 flash_rpe_bwd_k.launches = 0
 
 
-def flash_rpe_bwd_occupancy(source: str, dtype: torch.dtype, head_dim: int, grid_len: int,
-                            radial: bool) -> Dict[str, int]:
-    """K4's (``source`` "wattn_rpe_bwd_q") or K5's ("wattn_rpe_bwd_k") launch
-    on the current card for q/k/v of ``dtype`` and ``head_dim`` at G =
-    ``grid_len``: its dynamic shared bytes per block, and the blocks and
-    warps per SM that ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    lets be resident at once."""
+def window_attention_occupancy(source: str, dtype: torch.dtype, head_dim: int,
+                               grid_len: int, radial: bool) -> Dict[str, int]:
+    """The launch of K2 (``source`` "wattn_fwd"), K3 ("wattn_rpe_fwd"), K4
+    ("wattn_rpe_bwd_q") or K5 ("wattn_rpe_bwd_k") on the current card for
+    q/k/v of ``dtype`` and ``head_dim`` at G = ``grid_len`` (K2 reads
+    neither G nor ``radial``): its dynamic shared bytes per block, and the
+    blocks and warps per SM that
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` lets be resident at
+    once."""
     suffix = {torch.float32: 0, torch.bfloat16: 1}[dtype]
     fn = getattr(build.load(source), f"{source}_occupancy")
     fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
@@ -323,10 +325,12 @@ def _highest_bit(x: torch.Tensor) -> torch.Tensor:
 
 
 def warp_run_bounds(rank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The rule by which K4 and K5 find each row's window
+    """The rule by which K2-K5 find each row's window
     (``wattn::warp_run_bounds``, ``csrc/wattn_rpe_common.cuh``), step for
-    step in torch: rank [N] of window-sorted rows, N a multiple of
-    ``WARP`` -> (start, end) int64 [N] of each row's run of equal rank, and
+    step in torch: rank [N] of window-sorted rows (f32 as the host geometry
+    gives it to K3-K5, or int32 as :func:`sort_by_window` gives it to K2), N
+    a multiple of ``WARP`` -> (start, end) int64 [N] of each row's run of
+    equal rank, and
     the ballots [N / WARP] int64 each warp takes. A warp's ballot holds its
     rows' run-start flags as bits; a lane's start is the highest flag at or
     below it, its end the lowest above it; lanes with none take the start of
@@ -377,10 +381,11 @@ def walk_counts(rank: torch.Tensor, kmin: torch.Tensor, kmax: torch.Tensor) -> D
         of one);
       * ``pairs``: the (query, key) pairs of the windows, sum of occupancy^2;
       * ``lane_steps_per_pair_tile``: steps of a walk over each 128-row
-        tile's whole key range, one lane per row (K3's walk), 128 *
-        sum(kmax - kmin) over pairs;
+        tile's whole key range, one lane per row (the walk of K2 and K3
+        before they took the window walk, kept as the record of that
+        design), 128 * sum(kmax - kmin) over pairs;
       * ``lane_steps_per_pair_window``: steps of a walk over each row's own
-        window (K4 and K5): 1 by construction, counted from
+        window (K2-K5): 1 by construction, counted from
         :func:`warp_run_bounds`;
       * ``warp_slots_per_pair_window``: lane slots a warp of 32 rows spends
         there, 32 * its longest window, over pairs (lanes of shorter
