@@ -35,7 +35,9 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
   7. grad check: every kernel launch of one train step against its plain
      version on the same arguments; and one step through the kernels and
      one through the plain versions from one copy of the weights and one
-     generator seed: the loss and every parameter's gradient;
+     generator seed: the loss, and every parameter's gradient within a
+     tolerance from three one-ulp-nudged plain steps of the same run, which
+     a planted fault (one K1b weight gradient zeroed) must miss;
   8. window entry: K2's own entry point, ``sparse_window_attention_flash``
      (no model path reaches K2), at the level-1 shape of a teacher request
      (N=65536, h=4, d=16) on its cubic and its sphere windows, counting K2's
@@ -51,7 +53,19 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      voxel and pixel heads' logits and argmax agreement); and one request
      with the teacher (cr_t=2.0 on its own 131072-point cloud), then again
      with every K1 and K3 launch held to its plain version on the same
-     arguments, and again through the plain versions (both models' logits).
+     arguments, and again through the plain versions (both models' logits);
+ 10. student train: three stage-2 distillation train steps
+     (``train.distill.make_distill_train_step``: the student at P=65536 with
+     3 cameras at 360x640, the frozen cr_t=2.0 teacher on its 131072-point
+     cloud, ``sgd_spformer`` at lr 0.02) with host ms, device ms, the five
+     loss terms and launches per step, the teacher bitwise frozen, the peak
+     device memory; then two more steps under ``torch.profiler``;
+ 11. student grad check: phase 7's two checks on one stage-2 train step;
+ 12. cli: ``python -m u2mkd_tpu_torch.train_spformer`` on the tiny synthetic
+     teacher config at cr=0.5, then ``python -m
+     u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
+     that run's checkpoint as its frozen teacher: losses finite, validation
+     mIoU and checkpoints written, the teacher restored bitwise.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -99,10 +113,16 @@ TRAIN_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 33, "rulebook_conv_dw
 # Kernel step against plain step on the card, whole-step gradients. They
 # move with rounding: a ReLU that flips when an activation moves by one f32
 # ulp moves a weight gradient (a sum over ~10^5 voxels of terms of either
-# sign) by about one term, ~1/sqrt(V) of it. So the run measures that
-# spread itself: one more plain step from the weights times (1 + 2^-23
-# N(0, 1)), about one ulp, and the kernel step may differ from the plain one
-# by GRAD_SPREADS times that spread, or GRAD_RTOL, whichever is larger.
+# sign) by about one term, ~1/sqrt(V) of it, and the plain steps' scatters
+# add with atomics in no fixed order. So the run measures that spread
+# itself, from three draws: three more plain steps, each from the weights
+# times (1 + 2^-23 N(0, 1)) drawn from one of NUDGE_SEEDS, about one ulp.
+# The kernel step may differ from the plain one by GRAD_SPREADS times the
+# median of the three spreads, or GRAD_RTOL, whichever is larger. In the
+# same run a planted wiring fault, the kernel step with K1b's weight
+# gradient of one mid-level conv zeroed (launch FAULT_DW_CALL of the step's
+# K1b launches, in backward order), must miss that tolerance by
+# FAULT_MARGIN: a tolerance that passed the fault would pass anything.
 # Differences are per parameter, max |difference| over the parameter's
 # largest gradient entry, the scale floored at GRAD_FLOOR of the model's
 # largest entry (a bias before batch-stat BN has a true gradient of 0, and
@@ -113,6 +133,9 @@ GRAD_LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-3
 GRAD_SPREADS = 4.0
 GRAD_FLOOR = 1e-3
+NUDGE_SEEDS = (7, 8, 9)
+FAULT_DW_CALL = 17
+FAULT_MARGIN = 2.0
 # the stage-2 student (configs/nuscenes/train/spformer_tsd_full_ours_star.yaml:
 # num_points_student, student_capacities, voxels of 0.05 m, im_cr 0.4 of
 # nuScenes' 900x1600 images, the validation protocol's 6 cameras); its
@@ -130,6 +153,29 @@ CR_T = 2.0
 # its own 34 and 8
 STUDENT_LAUNCHES = {"rulebook_conv": 34, "flash_rpe_fwd": 8}
 WITH_TEACHER_LAUNCHES = {"rulebook_conv": 68, "flash_rpe_fwd": 16}
+# the stage-2 train step (train_lc_nusc_tsd_full.py on
+# spformer_tsd_full_ours_star.yaml): the student at STUDENT_P with 6 - im_drop
+# = 3 of its cameras (data/lc_semantic_nusc.py:76-77 of the JAX package, and
+# bench.py's student_tsd row), the cr_t=2.0 teacher on its own P-point cloud,
+# sgd_spformer at LR, B=1. Launches per step, read from models/msp2ifm.py,
+# models/spvcnn.py and RulebookConv: K1 forward 34 (student) + 34 (teacher,
+# no gradient), as dX 33 (the student's stem conv takes the point features,
+# which need none), K1b 34 (the student's); K3 8 + 8, K4 and K5 8 each
+# (the student's backward).
+STUDENT_TRAIN_CAMS = 3
+STUDENT_TRAIN_SEEDS = (51, 52, 53)
+STUDENT_TRAIN_LAUNCHES = {"rulebook_conv": 68, "rulebook_conv_dx": 33,
+                          "rulebook_conv_dw": 34, "flash_rpe_fwd": 16,
+                          "flash_rpe_bwd_q": 8, "flash_rpe_bwd_k": 8}
+LOSS_TERMS = ("loss", "ce_vox", "ce_pix", "kl", "feat", "mse")
+# the training entry points, run as a user runs them: stage 1 on the tiny
+# synthetic teacher at cr=0.5, then stage 2 on the tiny TSD config, whose
+# teacher is that model (cr_t=0.5), restored from stage 1's checkpoint
+CLI_STAGE1 = ("u2mkd_tpu_torch.train_spformer", "configs/synthetic/train/spformer_tiny.yaml",
+              "num_epochs=1", "data.training_size=8", "model.cr=0.5")
+CLI_STAGE2 = ("u2mkd_tpu_torch.train_lc_nusc_tsd_full", "configs/synthetic/train/tsd_tiny.yaml",
+              "num_epochs=1", "data.training_size=8")
+CLI_DIR = os.path.join("u2mkd_tpu_torch", "_build", "cli")
 # K2's main-path shape: the teacher's level-1 voxels (N = 65536 capacity),
 # h=4, d=16; the level's cubic windows (6 voxels of 0.1 m) and sphere
 # windows on cart2sphere coordinates
@@ -487,12 +533,12 @@ def attention_cases(geoms):
                    for src in ("wattn_rpe_fwd", "wattn_rpe_bwd_q", "wattn_rpe_bwd_k")}
             rows.append(_compare(
                 "flash_rpe_fwd", tag, case,
-                lambda: K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a),
+                lambda: K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, g, a),
                 lambda: K.flash_rpe_fwd_plain(q, k, v, qT, kT, tv, *geo, g, a),
                 dict(_bound(rows_in + 2 * proj + 4 * tv.numel() + 4 * n * h * (d + 1),
                             pairs * h * (7 * d + 6), F32_PEAK),
                      **walk, **occ["wattn_rpe_fwd"])))
-            out, lse = K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, gm.kmin, gm.kmax, g, a)
+            out, lse = K.flash_rpe_fwd(q, k, v, qT, kT, tv, *geo, g, a)
             do = torch.randn(n, h, d, device=dev, generator=gen)
             dfac = (do * out).sum(-1)
             edo = wattn.table_projections(do, tv)
@@ -508,14 +554,14 @@ def attention_cases(geoms):
             # lookups and three mass adds
             rows.append(_compare(
                 "flash_rpe_bwd_q", tag, case,
-                lambda: K.flash_rpe_bwd_q(*bwd, gm.kmin, gm.kmax, g, a),
+                lambda: K.flash_rpe_bwd_q(*bwd, g, a),
                 lambda: (ref[0], ref[3], ref[5]),
                 dict(_bound(bytes_in + 4 * n * h * d + 2 * proj,
                             pairs * h * (6 * d + 18), F32_PEAK),
                      **walk, **occ["wattn_rpe_bwd_q"]), plain_ms))
             rows.append(_compare(
                 "flash_rpe_bwd_k", tag, case,
-                lambda: K.flash_rpe_bwd_k(*bwd, gm.kmin, gm.kmax, g, a),
+                lambda: K.flash_rpe_bwd_k(*bwd, g, a),
                 lambda: (ref[1], ref[2], ref[4]),
                 dict(_bound(bytes_in + 8 * n * h * d + proj,
                             pairs * h * (8 * d + 14), F32_PEAK),
@@ -626,7 +672,7 @@ def window_cases(xyz, valid):
                             4.0 * pairs * h * d, F32_PEAK),
                      **K.walk_counts(sw.rank, sw.kmin, sw.kmax),
                      **K.window_attention_occupancy("wattn_fwd", dtype, d, 0, False)),
-                timed=(lambda: K.flash_window_sorted(qs, ks, vs, sw.rank, sw.kmin, sw.kmax),
+                timed=(lambda: K.flash_window_sorted(qs, ks, vs, sw.rank),
                        lambda: K.flash_window_sorted_plain(qs, ks, vs, sw.rank)))
             row.update(branch=branch, heads=h, windows=windows,
                        largest_window=int(torch.bincount(sw.rank[:vcap]).max()))
@@ -899,13 +945,13 @@ def phase_train():
     return launches
 
 
-def _grad_diff(model, ref):
-    """(largest per-parameter gradient difference from ``ref`` {name:
-    grad}, relative as GRAD_FLOOR says; the parameter's name)."""
+def _grad_diff(grads, ref):
+    """(largest per-parameter difference of ``grads`` from ``ref`` (both
+    {name: grad}), relative as GRAD_FLOOR says; the parameter's name)."""
     floor = GRAD_FLOOR * max(g.abs().max().item() for g in ref.values())
     worst, worst_name = 0.0, None
-    for name, p in model.named_parameters():
-        err = (p.grad - ref[name]).abs().max().item() / max(ref[name].abs().max().item(), floor)
+    for name, g in grads.items():
+        err = (g - ref[name]).abs().max().item() / max(ref[name].abs().max().item(), floor)
         if not err <= worst:
             worst, worst_name = err, name
     return worst, worst_name
@@ -917,9 +963,9 @@ def _plain_of_launch():
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
     def bwd(args, picks):
-        # the wrappers take (12 inputs, kmin, kmax, G, a); the plain version
-        # walks every pair and takes no key ranges
-        out = W.flash_rpe_bwd_plain(*args[:12], *args[14:])
+        # the wrappers and the plain version take the same arguments; the
+        # plain version computes K4's and K5's outputs together
+        out = W.flash_rpe_bwd_plain(*args)
         return tuple(out[i] for i in picks)
 
     # the conv wrappers' last argument, the plan, is no input of the plain
@@ -929,7 +975,7 @@ def _plain_of_launch():
                 g, S.reversed_weights(w), nbr)),
             "rulebook_conv_dw": (S, lambda x, g, nbr, plan=None: S.rulebook_conv_dw_plain(
                 x, g, nbr)),
-            "flash_rpe_fwd": (W, lambda *a: W.flash_rpe_fwd_plain(*a[:9], *a[11:])),
+            "flash_rpe_fwd": (W, W.flash_rpe_fwd_plain),
             "flash_rpe_bwd_q": (W, lambda *a: bwd(a, (0, 3, 5))),
             "flash_rpe_bwd_k": (W, lambda *a: bwd(a, (1, 2, 4)))}
 
@@ -969,76 +1015,121 @@ def each_launch_held_to_plain(worst):
             setattr(mod, name, kernel)
 
 
-def phase_grad_check():
-    """Two checks of one train step on the card.
+@contextlib.contextmanager
+def planted_fault():
+    """Inside, launch FAULT_DW_CALL of K1b (counting from 1 in the order the
+    backward makes them) returns its weight gradient zeroed: a wiring fault
+    of one mid-level conv that the whole-step check must catch."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S
 
-    Per launch: the step through the kernels runs every launch of the six
-    kernel wrappers (34 + 33 + 34 + 8 + 8 + 8, every level, width and head
-    count of the main path) also through its plain version on the same
-    arguments, each output held to TOL of the plain output's largest entry.
+    kernel = S.rulebook_conv_dw
+    calls = [0]
 
-    Whole step: one step through the kernels and one through the plain
-    versions, from one copy of the weights (one seed) and one generator
-    seed, so that dropout and drop path draw the same masks: the loss, and
-    each parameter's gradient within the spread that one plain step from
-    weights nudged by about one ulp gives (GRAD_SPREADS)."""
+    def faulty(*args):
+        out = kernel(*args)
+        calls[0] += 1
+        return torch.zeros_like(out) if calls[0] == FAULT_DW_CALL else out
+
+    # the wrapper counts its launches on the function its module's name
+    # holds: carry the count there and back
+    faulty.launches = kernel.launches
+    S.rulebook_conv_dw = faulty
+    try:
+        yield
+    finally:
+        kernel.launches = faulty.launches
+        S.rulebook_conv_dw = kernel
+
+
+def held_step(phase, setup, raw, launches, points):
+    """The two checks of one train step on the card.
+
+    ``setup()`` -> (a model with weights from one seed, its step function
+    with a generator from one seed, and the function giving the model's
+    trained (name, parameter) pairs); ``raw`` the batch; ``launches`` the
+    step's launches per kernel. Per launch: the step through the kernels
+    runs every launch of the six kernel wrappers also through its plain
+    version on the same arguments, each output held to TOL of the plain
+    output's largest entry. Whole step: the loss of that step against one
+    through the plain versions (the same weights and generator seed, so the
+    same dropout masks) to GRAD_LOSS_RTOL, and each trained parameter's
+    gradient within the rule of GRAD_SPREADS, which a step with
+    :func:`planted_fault` must miss by FAULT_MARGIN."""
     import torch
 
-    raw = None
     runs, per_launch = {}, {}
-    for tag in ("kernels", "plain", "plain_nudged"):
-        model, step_fn = _train_setup(seed=1, generator_seed=5)
-        if tag != "kernels":
+    nudged = [f"plain_nudged_{seed}" for seed in NUDGE_SEEDS]
+    for tag in ["kernels", "plain", *nudged, "kernels_fault"]:
+        model, step_fn, trained = setup()
+        if tag.startswith("plain"):
             model.set_plain(True)
-        if tag == "plain_nudged":
-            gen = torch.Generator(device=DEVICE).manual_seed(7)
+        if tag in nudged:
+            gen = torch.Generator(device=DEVICE).manual_seed(int(tag.rsplit("_", 1)[1]))
             with torch.no_grad():
                 for p in model.parameters():
                     p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, device=DEVICE, generator=gen))
-        if raw is None:
-            raw, _ = host_batch(31, model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with (each_launch_held_to_plain(per_launch) if tag == "kernels"
-              else contextlib.nullcontext()):
+              else planted_fault() if tag == "kernels_fault" else contextlib.nullcontext()):
             loss = step_fn(raw)["loss"].item()
         torch.cuda.synchronize()
-        runs[tag] = (model, loss, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+        runs[tag] = ({n: p.grad for n, p in trained(model)}, loss, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated())
+        del model, step_fn
     for name, row in per_launch.items():
         row["tol_rel"] = TOL[(name, "f32")]
-    emit({"phase": "grad_check_per_launch", "points": P, "by_kernel": per_launch})
+    emit({"phase": f"{phase}_per_launch", "points": points, "by_kernel": per_launch})
     bad = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
     counts = {n: r["calls"] for n, r in per_launch.items()}
-    if bad or counts != TRAIN_LAUNCHES:
+    if bad or counts != launches:
         raise AssertionError(f"a kernel launch of the train step disagrees with its plain "
-                             f"version, or the launches are not {TRAIN_LAUNCHES}: {per_launch}")
-    ref = {n: p.grad for n, p in runs["plain"][0].named_parameters()}
+                             f"version, or the launches are not {launches}: {per_launch}")
+    ref = runs["plain"][0]
     worst, worst_name = _grad_diff(runs["kernels"][0], ref)
-    spread, spread_name = _grad_diff(runs["plain_nudged"][0], ref)
-    tol = max(GRAD_RTOL, GRAD_SPREADS * spread)
+    spreads = [_grad_diff(runs[tag][0], ref) for tag in nudged]
+    tol = max(GRAD_RTOL, GRAD_SPREADS * float(np.median([sp for sp, _ in spreads])))
+    fault, fault_name = _grad_diff(runs["kernels_fault"][0], ref)
     loss_k, loss_p = runs["kernels"][1], runs["plain"][1]
-    row = {"phase": "grad_check", "points": P, "loss_kernels": loss_k,
-           "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+    row = {"phase": phase, "points": points, "loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
            "max_grad_rel_diff": worst, "worst_param": worst_name,
-           "ulp_nudge_grad_rel_diff": spread, "ulp_nudge_worst_param": spread_name,
-           "grad_tol_rel": tol, "params": len(ref),
+           "ulp_nudge_grad_rel_diffs": [sp for sp, _ in spreads],
+           "ulp_nudge_worst_params": [n for _, n in spreads], "grad_tol_rel": tol,
+           "planted_fault": f"K1b launch {FAULT_DW_CALL} zeroed",
+           "planted_fault_grad_rel_diff": fault, "planted_fault_param": fault_name,
+           "planted_fault_margin": fault / tol, "params": len(ref),
            "step_wall_s": {k: v[2] for k, v in runs.items()},
            "max_memory_allocated_bytes": {k: v[3] for k, v in runs.items()}}
     emit(row)
     if not (row["loss_rel_diff"] <= GRAD_LOSS_RTOL and worst <= tol):
         raise AssertionError(f"kernel gradients disagree with the plain path: {row}")
+    if not fault >= FAULT_MARGIN * tol:
+        raise AssertionError(f"the planted fault passes the gradient check, which so checks "
+                             f"nothing: {row}")
 
 
-def student_batch(seed, model, with_teacher=False):
+def phase_grad_check():
+    """:func:`held_step` on one teacher train step at P (34 + 33 + 34 + 8 +
+    8 + 8 launches, every level, width and head count of the main path)."""
+    def setup():
+        return (*_train_setup(seed=1, generator_seed=5), lambda m: m.named_parameters())
+
+    raw, _ = host_batch(31, setup()[0])
+    held_step("grad_check", setup, raw, TRAIN_LAUNCHES, P)
+
+
+def student_batch(seed, model, with_teacher=False, num_cams=NUM_CAMS):
     """A synthetic multimodal scan (``make_multimodal_batch``: the student
-    cloud with its cameras, and the teacher's multisweep cloud) with the
-    student's host plumbing (and the teacher's, ``with_teacher``) built;
+    cloud with ``num_cams`` cameras, and the teacher's multisweep cloud) with
+    the student's host plumbing (and the teacher's, ``with_teacher``) built;
     -> (batch, host build ms)."""
     from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 
     raw = synthetic.make_multimodal_batch(np.random.RandomState(seed), 1, STUDENT_P, P,
-                                          voxel_size=STUDENT_VOXEL, num_cams=NUM_CAMS,
+                                          voxel_size=STUDENT_VOXEL, num_cams=num_cams,
                                           im_hw=IM_HW)
     parts = [("student", STUDENT_CAPS, model.model_s)]
     if with_teacher:
@@ -1220,12 +1311,155 @@ def phase_student_with_teacher(model):
     return launches
 
 
+def _student_train_setup(seed, generator_seed):
+    """The stage-2 model (``tsd_model``, cr=1.0, cr_t=CR_T), ``sgd_spformer``
+    at LR over the student's parameters (the teacher frozen), and its
+    distillation train step with a seeded device generator."""
+    import torch
+    from u2mkd_tpu_torch.models.tsd import tsd_model
+    from u2mkd_tpu_torch.train import distill
+
+    model = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
+                      head_dim=16, seed=seed, device=DEVICE)
+    opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", LR)
+    gen = torch.Generator(device=DEVICE).manual_seed(generator_seed)
+    return model, distill.make_distill_train_step(model, opt, STUDENT_CAPS, CAPS, generator=gen)
+
+
+def phase_student_train():
+    """The stage-2 train step's main path: three steps on three scans, each
+    step's launches held to STUDENT_TRAIN_LAUNCHES and its five loss terms
+    finite; then the frozen teacher bitwise as it was (parameters and BN
+    statistics, no gradient) while the student's parameters moved, the peak
+    device memory, and the profile of two more steps."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+
+    model, step_fn = _student_train_setup(seed=0, generator_seed=0)
+    batches = [(seed, *student_batch(seed, model, with_teacher=True,
+                                     num_cams=STUDENT_TRAIN_CAMS))
+               for seed in STUDENT_TRAIN_SEEDS]
+    teacher0 = {k: v.clone() for k, v in model.model_t.state_dict().items()}
+    student0 = {k: v.clone() for k, v in model.model_s.named_parameters()}
+    torch.cuda.synchronize()
+    counters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw,
+                W.flash_rpe_fwd, W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for seed, raw, host_ms in batches:
+        before = [c.launches for c in counters]
+        aux, device_ms, wall_ms = _timed(step_fn, raw)
+        sb = raw["student"]
+        row = {"phase": "student_train_step", "seed": seed, "points": STUDENT_P,
+               "valid_points": int(sb["pmask"].sum()),
+               "fov_points": int((sb["pmask"] & sb["fov_mask"]).sum()),
+               "teacher_points": P, "cameras": STUDENT_TRAIN_CAMS, "image_hw": list(IM_HW),
+               "host_ms": host_ms, "device_ms": device_ms, "wall_ms": wall_ms,
+               **{k: aux[k].item() for k in LOSS_TERMS},
+               "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)}}
+        row["finite"] = all(math.isfinite(row[k]) for k in LOSS_TERMS)
+        emit(row)
+        if not row["finite"]:
+            raise AssertionError(f"non-finite loss term: {row}")
+        if row["launches"] != STUDENT_TRAIN_LAUNCHES:
+            raise AssertionError(f"expected {STUDENT_TRAIN_LAUNCHES} launches per step: {row}")
+        steps.append(row)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    frozen = all(torch.equal(v, teacher0[k]) for k, v in model.model_t.state_dict().items())
+    no_grad = all(p.grad is None for p in model.model_t.parameters())
+    moved = sum(not torch.equal(p, student0[n]) for n, p in model.model_s.named_parameters())
+    warm_ms = float(np.median([r["device_ms"] for r in steps[1:]]))
+    emit({"phase": "student_train", "steps": len(steps), "launches": launches,
+          "device_ms": [r["device_ms"] for r in steps], "host_ms": [r["host_ms"] for r in steps],
+          "loss": [r["loss"] for r in steps], "teacher_bitwise_frozen": frozen,
+          "teacher_grads_none": no_grad, "student_params_moved": moved,
+          "student_params": len(student0), "max_memory_allocated_bytes": peak})
+    if not (frozen and no_grad and moved == len(student0)):
+        raise AssertionError("the teacher moved or took a gradient, or a student parameter "
+                             "did not move")
+    groups, busy_ms, profiled_ms = profile_by_kernel(step_fn, batches[0][1], PROFILED_STEPS,
+                                                     "profile_student_train.txt")
+    emit({"phase": "student_train_profile", "steps": PROFILED_STEPS, "device_busy_ms": busy_ms,
+          "step_device_ms_unprofiled": warm_ms, "device_busy_share": busy_ms / warm_ms,
+          "step_wall_ms_profiled": profiled_ms, "by_kernel": groups})
+    return launches
+
+
+def phase_student_grad_check():
+    """:func:`held_step` on one stage-2 train step at STUDENT_P with the
+    cr_t=2.0 teacher (68 + 33 + 34 + 16 + 8 + 8 launches): the student's
+    gradients."""
+    def setup():
+        return (*_student_train_setup(seed=1, generator_seed=5),
+                lambda m: m.model_s.named_parameters())
+
+    raw, _ = student_batch(61, setup()[0], with_teacher=True, num_cams=STUDENT_TRAIN_CAMS)
+    held_step("student_grad_check", setup, raw, STUDENT_TRAIN_LAUNCHES, STUDENT_P)
+
+
+def phase_cli():
+    """The two training entry points as a user runs them, on the card:
+    stage 1 (CLI_STAGE1), then stage 2 (CLI_STAGE2) with
+    ``model.teacher_pretrain=`` stage 1's checkpoint. Each must exit 0 with
+    a finite loss and a validation mIoU, and write its checkpoints; stage
+    2's teacher, after its training, must be stage 1's model bitwise. Their
+    outputs go to OUT_DIR, their run directories under CLI_DIR, which is
+    removed afterwards."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    row = {"phase": "cli"}
+    try:
+        stage1_ckpt = os.path.join(CLI_DIR, "stage1", "checkpoints", "latest.pt")
+        for tag, (module, cfg, *opts), extra in (
+                ("stage1", CLI_STAGE1, []),
+                ("stage2", CLI_STAGE2, [f"model.teacher_pretrain={stage1_ckpt}"])):
+            run_dir = os.path.join(CLI_DIR, tag)
+            cmd = [sys.executable, "-m", module, cfg, "--run-dir", run_dir, *opts, *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True, timeout=600)
+            with open(os.path.join(OUT_DIR, f"cli_{tag}.txt"), "w") as f:
+                f.write(res.stdout)
+            epoch = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 1/1:")]
+            fields = dict(kv.split("=", 1) for kv in epoch[-1].split()[2:5]) if epoch else {}
+            ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
+                if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
+            row[tag] = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+                        "steps": fields.get("steps"), "loss": float(fields.get("loss", "nan")),
+                        "miou": float(fields.get("miou", "nan")), "checkpoints": ckpts,
+                        "device_line": f"device: {DEVICE}" in res.stdout}
+            if not (res.returncode == 0 and math.isfinite(row[tag]["loss"])
+                    and math.isfinite(row[tag]["miou"]) and row[tag]["device_line"]
+                    and {"latest.pt", "max-iou-val-vox.pt"} <= set(ckpts)):
+                emit(row)
+                raise AssertionError(f"the {tag} entry point failed: {row[tag]}; its output is "
+                                     f"in {OUT_DIR}/cli_{tag}.txt")
+        teacher = torch.load(stage1_ckpt, weights_only=True)["model"]
+        tsd = torch.load(os.path.join(CLI_DIR, "stage2", "checkpoints", "latest.pt"),
+                         weights_only=True)["model"]
+        row["teacher_restored_bitwise"] = sorted(teacher) == sorted(
+            k[len("model_t."):] for k in tsd if k.startswith("model_t.")) and all(
+            torch.equal(tsd["model_t." + k], v) for k, v in teacher.items())
+        emit(row)
+        if not row["teacher_restored_bitwise"]:
+            raise AssertionError("stage 2's teacher is not stage 1's model")
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
     teacher's three requests "infer" and three train steps "train", the
     student's three requests "student" and its request with the teacher
-    "student_teacher", K2's entry point "entry"; K1 counts its forward and
+    "student_teacher", the stage-2 model's three train steps
+    "student_train", K2's entry point "entry"; K1 counts its forward and
     input-gradient launches), split in ``launches_by_path``; the other
     numbers are from its slowest main-path-shape row in f32."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
@@ -1234,13 +1468,16 @@ def kernels_line(rows, launches):
         return {p: launches[p][name] for p in which}
 
     by_path = {
-        "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher"),
-                   train_dx=launches["train"]["rulebook_conv_dx"]),
-        "K1b": paths("rulebook_conv_dw", "train"),
+        "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher",
+                         "student_train"),
+                   train_dx=launches["train"]["rulebook_conv_dx"],
+                   student_train_dx=launches["student_train"]["rulebook_conv_dx"]),
+        "K1b": paths("rulebook_conv_dw", "train", "student_train"),
         "K2": paths("flash_window_sorted", "entry"),
-        "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher"),
-        "K4": paths("flash_rpe_bwd_q", "train"),
-        "K5": paths("flash_rpe_bwd_k", "train"),
+        "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
+                    "student_train"),
+        "K4": paths("flash_rpe_bwd_q", "train", "student_train"),
+        "K5": paths("flash_rpe_bwd_k", "train", "student_train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -1298,6 +1535,10 @@ def main():
                         head_dim=16, seed=0, device=DEVICE)
     launches["student"] = phase_student(student)
     launches["student_teacher"] = phase_student_with_teacher(student)
+    del student
+    launches["student_train"] = phase_student_train()
+    phase_student_grad_check()
+    phase_cli()
     kernels_line(rows, launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -92,7 +92,7 @@ def test_attention_kernel_matches_plain(rng, cuda_device, radial, dtype):
     k3 = wattn_kernel.flash_rpe_fwd
     before = k3.launches
     out_s = wattn_kernel.flash_rpe_sorted(sq, sk, sv, geom.rank, geom.quant, geom.r,
-                                          geom.kmin, geom.kmax, tq, tk, tv, g, 0.5)
+                                          tq, tk, tv, g, 0.5)
     assert k3.launches == before + 1
     assert out_s.dtype == torch.float32
     ref = wattn_kernel.flash_rpe_sorted_plain(sq, sk, sv, geom.rank, geom.quant, geom.r,
@@ -100,8 +100,7 @@ def test_attention_kernel_matches_plain(rng, cuda_device, radial, dtype):
     assert _rel_err(out_s, ref) <= 1e-4
     # the log-sum-exp K3 writes for the backward
     qT, kT = wattn.table_projections(sq, tq), wattn.table_projections(sk, tk)
-    _, lse = k3(sq, sk, sv, qT, kT, tv, geom.rank, geom.quant, geom.r, geom.kmin, geom.kmax,
-                g, 0.5)
+    _, lse = k3(sq, sk, sv, qT, kT, tv, geom.rank, geom.quant, geom.r, g, 0.5)
     _, lse_ref = wattn_kernel.flash_rpe_fwd_plain(sq, sk, sv, qT, kT, tv, geom.rank,
                                                   geom.quant, geom.r, g, 0.5)
     assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
@@ -174,7 +173,7 @@ def test_window_kernel_matches_plain(rng, cuda_device, dtype):
         assert (out[~valid] == 0).all()
         assert _rel_err(out, ref) <= 1e-4, (ws, d)
     with pytest.raises(ValueError):
-        k2(q[:100], k[:100], vv[:100], valid.int()[:100], valid.int()[:1], valid.int()[:1])
+        k2(q[:100], k[:100], vv[:100], valid.int()[:100])
 
 
 @pytest.mark.cuda
@@ -251,16 +250,15 @@ def test_attention_backward_kernels_match_plain(rng, cuda_device, radial, dtype)
     sq, sk, sv = (t.reshape(-1, h, d)[geom.order].contiguous() for t in (q, k, vv))
     qT, kT = wattn.table_projections(sq, tq), wattn.table_projections(sk, tk)
     geo = (geom.rank, geom.quant, geom.r)
-    out, lse = wattn_kernel.flash_rpe_fwd(sq, sk, sv, qT, kT, tv, *geo, geom.kmin, geom.kmax,
-                                          g, 0.5)
+    out, lse = wattn_kernel.flash_rpe_fwd(sq, sk, sv, qT, kT, tv, *geo, g, 0.5)
     do = torch.randn(n, h, d, device=cuda_device,
                      generator=torch.Generator(device=cuda_device).manual_seed(3))
     args = (sq, sk, sv, qT, kT, wattn.table_projections(do, tv), *geo, lse, do,
             (do * out).sum(-1))
     k4, k5 = wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k
     before = (k4.launches, k5.launches)
-    dq, mq, pm = k4(*args, geom.kmin, geom.kmax, g, 0.5)
-    dk, dv, mk = k5(*args, geom.kmin, geom.kmax, g, 0.5)
+    dq, mq, pm = k4(*args, g, 0.5)
+    dk, dv, mk = k5(*args, g, 0.5)
     assert (k4.launches, k5.launches) == (before[0] + 1, before[1] + 1)
     ref = wattn_kernel.flash_rpe_bwd_plain(*args, g, 0.5)
     for name, got, want in zip(("dq", "dk", "dv", "mq", "mk", "pm"),
@@ -299,8 +297,8 @@ def test_flash_rpe_grads_match_autograd(rng, cuda_device, radial):
     pad[geom.inv] = False
     assert pad.any()
     sorted_ = [t.reshape(-1, h, d)[geom.order].contiguous().requires_grad_() for t in qkv]
-    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, geom.kmin,
-                                          geom.kmax, *tables, g, 0.5)
+    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, *tables,
+                                          g, 0.5)
     (out_s[geom.inv] * w_out.reshape(-1, h, d)).sum().backward()
     for t in sorted_:
         assert torch.count_nonzero(t.grad[pad]) == 0
@@ -448,6 +446,47 @@ def test_train_step_kernels_match_plain(cuda_device):
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
 
 
+@pytest.mark.cuda
+def test_student_train_step_kernels_match_plain(cuda_device):
+    """The stage-2 distillation train step at a small size (student P=4096
+    with 2 cameras at 72x128, the cr_t=2.0 teacher on 8192 points): 68 K1
+    launches (student and teacher), 33 as dX, 34 K1b, 16 K3, 8 each of K4
+    and K5 per step; each loss term finite and equal to that of a step
+    through the plain versions (same weights, same generator seed); the
+    teacher's parameters and BN statistics bitwise as they were, with no
+    gradient. The gradients are held per launch of a full-size step by
+    ``chip_smoke.py``."""
+    s_caps = (4096, 2048, 1024, 512, 256)
+    t_caps = (8192, 4096, 2048, 1024, 512)
+    raw = synthetic.make_multimodal_batch(np.random.RandomState(4), 1, 4096, 8192,
+                                          voxel_size=0.05, num_cams=2, im_hw=(72, 128))
+    counters = (spconv_kernel.rulebook_conv, spconv_kernel.rulebook_conv_dx,
+                spconv_kernel.rulebook_conv_dw, wattn_kernel.flash_rpe_fwd,
+                wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k)
+    terms = []
+    for plain in (False, True):
+        model = tsd_model(num_classes=17, cr=1.0, cr_t=2.0, voxel_size=0.05, seed=3,
+                          device=cuda_device)
+        model.set_plain(plain)
+        teacher0 = {k: v.clone() for k, v in model.model_t.state_dict().items()}
+        opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", 0.02)
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        step_fn = distill.make_distill_train_step(model, opt, s_caps, t_caps, generator=gen)
+        before = [c.launches for c in counters]
+        aux = step_fn(raw)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([0] * 6 if plain else [68, 33, 34, 16, 8, 8])
+        assert all(torch.isfinite(v) for v in aux.values())
+        assert all(p.grad is None for p in model.model_t.parameters())
+        for k, v in model.model_t.state_dict().items():
+            assert torch.equal(v, teacher0[k]), k
+        terms.append({k: v.item() for k, v in aux.items()})
+    # the loss to 1e-5 as the teacher's step; each term, a smaller sum of
+    # the same f32 rounding, to 1e-4 of itself
+    for k, v in terms[0].items():
+        assert abs(v - terms[1][k]) <= (1e-5 if k == "loss" else 1e-4) * abs(terms[1][k]), k
+
+
 def _bwd_inputs(rank, quant, r, h, d, g, dtype, device, seed=0):
     """The twelve inputs K4 and K5 take (as ``FlashRPE.backward`` builds
     them: K3's lse, a random output gradient) over window-sorted rows with
@@ -466,10 +505,10 @@ def _bwd_inputs(rank, quant, r, h, d, g, dtype, device, seed=0):
             (do * out).sum(-1))
 
 
-def _bwd_matches_plain(args, kmin, kmax, g, a=0.0125):
+def _bwd_matches_plain(args, g, a=0.0125):
     k4, k5 = wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k
     before = (k4.launches, k5.launches)
-    got = k4(*args, kmin, kmax, g, a) + k5(*args, kmin, kmax, g, a)
+    got = k4(*args, g, a) + k5(*args, g, a)
     assert (k4.launches, k5.launches) == (before[0] + 1, before[1] + 1)
     dq, mq, pm, dk, dv, mk = got
     ref = wattn_kernel.flash_rpe_bwd_plain(*args, g, a)
@@ -509,11 +548,11 @@ def test_attention_backward_kernels_host_geometry(cuda_device, radial):
     if radial:
         assert counts["occupancy_max"] > 128
     args = _bwd_inputs(geom.rank, geom.quant, geom.r, 2, 16, 24, torch.float32, cuda_device)
-    _bwd_matches_plain(args, geom.kmin, geom.kmax, 24)
+    _bwd_matches_plain(args, 24)
 
 
 def _edge_geometry(case, radial, device, g=24):
-    """(rank, quant, r, kmin, kmax, h, d, dtype) of one edge case: one window
+    """(rank, quant, r, h, d, dtype) of one edge case: one window
     of all N rows; windows of 1-300 rows at D = 4, at D = 32, at h = 8, and
     with bf16 q/k/v."""
     rng = np.random.RandomState(9)
@@ -525,13 +564,10 @@ def _edge_geometry(case, radial, device, g=24):
     rank = torch.from_numpy(ids.astype(np.float32)).to(device)
     quant = torch.from_numpy(rng.randint(-1, g + 1, (n, 3)).astype(np.int32)).to(device)
     r = torch.from_numpy(rng.rand(n).astype(np.float32) * 3).to(device) if radial else None
-    start, end = wattn.run_bounds(wattn.window_starts(rank))
-    kmin = start[::128].contiguous()
-    kmax = torch.maximum(end[127::128], kmin + 1).contiguous()
     h, d, dtype = {"one_window": (2, 16, torch.float32), "d4": (2, 4, torch.float32),
                    "d32": (2, 32, torch.float32), "h8": (8, 16, torch.float32),
                    "bf16": (2, 16, torch.bfloat16)}[case]
-    return rank, quant, r, kmin, kmax, h, d, dtype
+    return rank, quant, r, h, d, dtype
 
 
 @pytest.mark.cuda
@@ -541,9 +577,9 @@ def test_attention_backward_kernels_edge_cases(cuda_device, case, radial):
     """K4 and K5 against the plain backward: a window of all N rows (every
     warp scans back to row 0 and on to row N), head dims 4 and 32, 8 heads,
     bf16 inputs; coordinates outside [0, G) exercise the clipping."""
-    rank, quant, r, kmin, kmax, h, d, dtype = _edge_geometry(case, radial, cuda_device)
+    rank, quant, r, h, d, dtype = _edge_geometry(case, radial, cuda_device)
     args = _bwd_inputs(rank, quant, r, h, d, 24, dtype, cuda_device)
-    _bwd_matches_plain(args, kmin, kmax, 24)
+    _bwd_matches_plain(args, 24)
 
 
 @pytest.mark.cuda
@@ -555,8 +591,8 @@ def test_attention_backward_kernels_deterministic(cuda_device, radial):
     geom, _ = _host_level1(cuda_device, radial)
     args = _bwd_inputs(geom.rank, geom.quant, geom.r, 1, 16, 24, torch.float32, cuda_device)
     for fn in (wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k):
-        first = fn(*args, geom.kmin, geom.kmax, 24, 0.0125)
-        second = fn(*args, geom.kmin, geom.kmax, 24, 0.0125)
+        first = fn(*args, 24, 0.0125)
+        second = fn(*args, 24, 0.0125)
         for a_, b_ in zip(first, second):
             assert torch.equal(a_, b_), fn.__name__
 
@@ -587,19 +623,13 @@ FWD_EDGE_CASES = {
 
 
 def _fwd_edge_rank(case, device):
-    """Window-sorted rank [N] (float32) of one of FWD_EDGE_CASES, with the
-    per-128-row key ranges of its tiles (the last tile may be short)."""
+    """Window-sorted rank [N] (float32) of one of FWD_EDGE_CASES."""
     n, sizes = FWD_EDGE_CASES[case]
     if sizes is None:
         ids = np.zeros(n)
     else:
         ids = np.repeat(np.arange(n), np.resize(sizes, n))[:n]
-    rank = torch.from_numpy(ids.astype(np.float32)).to(device)
-    start, end = wattn.run_bounds(wattn.window_starts(rank))
-    first = torch.arange(0, n, 128, device=device)
-    kmin = start[first].contiguous()
-    kmax = torch.maximum(end[(first + 127).clamp(max=n - 1)], kmin + 1).contiguous()
-    return rank, kmin, kmax
+    return torch.from_numpy(ids.astype(np.float32)).to(device)
 
 
 def _fwd_inputs(rank, radial, h, d, g, dtype, device, seed=0):
@@ -625,12 +655,12 @@ def test_attention_forward_kernel_edge_cases(cuda_device, case, radial):
     """K3 against its plain version (out and lse, f32 and bf16 q/k/v) on
     windows across warp bounds, longer than a warp and a tile, one window of
     all N rows, all windows of one row, and N = 32 and 160."""
-    rank, kmin, kmax = _fwd_edge_rank(case, cuda_device)
+    rank = _fwd_edge_rank(case, cuda_device)
     k3 = wattn_kernel.flash_rpe_fwd
     for dtype in (torch.float32, torch.bfloat16):
         args = _fwd_inputs(rank, radial, 2, 16, 24, dtype, cuda_device)
         before = k3.launches
-        out, lse = k3(*args, kmin, kmax, 24, 0.0125)
+        out, lse = k3(*args, 24, 0.0125)
         assert k3.launches == before + 1
         ref, lse_ref = wattn_kernel.flash_rpe_fwd_plain(*args, 24, 0.0125)
         assert out.dtype == torch.float32 and out.shape == ref.shape
@@ -645,8 +675,7 @@ def test_window_kernel_edge_cases(cuda_device, case):
     """K2 on int32 ranks against its plain version, f32 and bf16, every head
     dim, on the layouts of the K3 edge cases; a pad run at PAD_RANK closes
     the long case."""
-    rank, kmin, kmax = _fwd_edge_rank(case, cuda_device)
-    rank = rank.int()
+    rank = _fwd_edge_rank(case, cuda_device).int()
     if case == "long":
         rank[-100:] = wattn_kernel.PAD_RANK
     gen = torch.Generator(device=cuda_device).manual_seed(4)
@@ -656,7 +685,7 @@ def test_window_kernel_edge_cases(cuda_device, case):
             q, k, v = (torch.randn(rank.shape[0], 3, d, device=cuda_device, generator=gen)
                        .to(dtype) for _ in range(3))
             before = k2.launches
-            out = k2(q, k, v, rank, kmin, kmax)
+            out = k2(q, k, v, rank)
             assert k2.launches == before + 1
             ref = wattn_kernel.flash_window_sorted_plain(q, k, v, rank)
             assert out.dtype == torch.float32 and torch.isfinite(out).all()
@@ -672,13 +701,13 @@ def test_forward_kernels_deterministic(cuda_device, radial):
     geom, _ = _host_level1(cuda_device, radial)
     args = _fwd_inputs(geom.rank, radial, 1, 16, 24, torch.float32, cuda_device)
     k3 = wattn_kernel.flash_rpe_fwd
-    first = k3(*args, geom.kmin, geom.kmax, 24, 0.0125)
-    second = k3(*args, geom.kmin, geom.kmax, 24, 0.0125)
+    first = k3(*args, 24, 0.0125)
+    second = k3(*args, 24, 0.0125)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(first, second))
-    rank, kmin, kmax = _fwd_edge_rank("long", cuda_device)
+    rank = _fwd_edge_rank("long", cuda_device)
     q, k, v = args[0][:1024], args[1][:1024], args[2][:1024]
     k2 = wattn_kernel.flash_window_sorted
-    assert torch.equal(k2(q, k, v, rank.int(), kmin, kmax), k2(q, k, v, rank.int(), kmin, kmax))
+    assert torch.equal(k2(q, k, v, rank.int()), k2(q, k, v, rank.int()))
 
 
 @pytest.mark.cuda

@@ -150,8 +150,8 @@ def test_pad_rows_get_zero_gradient(rng):
     sorted_ = [torch.from_numpy(x).reshape(n, h, d)[geom.order].contiguous().requires_grad_()
                for x in args[:3]]
     tables = [torch.from_numpy(x) for x in args[3:]]
-    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, geom.kmin,
-                                          geom.kmax, *tables, g, 0.5)
+    out_s = wattn_kernel.flash_rpe_sorted(*sorted_, geom.rank, geom.quant, geom.r, *tables,
+                                          g, 0.5)
     (out_s[geom.inv] * torch.from_numpy(w_out).reshape(n, h, d)).sum().backward()
     for x in sorted_:
         assert torch.count_nonzero(x.grad[pad]) == 0

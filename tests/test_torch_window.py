@@ -172,7 +172,7 @@ def test_sorted_windows_layout(rng):
     assert (sw.rank[:vcap - n_bad] < bad[0]).all()
     before = wattn_kernel.flash_window_sorted.launches
     q = torch.randn(384, 2, 8)
-    out = wattn_kernel.flash_window_sorted(q, q, q, sw.rank, sw.kmin, sw.kmax)
+    out = wattn_kernel.flash_window_sorted(q, q, q, sw.rank)
     assert wattn_kernel.flash_window_sorted.launches == before
     torch.testing.assert_close(out, wattn_kernel.flash_window_sorted_plain(q, q, q, sw.rank))
 

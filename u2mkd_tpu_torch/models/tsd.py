@@ -69,19 +69,29 @@ class TSDFull(nn.Module):
     def forward(self, student_batch: Dict[str, torch.Tensor], student_plumbing: UNetPlumbing,
                 teacher_batch: Optional[Dict[str, torch.Tensor]] = None,
                 teacher_plumbing: Optional[UNetPlumbing] = None,
-                run_teacher: bool = True) -> Dict:
+                run_teacher: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict:
         """Batches hold device tensors: the student's ``feats``, ``images``,
         ``pix_coords``, ``cam_masks`` and ``fov_mask``; the teacher's
-        ``feats``. Returns {"stu": the student's outputs} and, with
-        ``run_teacher``, {"t": the teacher's outputs, detached}."""
+        ``feats``. In training mode the student's dropout and drop path draw
+        from ``generator`` (on the features' device). Returns {"stu": the
+        student's outputs} and, with ``run_teacher``, {"t": the teacher's
+        outputs, detached}."""
         sb = student_batch
         out = {"stu": self.model_s(sb["feats"], student_plumbing, sb["images"],
-                                   sb["pix_coords"], sb["cam_masks"], sb["fov_mask"])}
+                                   sb["pix_coords"], sb["cam_masks"], sb["fov_mask"],
+                                   generator=generator)}
         if run_teacher:
-            with torch.no_grad():
-                t_out = self.model_t(teacher_batch["feats"], teacher_plumbing)
-            out["t"] = {k: v.detach() for k, v in t_out.items()}
+            out["t"] = self.frozen_teacher(teacher_batch, teacher_plumbing)
         return out
+
+    def frozen_teacher(self, teacher_batch: Dict[str, torch.Tensor],
+                       teacher_plumbing: UNetPlumbing) -> Dict[str, torch.Tensor]:
+        """The teacher's outputs on its own cloud: eval mode, no gradients,
+        detached."""
+        with torch.no_grad():
+            t_out = self.model_t(teacher_batch["feats"], teacher_plumbing)
+        return {k: v.detach() for k, v in t_out.items()}
 
     def lidar_only(self, student_batch: Dict[str, torch.Tensor],
                    student_plumbing: UNetPlumbing) -> Dict:

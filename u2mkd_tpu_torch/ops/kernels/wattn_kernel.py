@@ -66,14 +66,11 @@ PAD_RANK = -7  # the window rank of the pad rows, as the JAX package sets it
 
 
 def flash_window_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-                        rank: torch.Tensor, kmin: torch.Tensor,
-                        kmax: torch.Tensor) -> torch.Tensor:
+                        rank: torch.Tensor) -> torch.Tensor:
     """K2. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 32, q
     pre-scaled; f32 or bf16), rank [N] int32 -> f32 [N, h, d]: each row's
-    softmax attention over the keys of its own window. The arithmetic and
-    the output are f32 for both input dtypes. kmin/kmax, the per-tile key
-    ranges of :func:`sort_by_window`, come with the rank; the kernel finds
-    each row's window from the rank alone and does not read them."""
+    softmax attention over the keys of its own window, found from the rank
+    alone. The arithmetic and the output are f32 for both input dtypes."""
     if qs.device.type == "cpu":
         return flash_window_sorted_plain(qs, ks, vs, rank)
     n, h, d = qs.shape
@@ -107,7 +104,8 @@ class SortedWindows(NamedTuple):
     """A sequence sorted by window and padded to the tile (the arrays
     ``sparse_window_attention_pallas`` builds): ``order`` [V] sorted row ->
     input row; ``rank`` [pad_to] int32 dense window id (pads ``PAD_RANK``);
-    per-tile key ranges ``kmin``/``kmax`` [pad_to / 128] int32."""
+    per-tile key ranges ``kmin``/``kmax`` [pad_to / 128] int32, which no
+    kernel reads (:func:`walk_counts` does)."""
 
     order: torch.Tensor
     rank: torch.Tensor
@@ -164,7 +162,7 @@ def sparse_window_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     if plain:
         out_s = flash_window_sorted_plain(qs, ks, vs, sw.rank)
     else:
-        out_s = flash_window_sorted(qs, ks, vs, sw.rank, sw.kmin, sw.kmax)
+        out_s = flash_window_sorted(qs, ks, vs, sw.rank)
     out = torch.empty_like(out_s[:vcap])
     out[sw.order] = out_s[:vcap]
     return torch.where(valid[:, None, None], out, 0.0)
@@ -204,14 +202,12 @@ def _check(what: str, qs, ks, vs, rank, quant, r, f32s) -> None:
 def flash_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                   qT: torch.Tensor, kT: torch.Tensor, table_v: torch.Tensor,
                   rank: torch.Tensor, quant: torch.Tensor, r: Optional[torch.Tensor],
-                  kmin: torch.Tensor, kmax: torch.Tensor, grid_len: int,
-                  a: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  grid_len: int, a: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3. Window-sorted qs/ks/vs [N, h, d] (N a multiple of 32, as the host
     geometry's pad_to is; q pre-scaled; f32 or bf16), projections qT/kT [N,
     h, 3, L2] f32, table_v [L2, 3, h, d], rank [N] f32, quant [N, 3] int32,
-    r [N] f32 or None -> (out f32 [N, h, d], lse f32 [N, h]). kmin/kmax, the
-    host geometry's per-tile key ranges, come with the geometry; K3, K4 and
-    K5 find each row's window from the rank alone and do not read them."""
+    r [N] f32 or None -> (out f32 [N, h, d], lse f32 [N, h]). K3, K4 and K5
+    find each row's window from the rank alone."""
     if qs.device.type == "cpu":
         return flash_rpe_fwd_plain(qs, ks, vs, qT, kT, table_v, rank, quant, r,
                                    grid_len, a)
@@ -260,7 +256,7 @@ def _bwd_launch(source: str, what: str, qs, ks, vs, qT, kT, edo, rank, quant, r,
     return outs
 
 
-def flash_rpe_bwd_q(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin, kmax,
+def flash_rpe_bwd_q(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac,
                     grid_len: int, a: float):
     """K4: the inputs of :func:`flash_rpe_fwd` (projections f32), edo = do .
     Tv [N, h, 3, L2], lse and dfac = sum_d do * out [N, h], do [N, h, d], all
@@ -281,7 +277,7 @@ def flash_rpe_bwd_q(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin
 flash_rpe_bwd_q.launches = 0
 
 
-def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac, kmin, kmax,
+def flash_rpe_bwd_k(qs, ks, vs, qT, kT, edo, rank, quant, r, lse, do, dfac,
                     grid_len: int, a: float):
     """K5: the inputs of :func:`flash_rpe_bwd_q` -> f32 (dk [N, h, d], dv
     [N, h, d], mk [N, h, 3, L2])."""
@@ -414,9 +410,8 @@ class FlashRPE(torch.autograd.Function):
     K5 (their plain versions on the CPU); dTv = sum_i pm[i] (x) do_i."""
 
     @staticmethod
-    def forward(ctx, qs, ks, vs, qT, kT, table_v, rank, quant, r, kmin, kmax,
-                grid_len: int, a: float):
-        geo = (rank, quant, r, kmin, kmax)
+    def forward(ctx, qs, ks, vs, qT, kT, table_v, rank, quant, r, grid_len: int, a: float):
+        geo = (rank, quant, r)
         out, lse = flash_rpe_fwd(qs, ks, vs, qT, kT, table_v, *geo, grid_len, a)
         ctx.save_for_backward(qs, ks, vs, qT, kT, table_v, out, lse)
         ctx.geo, ctx.grid_len, ctx.a = geo, grid_len, a
@@ -425,21 +420,20 @@ class FlashRPE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qs, ks, vs, qT, kT, tv, out, lse = ctx.saved_tensors
-        rank, quant, r, kmin, kmax = ctx.geo
+        rank, quant, r = ctx.geo
         do = g.float().contiguous()
         args = (qs, ks, vs, qT, kT, wattn.table_projections(do, tv), rank, quant, r, lse,
-                do, (do * out).sum(-1), kmin, kmax, ctx.grid_len, ctx.a)
+                do, (do * out).sum(-1), ctx.grid_len, ctx.a)
         dq, mq, pm = flash_rpe_bwd_q(*args)
         dk, dv, mk = flash_rpe_bwd_k(*args)
         dtv = torch.einsum("nhal,nhd->lahd", pm, do)
         return (dq.to(qs.dtype), dk.to(ks.dtype), dv.to(vs.dtype), mq, mk,
-                dtv.to(tv.dtype)) + (None,) * 7
+                dtv.to(tv.dtype)) + (None,) * 5
 
 
 def flash_rpe_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                      rank: torch.Tensor, quant: torch.Tensor,
-                     r: Optional[torch.Tensor], kmin: torch.Tensor,
-                     kmax: torch.Tensor, table_q: torch.Tensor,
+                     r: Optional[torch.Tensor], table_q: torch.Tensor,
                      table_k: torch.Tensor, table_v: torch.Tensor,
                      grid_len: int, a: float) -> torch.Tensor:
     """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), the geometry's
@@ -447,8 +441,7 @@ def flash_rpe_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
     projections, then :class:`FlashRPE`."""
     qT = wattn.table_projections(qs, table_q)
     kT = wattn.table_projections(ks, table_k)
-    return FlashRPE.apply(qs, ks, vs, qT, kT, table_v, rank, quant, r, kmin, kmax,
-                          grid_len, a)
+    return FlashRPE.apply(qs, ks, vs, qT, kT, table_v, rank, quant, r, grid_len, a)
 
 
 def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -472,8 +465,7 @@ def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        table_q, table_k, table_v, grid_len, a)
     else:
         out_s = flash_rpe_sorted(qs, ks, vs, geom.rank, geom.quant, geom.r,
-                                 geom.kmin, geom.kmax, table_q, table_k, table_v,
-                                 grid_len, a)
+                                 table_q, table_k, table_v, grid_len, a)
     res = out_s[geom.inv]
     res = torch.where(valid.reshape(n)[:, None, None], res, 0.0).to(q.dtype)
     return res.reshape(b, vcap, h, d)

@@ -1,0 +1,176 @@
+"""Config -> model, optimizer and loader factories (port of
+``u2mkd_tpu/train/builder.py``).
+
+The window geometry follows the reference's ``make_model``: window_size =
+voxel_size * patch_size * window_cfg, quantized in window / quant_size_scale
+steps. The port has models for the SphereFormer teacher
+(``spvcnn_spformer``) and the stage-2 TSD student
+(``spvcnn_swiftnet18_spformer_tsd_full``), and loaders for the synthetic
+dataset; each batch comes with its host plumbing and window geometry, which
+the port's steps read.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
+from u2mkd_tpu_torch.train import optim, schedulers
+from u2mkd_tpu_torch.utils.config import Config
+
+Loader = Callable[[], Iterator[Dict]]
+
+
+def window_geometry(cfg: Config):
+    """-> (window_size, window_size_sphere, quant_size, quant_size_sphere)
+    of the first attention level."""
+    voxel_size = cfg.dataset.voxel_size
+    vs = [voxel_size] * 3 if not isinstance(voxel_size, list) else voxel_size
+    patch = np.asarray([v * cfg.model.patch_size for v in vs], np.float32)
+    window_size = tuple(float(x) for x in patch * cfg.model.window_size)
+    wss = tuple(float(x) for x in cfg.model.window_size_sphere)
+    scale = cfg.model.quant_size_scale
+    quant = tuple(w / scale for w in window_size)
+    quant_sphere = tuple(w / scale for w in wss)
+    return window_size, wss, quant, quant_sphere
+
+
+def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
+               seed: int = 0) -> torch.nn.Module:
+    """The model ``cfg.model.name`` names, with random weights from
+    ``seed``, on ``device`` (CUDA unless asked otherwise)."""
+    from u2mkd_tpu_torch.models.spvcnn import SPVCNN
+    from u2mkd_tpu_torch.models.tsd import TSDFull
+
+    prec = cfg.get_path("precision", "float32")
+    if prec != "float32":
+        raise NotImplementedError(f"precision {prec}: the port runs f32 end to end; the bf16 "
+                                  f"policy is ROADMAP section 1, item 5")
+    dev = resolve_device(device)
+    name = cfg.model.name
+    ws, wss, qs, qss = window_geometry(cfg)
+    common = dict(
+        num_classes=cfg.data.num_classes, window_size=ws, window_size_sphere=wss,
+        quant_size=qs, quant_size_sphere=qss,
+        window_size_scale=tuple(cfg.model.window_size_scale),
+        drop_path_rate=cfg.model.drop_path_rate, sphere_a=cfg.model.a,
+        head_dim=cfg.model.get("head_dim", 16),
+        generator=torch.Generator().manual_seed(seed))
+    if name == "spvcnn_spformer":
+        model = SPVCNN(cr=cfg.model.cr, in_channel=cfg.model.in_channel, **common)
+    elif name == "spvcnn_swiftnet18_spformer_tsd_full":
+        model = TSDFull(cr=cfg.model.cr, cr_t=cfg.model.cr_t, in_channel=cfg.model.in_channel,
+                        in_channel_t=cfg.model.get("in_channel_t", 4),
+                        run_pix_decoder=cfg.get_path("eval.run_pix_decoder", True), **common)
+    else:
+        raise NotImplementedError(f"model {name}: the port has no such model yet (ROADMAP "
+                                  f"section 1, item 5)")
+    return model.to(dev)
+
+
+def optimizer_spec(cfg: Config, world_size: int = 1) -> Tuple[str, Callable[[int], float], Dict]:
+    """-> (optimizer name, lr(step) = cfg.optimizer.lr times the schedule's
+    factor, keyword arguments of :func:`optim.make_optimizer`)."""
+    o = cfg.optimizer
+    name = cfg.scheduler.name
+    if name == "cosine_warmup":
+        sched = schedulers.cosine_schedule_with_warmup(
+            cfg.num_epochs, cfg.batch_size, cfg.data.training_size, world_size)
+    elif name == "poly":
+        # max_iter counts samples, not steps, as the reference builds it
+        # (builder.py:740-743): a very shallow decay per step
+        sched = schedulers.poly_lr(cfg.num_epochs * cfg.data.training_size,
+                                   cfg.scheduler.get("power", 0.9))
+    elif name == "none":
+        def sched(step):
+            return 1.0
+    else:
+        raise NotImplementedError(name)
+
+    def lr(step: int) -> float:
+        return o.lr * sched(step)
+
+    kw = dict(weight_decay=o.weight_decay, momentum=o.get("momentum", 0.9),
+              nesterov=o.get("nesterov", True),
+              transformer_lr_scale=o.get("transformer_lr_scale", 0.1))
+    return o.name, lr, kw
+
+
+def make_optimizer_and_schedule(cfg: Config, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                                world_size: int = 1):
+    """-> (optimizer over ``named_params``, its ``LambdaLR``): the optimizer
+    and schedule of ``cfg``."""
+    name, lr, kw = optimizer_spec(cfg, world_size)
+    return optim.make_optimizer(named_params, name, lr, **kw)
+
+
+def _check_synthetic(cfg: Config) -> None:
+    if cfg.dataset.name != "synthetic":
+        raise NotImplementedError(f"dataset {cfg.dataset.name}: the port's loaders cover the "
+                                  f"synthetic dataset only; the real datasets are ROADMAP "
+                                  f"section 1, item 3")
+
+
+def _with_plumbing(part: Dict, caps, wparams) -> Dict:
+    part["plumbing"] = plumbing_host.batch_plumbing(part["pcoords"], part["xyz"],
+                                                    part["pmask"], caps, wgeom_params=wparams)
+    return part
+
+
+def make_synthetic_loaders(cfg: Config, model: torch.nn.Module,
+                           seed: int = 0) -> Tuple[Loader, Loader]:
+    """Synthetic train and val loaders of the teacher: callables returning
+    iterators over numpy batches (``data/synthetic.make_batch``), each with
+    its host plumbing and ``model``'s window geometry. Val draws from
+    ``seed + 1``; n_val = max(2, n_train // 4)."""
+    _check_synthetic(cfg)
+    b, p = cfg.batch_size, cfg.dataset.num_points
+    n_train = cfg.data.training_size // b
+    n_val = max(2, n_train // 4)
+    caps = tuple(cfg.capacities)
+    wparams = wgeom_host.params_from_model(model)
+
+    def loader(rng_seed: int, n: int) -> Iterator[Dict]:
+        rng = np.random.RandomState(rng_seed)
+        for _ in range(n):
+            yield _with_plumbing(synthetic.make_batch(rng, b, p, cfg.dataset.voxel_size),
+                                 caps, wparams)
+
+    return (lambda: loader(seed, n_train)), (lambda: loader(seed + 1, n_val))
+
+
+def make_synthetic_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
+    """Synthetic paired student/teacher loaders of the TSD stage
+    (``data/synthetic.make_multimodal_batch``), seeded from
+    ``cfg.train.seed``. Train batches carry both parts' host plumbing and
+    window geometry (``model.model_s``'s and ``model.model_t``'s); val
+    batches the student's, and the teacher's only with
+    ``debug.debug_val``, as the eval step reads the teacher only then."""
+    _check_synthetic(cfg)
+    b, p, tp = cfg.batch_size, cfg.dataset.num_points, cfg.dataset.teacher_points
+    n_train = cfg.data.training_size // b
+    n_val = max(2, n_train // 4)
+    seed = cfg.train.seed % (2 ** 31)
+    parts = {"student": (tuple(cfg.get_path("student_capacities") or cfg.capacities),
+                         wgeom_host.params_from_model(model.model_s)),
+             "teacher": (tuple(cfg.get_path("teacher_capacities") or cfg.capacities),
+                         wgeom_host.params_from_model(model.model_t))}
+    val_parts = ("student", "teacher") if cfg.get_path("debug.debug_val", False) \
+        else ("student",)
+
+    def loader(seed_off: int, n: int, with_parts) -> Iterator[Dict]:
+        rng = np.random.RandomState(seed + seed_off)
+        for _ in range(n):
+            raw = synthetic.make_multimodal_batch(
+                rng, b, p, tp, cfg.dataset.voxel_size, num_cams=cfg.dataset.num_cams,
+                im_hw=tuple(cfg.dataset.image_size))
+            for part in with_parts:
+                _with_plumbing(raw[part], *parts[part])
+            yield raw
+
+    return (lambda: loader(0, n_train, ("student", "teacher"))), \
+        (lambda: loader(1, n_val, val_parts))

@@ -1,22 +1,160 @@
-"""The stage-2 student's eval step (port of ``make_distill_eval_step`` of
-``u2mkd_tpu/train/distill.py``): one inference request of the camera +
-LiDAR student, and optionally of the frozen teacher on its own multisweep
-cloud. The distillation train step is not ported yet.
+"""TSD distillation train and eval steps (port of
+``u2mkd_tpu/train/distill.py``).
+
+A train step runs the student in training mode and the frozen teacher in
+eval mode without gradients, then the five-term loss (reference
+``NuScenesLCTSDFullTrainer._run_step``)::
+
+  loss = LovaszCE(x_vox) + LovaszCE(x_pix | FOV) + w_kl * KL(stu || teacher)
+       + sum(per-stage learner MSE) + w_feat * MSE(adapted stage-4 feats)
+
+The teacher's outputs come to student point order through ``t2s`` ([B, Ps]
+teacher row of each student point, -1 where none), which the data pipeline
+builds. The eval step scores the student's voxel and pixel heads, and
+optionally the teacher on its own multisweep cloud.
+
+The JAX steps' ``remat`` (a TPU memory workaround) has no counterpart;
+``overflow_checks`` and ``axis_name`` wait for ``train/overflow.py`` and
+data parallelism (ROADMAP section 1, items 5 and 6).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from u2mkd_tpu_torch.models.tsd import TSDFull
-from u2mkd_tpu_torch.train import metrics
+from u2mkd_tpu_torch.ops import losses
+from u2mkd_tpu_torch.train import metrics, optim
 from u2mkd_tpu_torch.train.state import batch_reader
 
 STUDENT_KEYS = {"feats": torch.float32, "images": torch.float32,
                 "pix_coords": torch.float32, "cam_masks": torch.bool,
                 "fov_mask": torch.bool}
+LOSS_TERMS = ("loss", "ce_vox", "ce_pix", "kl", "feat", "mse")
+
+
+def make_frozen_teacher_optimizer(model: TSDFull, name: str, lr, **kw):
+    """The named optimizer (:func:`optim.make_optimizer`, ``kw`` passed on)
+    over the student's parameters only, and the teacher's parameters set to
+    need no gradient: the frozen teacher (reference
+    ``model_t.requires_grad_(False)``; the JAX package masks its updates to
+    zero). -> (optimizer, scheduler or None)."""
+    model.model_t.requires_grad_(False)
+    return optim.make_optimizer(model.model_s.named_parameters(), name, lr, **kw)
+
+
+def _minmax(x: torch.Tensor) -> torch.Tensor:
+    mx = x.max(-1, keepdim=True).values
+    mn = x.min(-1, keepdim=True).values
+    return (x - mn) / (mx - mn).clamp(min=1e-12)
+
+
+def _distill_losses(stu: Dict, x_vox_t2s: torch.Tensor, feat_t2s: torch.Tensor,
+                    labels: torch.Tensor, fov: torch.Tensor, label_valid: torch.Tensor,
+                    t2s_valid: torch.Tensor, w_kl: float, w_feat: float,
+                    mse_norm_feat: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The five-term TSD loss from the student's outputs and the teacher's,
+    already in student point order. -> (loss, {LOSS_TERMS: detached})."""
+    def flat(x):
+        return x.reshape(-1, x.shape[-1])
+
+    fl = labels.reshape(-1)
+    ce_vox = losses.lovasz_ce(flat(stu["x_vox"]), fl, label_valid.reshape(-1))
+    ce_pix = losses.lovasz_ce(flat(stu["x_pix"]), fl, (label_valid & fov).reshape(-1))
+    kl = losses.kl_div_batchmean(flat(stu["x_vox"]), flat(x_vox_t2s), t2s_valid.reshape(-1))
+    feat_s = stu["pts_feats"]
+    if mse_norm_feat:
+        feat_s, feat_t2s = _minmax(feat_s), _minmax(feat_t2s)
+    feat = losses.masked_mse(flat(feat_s), flat(feat_t2s), t2s_valid.reshape(-1))
+    mse_sum = sum(stu["mse_loss"])
+    loss = ce_vox + ce_pix + w_kl * kl + mse_sum + w_feat * feat
+    terms = (loss, ce_vox, ce_pix, kl, feat, mse_sum)
+    return loss, {k: v.detach() for k, v in zip(LOSS_TERMS, terms)}
+
+
+def _gather_t2s(x: torch.Tensor, t2s: torch.Tensor) -> torch.Tensor:
+    """Teacher rows x [B, Pt, C] -> [B, Ps, C] in student point order (rows
+    without a teacher point read row 0; their mask drops them)."""
+    idx = t2s.clamp(min=0)[..., None].expand(-1, -1, x.shape[-1])
+    return torch.gather(x, 1, idx)
+
+
+def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
+                            s_caps: Sequence[int], t_caps: Sequence[int], w_kl: float = 1.0,
+                            w_feat: float = 1.0, ignore_label: int = 0,
+                            mse_norm_feat: bool = False,
+                            scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                            generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns ``step_fn(batch) -> aux`` for ``batch = {"student",
+    "teacher", "t2s"}`` as ``data/synthetic.make_multimodal_batch`` gives it
+    (numpy arrays; a ``plumbing`` entry in either part skips its host
+    build). The teacher runs first, in eval mode without gradients; then the
+    student in training mode (batch-statistic BN updating its running
+    statistics; dropout and drop path drawn from ``generator``, a seeded one
+    on the model's device by default), the loss, the backward,
+    ``optimizer.step()`` (the optimizer holds the student's parameters only:
+    :func:`make_frozen_teacher_optimizer`) and ``scheduler.step()``. ``aux``
+    holds LOSS_TERMS as detached device tensors: the step does not wait for
+    the device. It is :func:`make_distill_split_steps`'s step: in torch the
+    fused step and the split one are the same computation."""
+    return make_distill_split_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat,
+                                    ignore_label, mse_norm_feat, scheduler, generator)
+
+
+def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
+                             s_caps: Sequence[int], t_caps: Sequence[int], w_kl: float = 1.0,
+                             w_feat: float = 1.0, ignore_label: int = 0,
+                             mse_norm_feat: bool = False,
+                             scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                             generator: Optional[torch.Generator] = None) -> Callable:
+    """The train step of :func:`make_distill_train_step` in two calls, as
+    the JAX package's two programs: ``step.teacher_fn(batch)`` runs the
+    frozen teacher and gathers its logits and stage-4 features to student
+    order ({"x_vox_t2s", "feat_t2s"}, detached); ``step.student_fn(batch,
+    t_out)`` runs the student's forward, the loss, the backward and the
+    update. ``step(batch)`` is the two in turn; no gradient crosses
+    between them."""
+    device, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)
+    _, teacher_plumbing, _ = batch_reader(model.model_t, t_caps)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def teacher_fn(batch: Dict) -> Dict[str, torch.Tensor]:
+        tb = batch["teacher"]
+        t_out = model.frozen_teacher({"feats": tensor_of(tb, "feats", torch.float32)},
+                                     teacher_plumbing(tb))
+        t2s = tensor_of(batch, "t2s", torch.int64)
+        return {"x_vox_t2s": _gather_t2s(t_out["x_vox"], t2s),
+                "feat_t2s": _gather_t2s(t_out["pts_feats"], t2s)}
+
+    def student_fn(batch: Dict, t_out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        sb = batch["student"]
+        spl = student_plumbing(sb)
+        s_in = {k: tensor_of(sb, k, dt) for k, dt in STUDENT_KEYS.items()}
+        labels = tensor_of(sb, "labels", torch.int64)
+        pmask = spl.pmask
+        fov = s_in["fov_mask"] & pmask
+        label_valid = pmask & (labels != ignore_label)
+        t2s_valid = pmask & (tensor_of(batch, "t2s", torch.int64) >= 0)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        stu = model(s_in, spl, run_teacher=False, generator=generator)["stu"]
+        loss, aux = _distill_losses(stu, t_out["x_vox_t2s"], t_out["feat_t2s"], labels, fov,
+                                    label_valid, t2s_valid, w_kl, w_feat, mse_norm_feat)
+        loss.backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return aux
+
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        return student_fn(batch, teacher_fn(batch))
+
+    step.teacher_fn = teacher_fn
+    step.student_fn = student_fn
+    return step
 
 
 def make_distill_eval_step(model: TSDFull, s_caps: Sequence[int], t_caps: Sequence[int],

@@ -1,0 +1,94 @@
+"""Stage-2 training CLI of the port: the camera+LiDAR student distilled
+from the frozen teacher (TSD; counterpart of the root
+``train_lc_nusc_tsd_full.py``, without its multihost flags).
+
+Paired student/teacher batches, the five-term distillation loss, voxel and
+pixel mIoU validation (the best checkpoint follows the voxel head's). The
+frozen teacher comes from a stage-1 checkpoint of the port through the
+dotted option ``model.teacher_pretrain=PATH``; ``model.pretrain_weight``
+loads a backbone without its classifier; ``--weight-path`` resumes a run.
+``train.split_step`` and ``train.remat`` have no effect: in torch the split
+step is the fused step's computation, and remat is a TPU workaround. Runs on
+the card unless ``--cpu`` is given.
+
+Usage:
+  python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full configs/synthetic/train/tsd_tiny.yaml \\
+      --run-dir RUN [--weight-path CKPT] [--cpu] [model.teacher_pretrain=CKPT] [k.e.y=value ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.train import builder, checkpoints, distill, loop
+from u2mkd_tpu_torch.utils import config as config_lib
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("config")
+    parser.add_argument("--run-dir", required=True)
+    parser.add_argument("--weight-path", default=None,
+                        help="a checkpoint of the port to resume from")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU")
+    parser.add_argument("opts", nargs="*", help="dotted config overrides")
+    args = parser.parse_intermixed_args(argv)
+
+    cfg = config_lib.load(args.config)
+    config_lib.update_dotted(cfg, args.opts)
+    device = resolve_device("cpu" if args.cpu else None)
+    seed = cfg.train.seed % (2 ** 31)
+    print(f"device: {device}")
+
+    model = builder.make_model(cfg, device, seed)
+    name, lr, kw = builder.optimizer_spec(cfg)
+    optimizer, scheduler = distill.make_frozen_teacher_optimizer(model, name, lr, **kw)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    s_caps = tuple(cfg.get_path("student_capacities") or cfg.capacities)
+    t_caps = tuple(cfg.get_path("teacher_capacities") or cfg.capacities)
+    train_loader, val_loader = builder.make_synthetic_distill_loaders(cfg, model)
+    if cfg.get_path("model.imagenet_pretrain"):
+        raise NotImplementedError("model.imagenet_pretrain: the ImageNet ResNet importer is "
+                                  "ROADMAP section 1, item 5")
+
+    # three restore modes (reference nusc_trainers.py:173-201)
+    start_step = 0
+    if args.weight_path:
+        start_step = checkpoints.load_training_state(checkpoints.load(args.weight_path), model,
+                                                     optimizer, scheduler, generator)
+        print(f"resumed from {args.weight_path}")
+    else:
+        pretrain = cfg.get_path("model.pretrain_weight")
+        if pretrain:
+            checkpoints.load_pretrain_params(pretrain, model)
+            print(f"loaded pretrain (no classifier) from {pretrain}")
+        teacher = cfg.get_path("model.teacher_pretrain")
+        if teacher:
+            checkpoints.load_teacher_any(teacher, model)
+            print(f"loaded frozen teacher from {teacher}")
+
+    ignore = cfg.criterion.ignore_index
+    ncls = cfg.data.num_classes
+    debug_val = bool(cfg.get_path("debug.debug_val", False))
+    step = distill.make_distill_train_step(
+        model, optimizer, s_caps, t_caps, w_kl=cfg.criterion.get("w_kl", 1.0),
+        w_feat=cfg.criterion.get("w_feat", 1.0), ignore_label=ignore,
+        mse_norm_feat=cfg.criterion.get("mse_norm_feat", False), scheduler=scheduler,
+        generator=generator)
+    ev = distill.make_distill_eval_step(model, s_caps, t_caps, ncls, ignore,
+                                        run_teacher=debug_val)
+    loop.Trainer(
+        run_dir=args.run_dir, model=model, optimizer=optimizer, scheduler=scheduler,
+        generator=generator, train_step=step, eval_step=ev, train_loader=train_loader,
+        val_loader=val_loader, num_epochs=cfg.num_epochs, num_classes=ncls, ignore_label=ignore,
+        eval_counts_key="counts_vox",
+        extra_count_keys=("counts_pix",) + (("counts_teacher",) if debug_val else ()),
+        epoch_to_save=cfg.get_path("epoch_to_save", 0), start_step=start_step,
+    ).train()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,67 @@
+"""Stage-1 teacher training CLI of the port (counterpart of the root
+``train_spformer.py``, without its multihost flags).
+
+Loads a recursive YAML config with dotted overrides, builds the teacher, its
+optimizer and schedule and the loaders, and runs the epoch loop with mIoU
+validation and the ``latest`` / ``max-iou-val-vox`` checkpoints under
+``--run-dir``. Runs on the card unless ``--cpu`` is given.
+
+Usage:
+  python -m u2mkd_tpu_torch.train_spformer configs/synthetic/train/spformer_tiny.yaml \\
+      --run-dir RUN [--weight-path RUN/checkpoints/latest.pt] [--cpu] [k.e.y=value ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.train import builder, checkpoints, loop, state
+from u2mkd_tpu_torch.utils import config as config_lib
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("config")
+    parser.add_argument("--run-dir", required=True)
+    parser.add_argument("--weight-path", default=None,
+                        help="a checkpoint of the port to resume from")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU")
+    parser.add_argument("opts", nargs="*", help="dotted config overrides")
+    # intermixed: overrides may come before or after the flags
+    args = parser.parse_intermixed_args(argv)
+
+    cfg = config_lib.load(args.config)
+    config_lib.update_dotted(cfg, args.opts)
+    device = resolve_device("cpu" if args.cpu else None)
+    seed = cfg.train.seed % (2 ** 31)
+    print(f"device: {device}")
+
+    model = builder.make_model(cfg, device, seed)
+    optimizer, scheduler = builder.make_optimizer_and_schedule(cfg, model.named_parameters())
+    generator = torch.Generator(device=device).manual_seed(seed)
+    caps = tuple(cfg.capacities)
+    train_loader, val_loader = builder.make_synthetic_loaders(cfg, model, seed=seed)
+    start_step = 0
+    if args.weight_path:
+        start_step = checkpoints.load_training_state(checkpoints.load(args.weight_path), model,
+                                                     optimizer, scheduler, generator)
+        print(f"resumed from {args.weight_path}")
+
+    ignore = cfg.data.ignore_label
+    ncls = cfg.data.num_classes
+    loop.Trainer(
+        run_dir=args.run_dir, model=model, optimizer=optimizer, scheduler=scheduler,
+        generator=generator,
+        train_step=state.make_train_step(model, optimizer, caps, ignore, scheduler, generator),
+        eval_step=state.make_eval_step(model, caps, ncls, ignore),
+        train_loader=train_loader, val_loader=val_loader, num_epochs=cfg.num_epochs,
+        num_classes=ncls, ignore_label=ignore,
+        epoch_to_save=cfg.get_path("epoch_to_save", 0), start_step=start_step,
+    ).train()
+
+
+if __name__ == "__main__":
+    main()
