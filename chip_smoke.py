@@ -65,7 +65,23 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      teacher config at cr=0.5, then ``python -m
      u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
      that run's checkpoint as its frozen teacher: losses finite, validation
-     mIoU and checkpoints written, the teacher restored bitwise.
+     mIoU and checkpoints written, the teacher restored bitwise;
+ 13. data: a nuScenes-format set from ``tools/make_nusc_mini.py`` in a
+     temporary directory (2 train and 1 val scene of 3 keyframes, 34720
+     points a scan, 6 cameras); one epoch (6 steps) of the stage-2 train
+     step from ``make_distill_loaders`` on
+     ``spformer_tsd_full_ours_star.yaml`` at full width (B=1 the one cut),
+     with serial loaders and with pipelined ones (4 plumbing threads, 2
+     batches prefetched and uploaded on a side stream): per step the wall
+     ms, the loader wait, the host build ms and the valid points, the
+     batches of the two runs equal, the launches 68 / 33 / 34 / 16 / 8 / 8,
+     the losses finite, the peak memory, and each loader's profiled busy
+     share of the loop; a val pass scored on the raw points beside the
+     padded voxels; one epoch of the stage-1 step from ``make_loaders`` on
+     ``spformer.yaml``;
+ 14. data_cli: both training entry points on that set at full width, one
+     epoch each (stage 2 with its random-weight cr_t=2.0 teacher): finite
+     losses, a raw-point mIoU, checkpoints.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -176,6 +192,30 @@ CLI_STAGE1 = ("u2mkd_tpu_torch.train_spformer", "configs/synthetic/train/spforme
 CLI_STAGE2 = ("u2mkd_tpu_torch.train_lc_nusc_tsd_full", "configs/synthetic/train/tsd_tiny.yaml",
               "num_epochs=1", "data.training_size=8")
 CLI_DIR = os.path.join("u2mkd_tpu_torch", "_build", "cli")
+# the real-data paths: a nuScenes-format set from tools/make_nusc_mini.py
+# (2 train scenes and 1 val scene of 3 keyframes, a sweep between
+# keyframes, 6 cameras of 1600x900 JPEGs) at about one nuScenes LiDAR sweep
+# per scan, read through the port's loaders from the paper's configs at
+# their full width; B=1 is the one cut (DATA_OVERRIDES, with the set's
+# root). Stage 2's teacher takes the configs' capacities from 262144.
+DATA_PTS = 34720
+DATA_STAGE1 = "configs/nuscenes/train/spformer.yaml"
+DATA_STAGE2 = "configs/nuscenes/train/spformer_tsd_full_ours_star.yaml"
+DATA_OVERRIDES = ("dataset.version=v1.0-mini", "dataset.allow_unofficial_split=true",
+                  "batch_size=1")
+# spformer.yaml inherits dataset.name lc_semantic_nusc from
+# configs/nuscenes/train/default.yaml, a name neither package's make_loaders
+# serves; its uni-modal dataset is semantic_nusc
+DATA_STAGE1_OVERRIDES = ("dataset.name=semantic_nusc",)
+# the loaders of one run: serial (plumbing in line, no prefetch thread: each
+# batch built and uploaded in the step's thread) and pipelined (four
+# plumbing threads, two batches prefetched and uploaded on a side stream)
+DATA_SERIAL = ("workers=0", "prefetch_depth=0")
+DATA_PIPELINED = ("workers=4", "prefetch_depth=2")
+DATA_SEED = 31
+DATA_STEPS = 6   # one epoch of the 6 train keyframes at B=1
+DATA_PROFILED_STEPS = 4  # steps of each loader's profiled loop, after its first batch
+DATA_CLI_FLAGS = ()  # flags of the data_cli phase's entry points (none: the card)
 # K2's main-path shape: the teacher's level-1 voxels (N = 65536 capacity),
 # h=4, d=16; the level's cubic windows (6 voxels of 0.1 m) and sphere
 # windows on cart2sphere coordinates
@@ -1453,15 +1493,378 @@ def phase_cli():
         shutil.rmtree(CLI_DIR, ignore_errors=True)
 
 
+def make_data_set(root):
+    """The nuScenes-format set of the real-data phases, written under
+    ``root`` by ``tools/make_nusc_mini.py`` -> (its table counts, seconds)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from make_nusc_mini import generate
+
+    t0 = time.perf_counter()
+    stats = generate(root, pts_per_scan=DATA_PTS)
+    return stats, time.perf_counter() - t0
+
+
+def _data_cfg(path, root, *opts):
+    """The config at ``path`` with the set's root, DATA_OVERRIDES and
+    ``opts`` -> (config, the overrides)."""
+    from u2mkd_tpu_torch.utils import config
+
+    overrides = [f"dataset.root={root}", *DATA_OVERRIDES, *opts]
+    return config.update_dotted(config.load(path), overrides), overrides
+
+
+@contextlib.contextmanager
+def loader_clock():
+    """Host ms of the loaders' stages per batch, by its (B=1) lidar token:
+    the dataset's item ("fetch"), the plumbing and window geometry
+    ("plumbing"), the upload's host call ("upload"), wherever they run."""
+    import threading
+
+    from u2mkd_tpu_torch.data import lc_semantic_nusc, loaders, semantic_nusc
+
+    times, lock = {}, threading.Lock()
+    patches = [(semantic_nusc.SemanticNusc, "__getitem__", "fetch",
+                lambda out: out["lidar_token"]),
+               (lc_semantic_nusc.LCSemanticNuscTSD, "__getitem__", "fetch",
+                lambda out: out["lidar_token"]),
+               (loaders.PlumbingStage, "__call__", "plumbing", lambda out: out["lidar_tokens"][0]),
+               (loaders._Upload, "__call__", "upload", lambda out: out[0]["lidar_tokens"][0])]
+    saved = []
+    for cls, name, kind, token_of in patches:
+        fn = cls.__dict__[name]
+        saved.append((cls, name, fn))
+
+        def timed(*args, _fn=fn, _kind=kind, _token_of=token_of):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                row = times.setdefault(_token_of(out), {})
+                row[_kind] = row.get(_kind, 0.0) + ms
+            return out
+
+        setattr(cls, name, timed)
+    try:
+        yield times
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _host_copy(x):
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _host_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_host_copy(v) for v in x]
+    return x.cpu().numpy().copy() if torch.is_tensor(x) else x
+
+
+def _same(x, ref):
+    """Whether ``x`` (a loader batch, tensors on the card) equals ``ref``
+    (a host copy of one): every array's dtype, shape and bits, every
+    ``infos`` entry and token."""
+    import torch
+
+    if isinstance(ref, dict):
+        return isinstance(x, dict) and sorted(x) == sorted(ref) and all(
+            _same(x[k], ref[k]) for k in ref)
+    if isinstance(ref, list):
+        return len(x) == len(ref) and all(_same(a, b) for a, b in zip(x, ref))
+    if torch.is_tensor(x):
+        x = x.cpu().numpy()
+    if isinstance(ref, np.ndarray):
+        return (isinstance(x, np.ndarray) and x.dtype == ref.dtype and x.shape == ref.shape
+                and bool(np.array_equal(x, ref)))
+    return x == ref
+
+
+def _data_epoch(phase, loader, step_fn, launches, counts, points, keep):
+    """One epoch of ``step_fn`` over ``loader()``: per step, the wall ms to
+    a synchronize at its end and the ms of it spent waiting for the loader,
+    the host ms of the batch's build (:func:`loader_clock`), its valid
+    points (``points(batch)``), its losses (finite) and launches (each step
+    ``launches``; ``counts`` are the counting wrappers); ``keep(batch)``
+    after the step. -> the step rows."""
+    import torch
+
+    rows = []
+    with loader_clock() as clock:
+        it = iter(loader())
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            t1 = time.perf_counter()
+            before = [c.launches for c in counts]
+            aux = step_fn(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            build = clock.get(batch["lidar_tokens"][0], {})
+            row = {"phase": phase, "step": len(rows), "token": batch["lidar_tokens"][0],
+                   "wall_ms": (t2 - t0) * 1e3, "loader_wait_ms": (t1 - t0) * 1e3,
+                   "host_build_ms": sum(build.values()), **{f"{k}_ms": v for k, v in build.items()},
+                   **points(batch), **{k: v.item() for k, v in aux.items()},
+                   "launches": {c.__name__: c.launches - b for c, b in zip(counts, before)}}
+            row["finite"] = all(math.isfinite(v.item()) for v in aux.values())
+            emit(row)
+            if not row["finite"]:
+                raise AssertionError(f"non-finite loss: {row}")
+            if row["launches"] != launches:
+                raise AssertionError(f"expected {launches} launches per step: {row}")
+            keep(batch)
+            rows.append(row)
+    return rows
+
+
+def _profiled_loop(loader, step_fn, steps):
+    """``steps`` steps of ``step_fn`` over a fresh epoch of ``loader()``
+    under ``torch.profiler``, timed from the first batch's arrival (so the
+    pipeline's start is not counted) to a synchronize -> (device busy ms,
+    wall ms) per step. Their ratio is the card's busy share of the training
+    loop, loader included."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    it = iter(loader())
+    try:
+        batch = next(it)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                step_fn(batch)
+                if i + 1 < steps:
+                    batch = next(it)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        it.close()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / steps, wall
+
+
+def _epoch_summary(phase, loader, overrides, rows, launches, peak, **extra):
+    warm = [r["wall_ms"] for r in rows[1:]]
+    row = {"phase": phase, "loader": loader, "overrides": overrides, "steps": len(rows),
+           "wall_ms": [r["wall_ms"] for r in rows],
+           "loader_wait_ms": [r["loader_wait_ms"] for r in rows],
+           "host_build_ms": [r["host_build_ms"] for r in rows],
+           "warm_wall_ms_median": float(np.median(warm)),
+           "warm_loader_wait_ms_median": float(np.median([r["loader_wait_ms"] for r in rows[1:]])),
+           "loss": [r["loss"] for r in rows], "launches": launches,
+           "max_memory_allocated_bytes": peak, **extra}
+    if "profiled_device_busy_ms" in extra:
+        # against the unprofiled warm steps: the profiler's own host cost
+        # must not count as idle time
+        row["device_busy_share"] = extra["profiled_device_busy_ms"] / row["warm_wall_ms_median"]
+    emit(row)
+    return row
+
+
+def _counters():
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+
+    return (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw, W.flash_rpe_fwd,
+            W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+
+
+def _raw_val(model, cfg, val_loader):
+    """One val pass of the stage-2 student with the stage-2 CLI's
+    raw-point scoring (``loop.Trainer``'s ``RawSpec`` rule): the voxel and
+    pixel heads' counters from the raw points beside the eval step's
+    padded-voxel ones, and each one's mIoU."""
+    import shutil
+
+    from u2mkd_tpu_torch.train import distill, loop, metrics
+
+    ncls, ignore = cfg.data.num_classes, cfg.criterion.ignore_index
+    ev = distill.make_distill_eval_step(model, tuple(cfg.student_capacities),
+                                        tuple(cfg.get_path("teacher_capacities") or
+                                              cfg.capacities), ncls, ignore)
+    run_dir = os.path.join(CLI_DIR, "data_val")
+    trainer = loop.Trainer(
+        run_dir=run_dir, model=model, optimizer=None, scheduler=None, generator=None,
+        train_step=None, eval_step=ev, train_loader=None, val_loader=val_loader,
+        num_epochs=1, num_classes=ncls, ignore_label=ignore, eval_counts_key="counts_vox",
+        extra_count_keys=("counts_pix",),
+        raw_specs=[loop.RawSpec("counts_vox", "logits", "student", None),
+                   loop.RawSpec("counts_pix", "logits_pix", "student", "fov_full")])
+    zero = {n: np.zeros(ncls, np.int64) for n in ("seen", "correct", "positive")}
+    raw = {s.counts_key: dict(zero) for s in trainer.raw_specs}
+    padded = {s.counts_key: dict(zero) for s in trainer.raw_specs}
+    n = 0
+    try:
+        for batch in val_loader():
+            out = ev(batch)
+            n += 1
+            for spec in trainer.raw_specs:
+                got = trainer._raw_point_counts(out, batch, spec)
+                raw[spec.counts_key] = {k: raw[spec.counts_key][k] + got[k] for k in got}
+                pad = {k: v.cpu().numpy() for k, v in out[spec.counts_key].items()}
+                padded[spec.counts_key] = {k: padded[spec.counts_key][k] + pad[k] for k in pad}
+    finally:
+        trainer.summary.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    def summary(counts):
+        return {k: {"seen": int(c["seen"].sum()), "correct": int(c["correct"].sum()),
+                    "miou": metrics.compute_miou(c, ignore)[0]} for k, c in counts.items()}
+
+    row = {"phase": "data_student_val", "batches": n, "raw_points": summary(raw),
+           "padded_voxels": summary(padded)}
+    emit(row)
+    if not (n and all(v["seen"] > 0 and math.isfinite(v["miou"])
+                      for v in row["raw_points"].values())):
+        raise AssertionError(f"the raw-point validation scored nothing: {row}")
+
+
+def phase_data(root):
+    """The training paths from nuScenes-format files: stage 2
+    (``make_distill_loaders`` and ``make_distill_train_step`` on DATA_STAGE2,
+    the cr=1.0 student and the cr_t=2.0 teacher at their configs' widths and
+    capacities) for one epoch with the serial loaders and one with the
+    pipelined ones: the batches of the two runs equal, each step's launches
+    STUDENT_TRAIN_LAUNCHES and its losses finite; a val pass scored on the
+    raw points; then stage 1 (``make_loaders`` and ``make_train_step`` on
+    DATA_STAGE1, pipelined) for one epoch, TRAIN_LAUNCHES a step. ->
+    launches of the pipelined stage-2 epoch and of the stage-1 epoch."""
+    import torch
+    from u2mkd_tpu_torch.data import loaders
+    from u2mkd_tpu_torch.train import builder, distill, state
+
+    counts = _counters()
+    cfg, _ = _data_cfg(DATA_STAGE2, root)
+    model = builder.make_model(cfg, DEVICE, seed=DATA_SEED)
+    name, lr, kw = builder.optimizer_spec(cfg)
+    opt, sched = distill.make_frozen_teacher_optimizer(model, name, lr, **kw)
+    s_caps = tuple(cfg.student_capacities)
+    t_caps = tuple(cfg.get_path("teacher_capacities") or cfg.capacities)
+    step = distill.make_distill_train_step(
+        model, opt, s_caps, t_caps, w_kl=cfg.criterion.w_kl, w_feat=cfg.criterion.w_feat,
+        ignore_label=cfg.criterion.ignore_index, scheduler=sched,
+        generator=torch.Generator(device=DEVICE).manual_seed(DATA_SEED))
+
+    def points(batch):
+        sb, tb = batch["student"], batch["teacher"]
+        return {"student_points": int(sb["pmask"].sum()),
+                "fov_points": int((sb["pmask"] & sb["fov_mask"]).sum()),
+                "teacher_points": int(tb["pmask"].sum())}
+
+    kept, launches, summaries = {}, {}, {}
+    for tag, opts in (("serial", DATA_SERIAL), ("pipelined", DATA_PIPELINED)):
+        run_cfg, overrides = _data_cfg(DATA_STAGE2, root, *opts)
+        train_loader, val_loader = builder.make_distill_loaders(run_cfg, model)
+        kept[tag] = []
+        keep = (lambda b: kept["serial"].append(_host_copy(b))) if tag == "serial" else \
+            kept[tag].append
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counts:
+            c.launches = 0
+        rows = _data_epoch("data_student_train_step", train_loader, step,
+                           STUDENT_TRAIN_LAUNCHES, counts, points, keep)
+        launches[tag] = {c.__name__: c.launches for c in counts}
+        peak = torch.cuda.max_memory_allocated()
+        held = sum(t.untyped_storage().nbytes() for b in kept[tag] if tag == "pipelined"
+                   for t in loaders._tensors(b))
+        busy, wall = _profiled_loop(train_loader, step, DATA_PROFILED_STEPS)
+        summaries[tag] = _epoch_summary(
+            "data_student_train", tag, overrides, rows, launches[tag], peak,
+            held_for_comparison_bytes=held, profiled_steps=DATA_PROFILED_STEPS,
+            profiled_device_busy_ms=busy, profiled_wall_ms=wall)
+    equal = [_same(b, ref) for b, ref in zip(kept["pipelined"], kept["serial"])]
+    emit({"phase": "data_student_train_compare", "batches": len(equal),
+          "serial_batches": len(kept["serial"]), "equal": equal,
+          "wall_ms_median": {t: summaries[t]["warm_wall_ms_median"] for t in summaries},
+          "loader_wait_ms_median": {t: summaries[t]["warm_loader_wait_ms_median"]
+                                    for t in summaries}})
+    if not (len(equal) == len(kept["serial"]) == DATA_STEPS and all(equal)):
+        raise AssertionError("the pipelined loaders' batches differ from the serial ones")
+    del kept
+    _raw_val(model, cfg, val_loader)
+    del model, opt, step, train_loader, val_loader
+    torch.cuda.empty_cache()
+
+    cfg, overrides = _data_cfg(DATA_STAGE1, root, *DATA_STAGE1_OVERRIDES, *DATA_PIPELINED)
+    model = builder.make_model(cfg, DEVICE, seed=DATA_SEED)
+    opt, sched = builder.make_optimizer_and_schedule(cfg, model.named_parameters())
+    step = state.make_train_step(model, opt, tuple(cfg.capacities), cfg.data.ignore_label,
+                                 sched, torch.Generator(device=DEVICE).manual_seed(DATA_SEED))
+    train_loader, _ = builder.make_loaders(cfg, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counts:
+        c.launches = 0
+    rows = _data_epoch("data_train_step", train_loader, step, TRAIN_LAUNCHES, counts,
+                       lambda b: {"points": int(b["pmask"].sum())}, lambda b: None)
+    stage1 = {c.__name__: c.launches for c in counts}
+    _epoch_summary("data_train", "pipelined", overrides, rows, stage1,
+                   torch.cuda.max_memory_allocated())
+    return launches["pipelined"], stage1
+
+
+def phase_data_cli(root):
+    """The two training entry points on the set, at the configs' full
+    width with DATA_OVERRIDES and one epoch: stage 1 on DATA_STAGE1 (with
+    DATA_STAGE1_OVERRIDES), stage 2 on DATA_STAGE2 with its random-weight
+    cr_t=2.0 teacher (stage 1's
+    cr=1.0 checkpoint cannot be its teacher; phase ``cli`` checks the
+    restore). Each must exit 0 with a finite loss, a validation mIoU scored
+    on the raw points and its checkpoints. Outputs go to OUT_DIR, the run
+    directories under CLI_DIR, which is removed afterwards."""
+    import shutil
+
+    row = {"phase": "data_cli"}
+    try:
+        for tag, module, path, opts in (
+                ("stage1", "u2mkd_tpu_torch.train_spformer", DATA_STAGE1, DATA_STAGE1_OVERRIDES),
+                ("stage2", "u2mkd_tpu_torch.train_lc_nusc_tsd_full", DATA_STAGE2, ())):
+            run_dir = os.path.join(CLI_DIR, f"data_{tag}")
+            _, overrides = _data_cfg(path, root, *opts, "num_epochs=1")
+            cmd = [sys.executable, "-m", module, path, "--run-dir", run_dir, *overrides,
+                   *DATA_CLI_FLAGS]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True, timeout=600)
+            with open(os.path.join(OUT_DIR, f"data_cli_{tag}.txt"), "w") as f:
+                f.write(res.stdout)
+            epoch = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 1/1:")]
+            fields = dict(kv.split("=", 1) for kv in epoch[-1].split()[2:5]) if epoch else {}
+            raw_line = [ln for ln in res.stdout.splitlines()
+                        if ln.startswith("[val] scored on raw points:")]
+            ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
+                if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
+            row[tag] = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+                        "overrides": overrides, "steps": fields.get("steps"),
+                        "loss": float(fields.get("loss", "nan")),
+                        "miou": float(fields.get("miou", "nan")),
+                        "raw_points": raw_line[-1].split(":", 1)[1].strip() if raw_line else None,
+                        "checkpoints": ckpts}
+            if not (res.returncode == 0 and math.isfinite(row[tag]["loss"])
+                    and math.isfinite(row[tag]["miou"]) and raw_line
+                    and {"latest.pt", "max-iou-val-vox.pt"} <= set(ckpts)):
+                emit(row)
+                raise AssertionError(f"the {tag} entry point failed on the files: {row[tag]}; "
+                                     f"its output is in {OUT_DIR}/data_cli_{tag}.txt")
+        emit(row)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
     teacher's three requests "infer" and three train steps "train", the
     student's three requests "student" and its request with the teacher
     "student_teacher", the stage-2 model's three train steps
-    "student_train", K2's entry point "entry"; K1 counts its forward and
-    input-gradient launches), split in ``launches_by_path``; the other
-    numbers are from its slowest main-path-shape row in f32."""
+    "student_train", K2's entry point "entry", and the epochs from files
+    of stage 1 "data_train" and of stage 2, pipelined,
+    "data_student_train"; K1 counts its forward and input-gradient
+    launches), split in ``launches_by_path``; the other numbers are from its
+    slowest main-path-shape row in f32."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
     def paths(name, *which):
@@ -1469,15 +1872,20 @@ def kernels_line(rows, launches):
 
     by_path = {
         "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher",
-                         "student_train"),
+                         "student_train", "data_train", "data_student_train"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
-                   student_train_dx=launches["student_train"]["rulebook_conv_dx"]),
-        "K1b": paths("rulebook_conv_dw", "train", "student_train"),
+                   student_train_dx=launches["student_train"]["rulebook_conv_dx"],
+                   data_train_dx=launches["data_train"]["rulebook_conv_dx"],
+                   data_student_train_dx=launches["data_student_train"]["rulebook_conv_dx"]),
+        "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
+                     "data_student_train"),
         "K2": paths("flash_window_sorted", "entry"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
-                    "student_train"),
-        "K4": paths("flash_rpe_bwd_q", "train", "student_train"),
-        "K5": paths("flash_rpe_bwd_k", "train", "student_train"),
+                    "student_train", "data_train", "data_student_train"),
+        "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
+                    "data_student_train"),
+        "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
+                    "data_student_train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -1539,6 +1947,17 @@ def main():
     launches["student_train"] = phase_student_train()
     phase_student_grad_check()
     phase_cli()
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="nusc_files_")
+    try:
+        stats, gen_s = make_data_set(root)
+        emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})
+        launches["data_student_train"], launches["data_train"] = phase_data(root)
+        phase_data_cli(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     kernels_line(rows, launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -121,15 +121,19 @@ def test_make_model_matches_jax_tree(name):
 
 
 def test_make_model_rejects_what_the_port_lacks():
-    """Other model names, a bf16 policy and the real datasets raise, naming
-    the ROADMAP item that brings them."""
+    """Other model names, a bf16 policy and multi-host loading raise,
+    naming the ROADMAP item that brings them; the synthetic loaders refuse
+    a real dataset, which ``make_loaders`` sends to ``data/loaders.py``."""
     with pytest.raises(NotImplementedError, match="item 5"):
         builder.make_model(_synthetic("spformer_tiny.yaml", "model.name=spvcnn"), "cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         builder.make_model(_synthetic("spformer_tiny.yaml", "precision=bfloat16"), "cpu")
     cfg = _synthetic("spformer_tiny.yaml", "dataset.name=semantic_nusc")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="make_loaders"):
         builder.make_synthetic_loaders(cfg, None)
+    cfg = _synthetic("spformer_tiny.yaml", "train.multihost=true")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        builder.make_loaders(cfg, builder.make_model(cfg, "cpu"))
 
 
 @pytest.mark.parametrize("path,opts,world", [

@@ -724,3 +724,26 @@ def test_forward_kernels_occupancy(cuda_device):
             assert k3["warps_per_sm"] >= 8, (radial, dtype, k3)
             k2 = wattn_kernel.window_attention_occupancy("wattn_fwd", dtype, 16, 0, False)
             assert k2["smem_bytes"] == 0 and k2["warps_per_sm"] >= 16, (dtype, k2)
+
+
+@pytest.mark.cuda
+def test_device_loader_uploads_on_a_side_stream(cuda_device):
+    """``loaders.device_loader``: batches uploaded in the prefetch thread on
+    a side stream arrive equal to their host arrays (host-local keys left
+    as they are), in order, with no prefetch thread too; a step that reads
+    them on the default stream while later uploads run sees its own data."""
+    from u2mkd_tpu_torch.data import loaders
+
+    batches = [dict(synthetic.make_batch(np.random.RandomState(i), 1, 4096, voxel_size=0.2),
+                    infos=[{"i": i}], lidar_tokens=[f"t{i}"]) for i in range(6)]
+    for depth in (2, 0):
+        got = []
+        for b in loaders.device_loader(lambda: iter(batches), cuda_device, depth)():
+            assert b["feats"].is_cuda and b["infos"] == [{"i": len(got)}]
+            # read on the default stream after the next uploads were queued
+            got.append({k: v.cpu() for k, v in b.items() if torch.is_tensor(v)})
+        assert len(got) == len(batches)
+        for g, b in zip(got, batches):
+            assert sorted(g) == sorted(k for k in b if k not in loaders.HOST_LOCAL_KEYS)
+            for k, v in g.items():
+                assert torch.equal(v, torch.from_numpy(b[k])), k

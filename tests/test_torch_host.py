@@ -165,5 +165,6 @@ def test_port_imports_no_jax():
     assert len(imported) >= 30
     # the student's modules and the RPE-free window attention's
     for name in ("ops.hashing", "models.swiftnet", "models.fusion", "models.msp2ifm",
-                 "models.tsd", "train.distill", "ops.kernels.wattn_kernel"):
+                 "models.tsd", "train.distill", "ops.kernels.wattn_kernel", "data.loaders",
+                 "data.lc_semantic_nusc", "data.prefetch", "train.evaluator"):
         assert f"u2mkd_tpu_torch.{name}" in imported, name

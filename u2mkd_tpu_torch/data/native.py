@@ -1,7 +1,9 @@
 """ctypes binding of the native pointcore library, for the host pipeline.
 
-The port's own copy of what ``plumbing_host`` and ``wgeom_host`` need from
-``u2mkd_tpu/data/native.py``. At first use it compiles the repository's
+The port's own copy of ``u2mkd_tpu/data/native.py``: the plumbing and
+window-geometry builders that ``plumbing_host`` and ``wgeom_host`` call, and
+``dedup_first``, ``transform_points``, ``remap_labels_lut`` and
+``box_occupancy``. At first use it compiles the repository's
 ``native/pointcore.cpp`` with ``g++`` into ``u2mkd_tpu_torch/_build/``
 (listed in ``.gitignore``); it writes nothing under ``native/``. The port has
 no numpy fallback: if the library cannot be built, the host pipeline raises.
@@ -16,6 +18,9 @@ import platform
 import subprocess
 import threading
 from pathlib import Path
+from typing import Tuple
+
+import numpy as np
 
 _REPO = Path(__file__).resolve().parents[2]
 SOURCE = _REPO / "native" / "pointcore.cpp"
@@ -73,4 +78,60 @@ def _build_and_load() -> ctypes.CDLL:
     lib.build_wgeom_branch.argtypes = [
         ptr, ptr, i64, i64, ptr, ptr, i64] + [ptr] * 8
     lib.build_wgeom_branch.restype = None
+    lib.dedup_first.argtypes = [ptr, i64, ptr, ptr]
+    lib.dedup_first.restype = i64
+    lib.transform_points.argtypes = [ptr, ptr, i64, ptr]
+    lib.transform_points.restype = None
+    lib.remap_labels.argtypes = [ptr, i64, ptr, ctypes.c_int32, ptr]
+    lib.remap_labels.restype = None
+    lib.box_occupancy.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr]
+    lib.box_occupancy.restype = None
     return lib
+
+
+def dedup_first(voxel: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """First-occurrence dedup of [N, 3] integer voxel coords (torchsparse
+    ``sparse_quantize`` semantics) -> (inds: the first row of each unique
+    voxel, in scan order; inverse: each row's position in ``inds``)."""
+    v = np.ascontiguousarray(voxel, np.int32)
+    n = len(v)
+    inds = np.empty(n, np.int32)
+    inverse = np.empty(n, np.int32)
+    n_unique = load().dedup_first(v.ctypes.data, n, inds.ctypes.data, inverse.ctypes.data)
+    return inds[:n_unique].copy(), inverse
+
+
+def transform_points(tm: np.ndarray, xyz: np.ndarray) -> np.ndarray:
+    """A 4x4 homogeneous transform (float64) applied to [N, 3] points, in
+    float64, returned as float32."""
+    t = np.ascontiguousarray(tm, np.float64)
+    p = np.ascontiguousarray(xyz, np.float32)
+    out = np.empty_like(p)
+    load().transform_points(t.ctypes.data, p.ctypes.data, len(p), out.ctypes.data)
+    return out
+
+
+def remap_labels_lut(raw: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """uint8 raw labels -> int32 ``lut[raw]`` (0 where ``raw >= len(lut)``)."""
+    r = np.ascontiguousarray(raw, np.uint8)
+    table = np.ascontiguousarray(lut, np.int32)
+    out = np.empty(len(r), np.int32)
+    load().remap_labels(r.ctypes.data, len(r), table.ctypes.data, len(table), out.ctypes.data)
+    return out
+
+
+def box_occupancy(xyz: np.ndarray, labels: np.ndarray, thing_mask: np.ndarray,
+                  mn: np.ndarray, mx: np.ndarray) -> Tuple[int, int]:
+    """Points strictly inside the box (mn, mx) -> (how many carry a label
+    of ``thing_mask``, how many do not), in float32."""
+    x = np.ascontiguousarray(xyz, np.float32)
+    lb = np.ascontiguousarray(labels, np.int32)
+    tm = np.ascontiguousarray(thing_mask, np.uint8)
+    if len(lb) != len(x) or (len(lb) and not 0 <= lb.min() <= lb.max() < len(tm)):
+        raise ValueError("box_occupancy: one label per point, each an index of thing_mask")
+    lo = np.ascontiguousarray(mn, np.float32)
+    hi = np.ascontiguousarray(mx, np.float32)
+    n_thing, n_other = ctypes.c_int64(), ctypes.c_int64()
+    load().box_occupancy(x.ctypes.data, lb.ctypes.data, tm.ctypes.data, len(x), lo.ctypes.data,
+                         hi.ctypes.data, ctypes.byref(n_thing), ctypes.byref(n_other))
+    return n_thing.value, n_other.value

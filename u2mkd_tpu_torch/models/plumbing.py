@@ -59,7 +59,9 @@ def from_precomputed(arrays: Dict, pmask,
     from host arrays (``data/plumbing_host.batch_plumbing``): each entry is a
     list over levels of [B, ...] arrays. Only what the forward reads is
     copied to the device: the point maps of ``point_levels`` (a model's
-    ``point_levels``; every level by default)."""
+    ``point_levels``; every level by default). Arrays the loaders uploaded
+    already (tensors on ``device`` in the dtype each one needs) are used
+    without a copy."""
     dev = resolve_device(device)
     n_levels = len(arrays["vmask"])
     if point_levels is None:

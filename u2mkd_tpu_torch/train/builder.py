@@ -5,9 +5,9 @@ The window geometry follows the reference's ``make_model``: window_size =
 voxel_size * patch_size * window_cfg, quantized in window / quant_size_scale
 steps. The port has models for the SphereFormer teacher
 (``spvcnn_spformer``) and the stage-2 TSD student
-(``spvcnn_swiftnet18_spformer_tsd_full``), and loaders for the synthetic
-dataset; each batch comes with its host plumbing and window geometry, which
-the port's steps read.
+(``spvcnn_swiftnet18_spformer_tsd_full``), and the loaders: the synthetic
+dataset's here, the real datasets' in ``data/loaders.py``; each batch comes
+with its host plumbing and window geometry, which the port's steps read.
 """
 
 from __future__ import annotations
@@ -18,11 +18,11 @@ import numpy as np
 import torch
 
 from u2mkd_tpu_torch.core.device import resolve_device
-from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
+from u2mkd_tpu_torch.data import loaders, synthetic
 from u2mkd_tpu_torch.train import optim, schedulers
 from u2mkd_tpu_torch.utils.config import Config
 
-Loader = Callable[[], Iterator[Dict]]
+Loader = loaders.Loader
 
 
 def window_geometry(cfg: Config):
@@ -110,67 +110,82 @@ def make_optimizer_and_schedule(cfg: Config, named_params: Iterable[Tuple[str, t
 
 def _check_synthetic(cfg: Config) -> None:
     if cfg.dataset.name != "synthetic":
-        raise NotImplementedError(f"dataset {cfg.dataset.name}: the port's loaders cover the "
-                                  f"synthetic dataset only; the real datasets are ROADMAP "
-                                  f"section 1, item 3")
-
-
-def _with_plumbing(part: Dict, caps, wparams) -> Dict:
-    part["plumbing"] = plumbing_host.batch_plumbing(part["pcoords"], part["xyz"],
-                                                    part["pmask"], caps, wgeom_params=wparams)
-    return part
+        raise ValueError(f"dataset {cfg.dataset.name}: the synthetic loaders serve "
+                         f"dataset.name=synthetic; make_loaders and make_distill_loaders "
+                         f"dispatch on dataset.name")
 
 
 def make_synthetic_loaders(cfg: Config, model: torch.nn.Module,
                            seed: int = 0) -> Tuple[Loader, Loader]:
     """Synthetic train and val loaders of the teacher: callables returning
-    iterators over numpy batches (``data/synthetic.make_batch``), each with
-    its host plumbing and ``model``'s window geometry. Val draws from
+    iterators over batches (``data/synthetic.make_batch``) on ``model``'s
+    device, each with its host plumbing and ``model``'s window geometry,
+    through the real loaders' pipeline (``data/loaders.py``: the plumbing on
+    ``workers`` threads, a prefetch thread that uploads). Val draws from
     ``seed + 1``; n_val = max(2, n_train // 4)."""
     _check_synthetic(cfg)
     b, p = cfg.batch_size, cfg.dataset.num_points
     n_train = cfg.data.training_size // b
     n_val = max(2, n_train // 4)
-    caps = tuple(cfg.capacities)
-    wparams = wgeom_host.params_from_model(model)
+    workers, wproc, depth = loaders.pipeline_options(cfg)
+    stage, _ = loaders.plumbing_stages(cfg, model)
 
-    def loader(rng_seed: int, n: int) -> Iterator[Dict]:
-        rng = np.random.RandomState(rng_seed)
-        for _ in range(n):
-            yield _with_plumbing(synthetic.make_batch(rng, b, p, cfg.dataset.voxel_size),
-                                 caps, wparams)
+    def loader(rng_seed: int, n: int) -> Loader:
+        def raw() -> Iterator[Dict]:
+            rng = np.random.RandomState(rng_seed)
+            for _ in range(n):
+                yield synthetic.make_batch(rng, b, p, cfg.dataset.voxel_size)
 
-    return (lambda: loader(seed, n_train)), (lambda: loader(seed + 1, n_val))
+        return lambda: loaders.host_pipeline(stage, raw(), workers, wproc)
+
+    device = next(model.parameters()).device
+    return (loaders.device_loader(loader(seed, n_train), device, depth),
+            loaders.device_loader(loader(seed + 1, n_val), device, depth))
 
 
 def make_synthetic_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
     """Synthetic paired student/teacher loaders of the TSD stage
     (``data/synthetic.make_multimodal_batch``), seeded from
-    ``cfg.train.seed``. Train batches carry both parts' host plumbing and
-    window geometry (``model.model_s``'s and ``model.model_t``'s); val
-    batches the student's, and the teacher's only with
-    ``debug.debug_val``, as the eval step reads the teacher only then."""
+    ``cfg.train.seed``, through the real loaders' pipeline as
+    :func:`make_synthetic_loaders`, with ``model``'s plumbing stages
+    (``data/loaders.plumbing_stages``: both parts in train, the student's
+    in val unless ``debug.debug_val``)."""
     _check_synthetic(cfg)
     b, p, tp = cfg.batch_size, cfg.dataset.num_points, cfg.dataset.teacher_points
     n_train = cfg.data.training_size // b
     n_val = max(2, n_train // 4)
     seed = cfg.train.seed % (2 ** 31)
-    parts = {"student": (tuple(cfg.get_path("student_capacities") or cfg.capacities),
-                         wgeom_host.params_from_model(model.model_s)),
-             "teacher": (tuple(cfg.get_path("teacher_capacities") or cfg.capacities),
-                         wgeom_host.params_from_model(model.model_t))}
-    val_parts = ("student", "teacher") if cfg.get_path("debug.debug_val", False) \
-        else ("student",)
+    workers, wproc, depth = loaders.pipeline_options(cfg)
+    train_stage, val_stage = loaders.plumbing_stages(cfg, model)
 
-    def loader(seed_off: int, n: int, with_parts) -> Iterator[Dict]:
-        rng = np.random.RandomState(seed + seed_off)
-        for _ in range(n):
-            raw = synthetic.make_multimodal_batch(
-                rng, b, p, tp, cfg.dataset.voxel_size, num_cams=cfg.dataset.num_cams,
-                im_hw=tuple(cfg.dataset.image_size))
-            for part in with_parts:
-                _with_plumbing(raw[part], *parts[part])
-            yield raw
+    def loader(seed_off: int, n: int, stage) -> Loader:
+        def raw() -> Iterator[Dict]:
+            rng = np.random.RandomState(seed + seed_off)
+            for _ in range(n):
+                yield synthetic.make_multimodal_batch(
+                    rng, b, p, tp, cfg.dataset.voxel_size, num_cams=cfg.dataset.num_cams,
+                    im_hw=tuple(cfg.dataset.image_size))
 
-    return (lambda: loader(0, n_train, ("student", "teacher"))), \
-        (lambda: loader(1, n_val, val_parts))
+        return lambda: loaders.host_pipeline(stage, raw(), workers, wproc)
+
+    device = next(model.parameters()).device
+    return (loaders.device_loader(loader(0, n_train, train_stage), device, depth),
+            loaders.device_loader(loader(1, n_val, val_stage), device, depth))
+
+
+def make_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
+    """The teacher's train and val loaders, as the JAX package's stage-1
+    CLI picks them: the synthetic ones (seeded from ``cfg.train.seed``) for
+    ``dataset.name=synthetic``, else ``data/loaders.make_loaders`` (seed 0)."""
+    if cfg.dataset.name == "synthetic":
+        return make_synthetic_loaders(cfg, model, seed=cfg.train.seed % (2 ** 31))
+    return loaders.make_loaders(cfg, model)
+
+
+def make_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
+    """The stage-2 train and val loaders, as the JAX package's stage-2 CLI
+    picks them: the synthetic ones for ``dataset.name=synthetic``, else
+    ``data/loaders.make_distill_loaders`` (seed 0)."""
+    if cfg.dataset.name == "synthetic":
+        return make_synthetic_distill_loaders(cfg, model)
+    return loaders.make_distill_loaders(cfg, model)

@@ -6,12 +6,10 @@ Replaces torchpack's ``Trainer.train_with_defaults`` with its ``MeanIoU``,
 one Python loop over the port's train and eval steps on one device, a JSONL
 metric log (and TensorBoard's, where installed), per-class IoU tables, and
 the mean eval time with the reference's warm-up trim (``InferTime``).
-
-Not ported here: the raw-point scoring of the JAX loop (``RawSpec``), which
-reads the devoxelize information the real datasets attach to a batch, waits
-for those datasets (ROADMAP section 1, item 3): the synthetic batches carry
-none, and the JAX loop scores them on their padded points as this one does.
-Data parallelism is ROADMAP section 1, item 6.
+Validation scores every raw point of a real dataset's scans, devoxelized
+through the inverse maps its batches carry (:class:`RawSpec`), and the
+padded points of batches that carry none (the synthetic ones), as the JAX
+loop does. Data parallelism is ROADMAP section 1, item 6.
 """
 
 from __future__ import annotations
@@ -19,11 +17,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from u2mkd_tpu_torch.train import evaluator as E
 from u2mkd_tpu_torch.train import metrics as M
 from u2mkd_tpu_torch.train.checkpoints import CheckpointManager, training_state
 
@@ -72,6 +71,25 @@ def format_iou_table(per_class: np.ndarray, miou: float,
     return "\n".join(lines)
 
 
+class RawSpec(NamedTuple):
+    """One raw-point scoring rule for ``Trainer.evaluate``.
+
+    counts_key:  counter dict in the totals to accumulate into.
+    logits_key:  eval-step output holding padded per-voxel logits [B, P, C].
+    info_key:    sub-entry of ``batch['infos'][i]`` holding the devox info
+                 (None -> the info dict itself; "student" for distill
+                 batches), also selects the sub-batch carrying ``pmask``.
+    filter_key:  optional boolean raw-cloud mask inside the info to restrict
+                 scoring (e.g. "keyframe_mask_full" for multisweep teachers,
+                 "fov_full" for the student pixel head).
+    """
+
+    counts_key: str
+    logits_key: str
+    info_key: Optional[str] = None
+    filter_key: Optional[str] = "keyframe_mask_full"
+
+
 class Trainer:
     """Epoch loop over the port's train and eval steps.
 
@@ -79,9 +97,13 @@ class Trainer:
     each epoch. ``eval_counts_key`` names the counter dict of the eval
     step's output whose mIoU picks the best checkpoint (``counts_vox`` for
     the stage-2 student); ``extra_count_keys`` are scored and logged too.
-    A checkpoint holds the model, ``optimizer``, ``scheduler`` and the
-    step's ``generator`` (:func:`checkpoints.training_state`); a resumed run
-    passes its step as ``start_step``."""
+    With ``eval_raw_points``, a val batch that carries devoxelize
+    information (``infos``) is scored on its raw points by ``raw_specs``
+    (by default ``eval_counts_key`` on ``logits``, keyframe points only);
+    the other counters come from the eval step. A checkpoint holds the
+    model, ``optimizer``, ``scheduler`` and the step's ``generator``
+    (:func:`checkpoints.training_state`); a resumed run passes its step as
+    ``start_step``."""
 
     def __init__(self, run_dir: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  scheduler, generator: Optional[torch.Generator], train_step: Callable,
@@ -89,7 +111,8 @@ class Trainer:
                  val_loader: Callable[[], Iterable], num_epochs: int, num_classes: int,
                  ignore_label: int = 0, class_names: Optional[List[str]] = None,
                  eval_counts_key: str = "counts", extra_count_keys: Iterable[str] = (),
-                 epoch_to_save: int = 0, log_every: int = 10, start_step: int = 0):
+                 epoch_to_save: int = 0, log_every: int = 10, start_step: int = 0,
+                 eval_raw_points: bool = True, raw_specs: Optional[List[RawSpec]] = None):
         self.run_dir = os.path.abspath(run_dir)
         os.makedirs(self.run_dir, exist_ok=True)
         self.model, self.optimizer = model, optimizer
@@ -106,23 +129,68 @@ class Trainer:
         self.ckpt = CheckpointManager(self.run_dir, epoch_to_save=epoch_to_save)
         self.log_every = log_every
         self.global_step = start_step
+        self.eval_raw_points = eval_raw_points
+        self.raw_specs = raw_specs or [RawSpec(eval_counts_key, "logits", None,
+                                               "keyframe_mask_full")]
 
     def state(self) -> Dict:
         return training_state(self.model, self.optimizer, self.scheduler, self.generator,
                               self.global_step)
+
+    def _spec_info(self, batch, spec: RawSpec, i: int):
+        info = batch["infos"][i]
+        if info is not None and spec.info_key is not None:
+            info = info.get(spec.info_key)
+        return info
+
+    def _raw_point_counts(self, out, batch, spec: RawSpec) -> Dict[str, np.ndarray]:
+        """The reference's eval semantics: logits devoxelized to the raw
+        cloud through the stored inverse maps, the spec's raw-cloud filter
+        applied (keyframe points for multisweep teachers, FOV for the
+        student pixel head), every raw point scored against its own label
+        (``spformer_trainer.py:96-115``, ``nusc_trainers.py:368-390``)."""
+        sub = batch if spec.info_key is None else batch[spec.info_key]
+        logits = E.host_array(out[spec.logits_key])
+        pmasks = E.host_array(sub["pmask"])
+        total = {k: np.zeros(self.num_classes, np.int64) for k in ("seen", "correct", "positive")}
+        for i in range(len(batch["infos"])):
+            info = self._spec_info(batch, spec, i)
+            raw_logits = E.devoxelize_predictions(logits[i], pmasks[i], info)
+            pred = np.argmax(raw_logits, axis=-1)
+            labels = info["labels_full"]
+            keep = labels != self.ignore_label
+            if spec.filter_key is not None:
+                filt = info.get(spec.filter_key)
+                if filt is not None:
+                    keep &= filt.astype(bool)
+            total["seen"] += np.bincount(labels[keep], minlength=self.num_classes)
+            total["positive"] += np.bincount(pred[keep], minlength=self.num_classes)
+            agree = keep & (pred == labels)
+            total["correct"] += np.bincount(labels[agree], minlength=self.num_classes)
+        return total
 
     def evaluate(self) -> Dict[str, float]:
         keys = (self.eval_counts_key,) + self.extra_count_keys
         totals = {k: {n: np.zeros(self.num_classes, np.int64)
                       for n in ("seen", "correct", "positive")} for k in keys}
         infer_times = []
+        raw_keys = set()
         for batch in self.val_loader():
             t0 = time.perf_counter()
             out = self.eval_step(batch)
             counts = {k: {n: v.cpu().numpy() for n, v in out[k].items()} for k in keys}
             infer_times.append(time.perf_counter() - t0)
+            use_raw = (self.eval_raw_points and batch.get("infos")
+                       and self._spec_info(batch, self.raw_specs[0], 0) is not None
+                       and all(s.logits_key in out for s in self.raw_specs))
+            if use_raw:
+                for spec in self.raw_specs:
+                    raw_keys.add(spec.counts_key)
+                    counts[spec.counts_key] = self._raw_point_counts(out, batch, spec)
             for k in keys:
                 totals[k] = {n: totals[k][n] + counts[k][n] for n in totals[k]}
+        if raw_keys:
+            print(f"[val] scored on raw points: {', '.join(sorted(raw_keys))}")
         results = {}
         for k, counts in totals.items():
             miou, per_class = M.compute_miou(counts, self.ignore_label)

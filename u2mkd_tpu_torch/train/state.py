@@ -24,9 +24,12 @@ def batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
 
     ``batch`` holds numpy arrays (``feats``, ``pmask``, ``keyframe_mask``,
     ``labels``, and ``pcoords``/``xyz``) as ``data/synthetic.make_batch``
-    gives them; with a ``plumbing`` entry (``plumbing_host.batch_plumbing``)
-    the host build is skipped. The window geometry and the levels whose
-    point maps the plumbing carries are ``model``'s."""
+    gives them, or tensors, as the loaders upload them
+    (``data/loaders.to_device``): a tensor already on ``model``'s device in
+    the dtype asked for is used as it is, with no second copy. With a
+    ``plumbing`` entry (``plumbing_host.batch_plumbing``) the host build is
+    skipped. The window geometry and the levels whose point maps the
+    plumbing carries are ``model``'s."""
     device = next(model.parameters()).device
     wparams = wgeom_host.params_from_model(model)
 

@@ -2,8 +2,11 @@
 from the frozen teacher (TSD; counterpart of the root
 ``train_lc_nusc_tsd_full.py``, without its multihost flags).
 
-Paired student/teacher batches, the five-term distillation loss, voxel and
-pixel mIoU validation (the best checkpoint follows the voxel head's). The
+Paired student/teacher batches (``dataset.name``: the synthetic dataset, or
+``lc_semantic_nusc_tsd_full`` on nuScenes files under ``dataset.root``), the
+five-term distillation loss, voxel and pixel mIoU validation on every raw
+point of a real dataset's scans (the best checkpoint follows the voxel
+head's). The
 frozen teacher comes from a stage-1 checkpoint of the port through the
 dotted option ``model.teacher_pretrain=PATH``; ``model.pretrain_weight``
 loads a backbone without its classifier; ``--weight-path`` resumes a run.
@@ -14,6 +17,9 @@ the card unless ``--cpu`` is given.
 Usage:
   python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full configs/synthetic/train/tsd_tiny.yaml \\
       --run-dir RUN [--weight-path CKPT] [--cpu] [model.teacher_pretrain=CKPT] [k.e.y=value ...]
+  python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full \\
+      configs/nuscenes/train/spformer_tsd_full_ours_star.yaml --run-dir RUN \\
+      dataset.root=/data/nuscenes model.teacher_pretrain=CKPT
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(seed)
     s_caps = tuple(cfg.get_path("student_capacities") or cfg.capacities)
     t_caps = tuple(cfg.get_path("teacher_capacities") or cfg.capacities)
-    train_loader, val_loader = builder.make_synthetic_distill_loaders(cfg, model)
+    train_loader, val_loader = builder.make_distill_loaders(cfg, model)
     if cfg.get_path("model.imagenet_pretrain"):
         raise NotImplementedError("model.imagenet_pretrain: the ImageNet ResNet importer is "
                                   "ROADMAP section 1, item 5")
@@ -87,6 +93,13 @@ def main(argv=None):
         eval_counts_key="counts_vox",
         extra_count_keys=("counts_pix",) + (("counts_teacher",) if debug_val else ()),
         epoch_to_save=cfg.get_path("epoch_to_save", 0), start_step=start_step,
+        # raw-cloud scoring as the reference (nusc_trainers.py:368-390): the
+        # voxel head's logits devoxelized to every raw point, the pixel
+        # head's to the raw points in a camera's view; batches without
+        # devoxelize information (synthetic) are scored on their padded points
+        eval_raw_points=bool(cfg.get_path("eval.raw_points", True)),
+        raw_specs=[loop.RawSpec("counts_vox", "logits", "student", None),
+                   loop.RawSpec("counts_pix", "logits_pix", "student", "fov_full")],
     ).train()
 
 

@@ -2,13 +2,17 @@
 ``train_spformer.py``, without its multihost flags).
 
 Loads a recursive YAML config with dotted overrides, builds the teacher, its
-optimizer and schedule and the loaders, and runs the epoch loop with mIoU
-validation and the ``latest`` / ``max-iou-val-vox`` checkpoints under
+optimizer and schedule and the loaders (``dataset.name``: the synthetic
+dataset, or nuScenes, SemanticKITTI or Waymo files under ``dataset.root``),
+and runs the epoch loop with mIoU validation (on every raw point of a real
+dataset's scans) and the ``latest`` / ``max-iou-val-vox`` checkpoints under
 ``--run-dir``. Runs on the card unless ``--cpu`` is given.
 
 Usage:
   python -m u2mkd_tpu_torch.train_spformer configs/synthetic/train/spformer_tiny.yaml \\
       --run-dir RUN [--weight-path RUN/checkpoints/latest.pt] [--cpu] [k.e.y=value ...]
+  python -m u2mkd_tpu_torch.train_spformer configs/nuscenes/train/spformer.yaml \\
+      --run-dir RUN dataset.root=/data/nuscenes
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def main(argv=None):
     optimizer, scheduler = builder.make_optimizer_and_schedule(cfg, model.named_parameters())
     generator = torch.Generator(device=device).manual_seed(seed)
     caps = tuple(cfg.capacities)
-    train_loader, val_loader = builder.make_synthetic_loaders(cfg, model, seed=seed)
+    train_loader, val_loader = builder.make_loaders(cfg, model)
     start_step = 0
     if args.weight_path:
         start_step = checkpoints.load_training_state(checkpoints.load(args.weight_path), model,
