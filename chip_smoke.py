@@ -45,7 +45,11 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      bf16, with the jagged ``scaled_dot_product_attention`` as the library
      yardstick and the compiled ``flex_attention`` with a document mask as
      a second one) are in phase 2;
-  9. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
+  9. conv_only: the conv-only SPVCNN (``SPVCNN(sphereformer=False)``,
+     cr=1.0, P=131072, no window geometry): three requests (34 K1 launches
+     each, no K3), one held to the plain versions, one train step (K1, K1
+     as dX, K1b) with a finite loss;
+ 10. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
      cr_t=2.0; P=65536, capacities (65536 ... 4096), 6 cameras at 360x640,
      B=1) through ``train.distill.make_distill_eval_step`` without the
      teacher, counting K1 and K3 launches; three more under
@@ -54,19 +58,26 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      with the teacher (cr_t=2.0 on its own 131072-point cloud), then again
      with every K1 and K3 launch held to its plain version on the same
      arguments, and again through the plain versions (both models' logits);
- 10. student train: three stage-2 distillation train steps
+ 11. import: a reference-schema ``SPVCNN_SPFORMER`` checkpoint at cr_t=2.0
+     and a torchvision-schema ResNet-18 (122 entries), written from those
+     architectures with seeded values, imported into the student's teacher
+     (``checkpoints.load_teacher_any``) and image branch
+     (``convert_weights.load_imagenet_pretrain``, 100 tensors); a request
+     with the imported teacher held to the plain versions; a teacher file
+     with one key missing must raise;
+ 12. student train: three stage-2 distillation train steps
      (``train.distill.make_distill_train_step``: the student at P=65536 with
      3 cameras at 360x640, the frozen cr_t=2.0 teacher on its 131072-point
      cloud, ``sgd_spformer`` at lr 0.02) with host ms, device ms, the five
      loss terms and launches per step, the teacher bitwise frozen, the peak
      device memory; then two more steps under ``torch.profiler``;
- 11. student grad check: phase 7's two checks on one stage-2 train step;
- 12. cli: ``python -m u2mkd_tpu_torch.train_spformer`` on the tiny synthetic
+ 13. student grad check: phase 7's two checks on one stage-2 train step;
+ 14. cli: ``python -m u2mkd_tpu_torch.train_spformer`` on the tiny synthetic
      teacher config at cr=0.5, then ``python -m
      u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
      that run's checkpoint as its frozen teacher: losses finite, validation
      mIoU and checkpoints written, the teacher restored bitwise;
- 13. data: a nuScenes-format set from ``tools/make_nusc_mini.py`` in a
+ 15. data: a nuScenes-format set from ``tools/make_nusc_mini.py`` in a
      temporary directory (2 train and 1 val scene of 3 keyframes, 34720
      points a scan, 6 cameras); one epoch (6 steps) of the stage-2 train
      step from ``make_distill_loaders`` on
@@ -75,17 +86,24 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      batches prefetched and uploaded on a side stream): per step the wall
      ms, the loader wait, the host build ms and the valid points, the
      batches of the two runs equal, the launches 68 / 33 / 34 / 16 / 8 / 8,
-     the losses finite, the peak memory, and each loader's profiled busy
-     share of the loop; a val pass scored on the raw points beside the
-     padded voxels; one epoch of the stage-1 step from ``make_loaders`` on
-     ``spformer.yaml``;
- 14. data_cli: both training entry points on that set at full width, one
-     epoch each (stage 2 with its random-weight cr_t=2.0 teacher): finite
-     losses, a raw-point mIoU, checkpoints.
+     the losses finite, the capacity counters free of violations, the peak
+     memory, and each loader's profiled busy share of the loop; a val pass
+     scored on the raw points beside the padded voxels; a step with the
+     student's level-0 capacity planted below its voxels, whose counters
+     must show it and which the loop must refuse under ``strict_capacity``;
+     one epoch of the stage-1 step from ``make_loaders`` on
+     ``spformer.yaml``, its counters free of violations too;
+ 16. data_cli: both training entry points on that set at full width, one
+     epoch each (stage 2 with phase 11's files as its cr_t=2.0 teacher and
+     its ImageNet start): finite losses, a raw-point mIoU, checkpoints;
+ 17. evaluate: ``python -m u2mkd_tpu_torch.evaluate`` on both runs'
+     checkpoints with one vote and three: one vote gives the mIoU the
+     training run printed, the three views of each scan differ; wall s,
+     requests, K1 and K3 launches per request, peak memory.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero without that line. Long outputs (the compiler's register counts,
+Then the command's wall time, a ``{"kernels": [...]}`` line, the card's name
+and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero without that line. Long outputs (the compiler's register counts,
 the profiler's table) go to ``chiprun_out/``.
 """
 
@@ -216,6 +234,26 @@ DATA_SEED = 31
 DATA_STEPS = 6   # one epoch of the 6 train keyframes at B=1
 DATA_PROFILED_STEPS = 4  # steps of each loader's profiled loop, after its first batch
 DATA_CLI_FLAGS = ()  # flags of the data_cli phase's entry points (none: the card)
+# the reference-schema files of the import phase (written on the machine
+# from REFERENCE_SEED), whose teacher the stage-2 data_cli run also takes;
+# torchvision's ResNet-18 holds 102 tensors, of which the image branch takes
+# all but fc.weight and fc.bias
+REFERENCE_SEED = 61
+RESNET_MATCHED = 100
+# the conv-only SPVCNN at cr=1.0: the teacher's 34 ks=3 convs and no
+# attention; its train step 33 input gradients (none for the stem's first
+# conv) and 34 weight gradients
+CONV_ONLY_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 0, "rulebook_conv_dw": 0,
+                      "flash_rpe_fwd": 0}
+CONV_ONLY_TRAIN_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 33,
+                            "rulebook_conv_dw": 34, "flash_rpe_fwd": 0}
+# the planted capacity overflow: the stage-2 student's level-0 capacity
+# below the ~28k valid voxels of a scan of the set
+PLANTED_STUDENT_CAPS = (16384, 16384, 16384, 8192, 4096)
+# the evaluation entry point: one vote and EVAL_VOTES; each request of
+# either stage runs one model (the teacher, or the student alone)
+EVAL_VOTES = 3
+EVAL_LAUNCHES = {"rulebook_conv": 34, "flash_rpe_fwd": 8}
 # K2's main-path shape: the teacher's level-1 voxels (N = 65536 capacity),
 # h=4, d=16; the level's cubic windows (6 voxels of 0.1 m) and sphere
 # windows on cart2sphere coordinates
@@ -1351,6 +1389,274 @@ def phase_student_with_teacher(model):
     return launches
 
 
+def reference_teacher_state_dict(cr, num_classes, in_channel=4, head_dim=16, g_cubic=24,
+                                 g_sphere=24, seed=0):
+    """A state dict with the keys and shapes that the reference's
+    ``SPVCNN_SPFORMER.state_dict()`` has, written out from its architecture
+    (``spvcnn_spformer.py:36-117``, ``build_blocks.py:21-84``,
+    ``spherical_transformer.py:112-180,286-332``): torchsparse kernels
+    [27 or 8, Cin, Cout] ([Cin, Cout] for the 1x1 shortcuts), BN with
+    ``num_batches_tracked``, qkv/proj/MLP ``Linear``s, cubic RPE tables
+    [2G-1, 3, h//2, d] and sphere ones [2G, 3, h - h//2, d]. Not from the
+    port's importer, whose key map it tests. Values drawn from ``seed`` at a
+    trained model's scales (kernels and weights over the square root of
+    their fan-in, BN near identity, RPE tables at 0.02)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    cs = [int(cr * x) for x in (32, 32, 64, 128, 256, 256, 128, 96, 96)]
+    sd = {}
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    def kernel(*shape):
+        bound = float(np.prod(shape[:-1])) ** -0.5
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * bound
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = 1.0 + normal(c, scale=0.1)
+        sd[f"{prefix}.bias"] = normal(c, scale=0.1)
+        sd[f"{prefix}.running_mean"] = normal(c, scale=0.1)
+        sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+
+    def linear(prefix, cin, cout):
+        sd[f"{prefix}.weight"] = normal(cout, cin, scale=cin ** -0.5)
+        sd[f"{prefix}.bias"] = normal(cout, scale=0.1)
+
+    def res_block(prefix, cin, cout):
+        sd[f"{prefix}.net.0.kernel"] = kernel(27, cin, cout)
+        bn(f"{prefix}.net.1", cout)
+        sd[f"{prefix}.net.3.kernel"] = kernel(27, cout, cout)
+        bn(f"{prefix}.net.4", cout)
+        if cin != cout:
+            sd[f"{prefix}.downsample.0.kernel"] = kernel(cin, cout)
+            bn(f"{prefix}.downsample.1", cout)
+
+    sd["stem.0.kernel"] = kernel(27, in_channel, cs[0])
+    bn("stem.1", cs[0])
+    sd["stem.3.kernel"] = kernel(27, cs[0], cs[0])
+    bn("stem.4", cs[0])
+    for i in range(4):
+        sd[f"vox_downs.{i}.0.net.0.kernel"] = kernel(8, cs[i], cs[i])
+        bn(f"vox_downs.{i}.0.net.1", cs[i])
+        res_block(f"vox_downs.{i}.1", cs[i], cs[i + 1])
+        res_block(f"vox_downs.{i}.2", cs[i + 1], cs[i + 1])
+    for i in range(4):
+        c, t = cs[i + 1], f"transformer_blocks.{i}"
+        h = c // head_dim
+        for norm in ("norm1", "norm2"):
+            sd[f"{t}.{norm}.weight"] = 1.0 + normal(c, scale=0.1)
+            sd[f"{t}.{norm}.bias"] = normal(c, scale=0.1)
+        linear(f"{t}.attn.qkv", c, 3 * c)
+        linear(f"{t}.attn.proj", c, c)
+        for name in ("query", "key", "value"):
+            sd[f"{t}.attn.relative_pos_{name}_table"] = normal(
+                2 * g_cubic - 1, 3, h // 2, head_dim, scale=0.02)
+            sd[f"{t}.attn.relative_pos_{name}_table_sphere"] = normal(
+                2 * g_sphere, 3, h - h // 2, head_dim, scale=0.02)
+        linear(f"{t}.mlp.fc1", c, 4 * c)
+        linear(f"{t}.mlp.fc2", 4 * c, c)
+    for i, skip in enumerate((cs[3], cs[2], cs[1], cs[0])):
+        sd[f"vox_ups.{i}.0.net.0.kernel"] = kernel(8, cs[4 + i], cs[5 + i])
+        bn(f"vox_ups.{i}.0.net.1", cs[5 + i])
+        res_block(f"vox_ups.{i}.1.0", cs[5 + i] + skip, cs[5 + i])
+        res_block(f"vox_ups.{i}.1.1", cs[5 + i], cs[5 + i])
+    for i, (cin, cout) in enumerate(((cs[0], cs[4]), (cs[4], cs[6]), (cs[6], cs[8]))):
+        linear(f"point_transforms.{i}.0", cin, cout)
+        bn(f"point_transforms.{i}.1", cout)
+    linear("classifier_vox.0", cs[8], num_classes)
+    return sd
+
+
+def torchvision_resnet18_state_dict(seed=0):
+    """The 122 entries of torchvision's ``resnet18-5c106cde.pth``, written
+    out from torchvision's ResNet-18 (a 7x7 stem, four stages of two basic
+    blocks at 64-512 channels, 1x1 downsamples at stages 2-4, the 1000-way
+    ``fc``), with ``num_batches_tracked`` per BN; no torchvision needed.
+    Values drawn from ``seed``: convolutions He-normal over their fan-out,
+    BN near identity."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name] = torch.randn(cout, cin, k, k, generator=gen) * (2.0 / (cout * k * k)) ** 0.5
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for li, planes in enumerate((64, 128, 256, 512), start=1):
+        for bi in range(2):
+            t = f"layer{li}.{bi}"
+            conv(f"{t}.conv1.weight", planes, cin, 3)
+            bn(f"{t}.bn1", planes)
+            conv(f"{t}.conv2.weight", planes, planes, 3)
+            bn(f"{t}.bn2", planes)
+            if bi == 0 and cin != planes:
+                conv(f"{t}.downsample.0.weight", planes, cin, 1)
+                bn(f"{t}.downsample.1", planes)
+            cin = planes
+    sd["fc.weight"] = torch.randn(1000, 512, generator=gen) * 512 ** -0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def write_reference_weights(out_dir):
+    """The two reference-schema files of the ``import`` and ``data_cli``
+    phases, under ``out_dir``: the stage-2 config's cr_t=2.0 teacher (17
+    classes, 4 input channels, head dim 16, 24 quantization steps per
+    window, as ``spformer_tsd_full_ours_star.yaml`` has them) and the
+    ResNet-18 -> ({"teacher": path, "resnet": path}, their tensors)."""
+    import torch
+
+    sds = {"teacher": reference_teacher_state_dict(CR_T, NUM_CLASSES, seed=REFERENCE_SEED),
+           "resnet": torchvision_resnet18_state_dict(seed=REFERENCE_SEED)}
+    paths = {"teacher": os.path.join(out_dir, "max-iou-val-vox.pt"),
+             "resnet": os.path.join(out_dir, "resnet18-5c106cde.pth")}
+    # the teacher as a reference trainer's checkpoint ships it: {'model': module.*}
+    torch.save({"model": {f"module.{k}": v for k, v in sds["teacher"].items()}},
+               paths["teacher"])
+    torch.save(sds["resnet"], paths["resnet"])
+    return paths, sds
+
+
+def phase_import(model, out_dir):
+    """The importers on the card: the reference-schema teacher into
+    ``model.model_t`` through ``checkpoints.load_teacher_any`` and the
+    ResNet-18 into the student's image branch through
+    ``convert_weights.load_imagenet_pretrain`` (matched and leftover
+    counts); one student request with the imported teacher, its K1 and K3
+    launches, held to the same request through the plain versions (both
+    models' logits); and a copy of the teacher file without one key, which
+    must raise. -> (the files' paths, the request's launches)."""
+    import torch
+    from u2mkd_tpu_torch.models import convert_weights
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+    from u2mkd_tpu_torch.train import checkpoints, distill
+
+    t0 = time.perf_counter()
+    paths, sds = write_reference_weights(out_dir)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info = checkpoints.load_teacher_any(paths["teacher"], model)
+    teacher_s = time.perf_counter() - t0
+    resnet_n = convert_weights.load_imagenet_pretrain(paths["resnet"], model.model_s)
+    classifier = sds["teacher"]["classifier_vox.0.weight"].to(DEVICE)
+    row = {"phase": "import", "teacher_file_tensors": len(sds["teacher"]),
+           "teacher_matched": len(info["loaded"]), "teacher_leftover": len(info["leftover"]),
+           "resnet_file_entries": len(sds["resnet"]), "resnet_matched": resnet_n,
+           "resnet_leftover": len(sds["resnet"]) - resnet_n,
+           "write_s": write_s, "load_teacher_any_s": teacher_s,
+           "teacher_classifier_equal": bool(torch.equal(
+               model.model_t.classifier_vox.weight, classifier))}
+
+    bad = dict(sds["teacher"])
+    del bad["transformer_blocks.1.attn.qkv.weight"]
+    bad_path = os.path.join(out_dir, "missing_key.pt")
+    torch.save(bad, bad_path)
+    try:
+        checkpoints.load_teacher_any(bad_path, model)
+        row["missing_key_raised"] = None
+    except ValueError as e:
+        row["missing_key_raised"] = str(e)[:120]
+    finally:
+        os.remove(bad_path)
+    emit(row)
+    if not (row["teacher_matched"] == len(model.model_t.state_dict())
+            and row["teacher_leftover"] == 0 and row["resnet_matched"] == RESNET_MATCHED
+            and row["teacher_classifier_equal"] and row["missing_key_raised"]):
+        raise AssertionError(f"the reference weights did not import as they should: {row}")
+
+    eval_fn = distill.make_distill_eval_step(model, STUDENT_CAPS, CAPS, NUM_CLASSES,
+                                             run_teacher=True)
+    raw, host_ms = student_batch(STUDENT_SEEDS[1], model, with_teacher=True)
+    torch.cuda.synchronize()
+    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd)
+    for c in counters:
+        c.launches = 0
+    out, device_ms, wall_ms = _timed(eval_fn, raw)
+    launches = {c.__name__: c.launches for c in counters}
+    if launches != WITH_TEACHER_LAUNCHES:
+        raise AssertionError(f"expected {WITH_TEACHER_LAUNCHES} launches: {launches}")
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    heads = _student_heads(raw) + (
+        ("teacher", "logits_teacher", torch.as_tensor(raw["teacher"]["pmask"], device=DEVICE)),)
+    _held_to_plain({"phase": "import_plain_check", "points": STUDENT_P, "teacher_points": P,
+                    "host_ms": host_ms, "device_ms": device_ms, "wall_ms": wall_ms,
+                    "plain_wall_s": plain_s, "launches": launches}, out, plain, heads)
+    return paths, launches
+
+
+def phase_conv_only():
+    """The conv-only SPVCNN (``SPVCNN(sphereformer=False)``, cr=1.0, no
+    window geometry) at P: three requests with their device ms and launches
+    (K1 only), one held to the plain versions, and one train step (K1
+    forward and as dX, K1b) with a finite loss. -> the requests' launches
+    and the step's."""
+    import torch
+    from u2mkd_tpu_torch.models.spvcnn import SPVCNN
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+    from u2mkd_tpu_torch.train import optim, state
+
+    model = SPVCNN(num_classes=NUM_CLASSES, cr=1.0, sphereformer=False,
+                   generator=torch.Generator().manual_seed(0)).to(DEVICE).eval()
+    eval_fn = state.make_eval_step(model, CAPS, NUM_CLASSES)
+    batches = [(seed, *host_batch(seed, model)) for seed in SEEDS]
+    if any("wgeom" in raw["plumbing"] for _, raw, _ in batches):
+        raise AssertionError("the conv-only model's batches carry window geometry")
+    torch.cuda.synchronize()
+    counters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw, W.flash_rpe_fwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for seed, raw, host_ms in batches:
+        before = [c.launches for c in counters]
+        out, device_ms, wall_ms = _timed(eval_fn, raw)
+        row = {"phase": "conv_only_request", "seed": seed, "points": P,
+               "valid_points": int(raw["pmask"].sum()), "host_ms": host_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms,
+               "finite": bool(torch.isfinite(out["logits"]).all().item()),
+               "launches": {c.__name__: c.launches - b for c, b in zip(counters, before)}}
+        emit(row)
+        if not row["finite"] or row["launches"] != CONV_ONLY_LAUNCHES:
+            raise AssertionError(f"expected finite logits and {CONV_ONLY_LAUNCHES}: {row}")
+        rows.append((row, out))
+    requests = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    seed, raw, _ = batches[0]
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    _held_to_plain({"phase": "conv_only_plain_check", "seed": seed, "points": P,
+                    "plain_wall_s": plain_s}, rows[0][1], plain,
+                   (("vox", "logits", torch.as_tensor(raw["pmask"], device=DEVICE)),))
+
+    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd", LR)
+    step_fn = state.make_train_step(model, opt, CAPS,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(0))
+    for c in counters:
+        c.launches = 0
+    out, device_ms, wall_ms = _timed(step_fn, batches[1][1])
+    step = {c.__name__: c.launches for c in counters}
+    row = {"phase": "conv_only_train_step", "points": P, "device_ms": device_ms,
+           "wall_ms": wall_ms, "loss": out["loss"].item(), "launches": step,
+           "request_device_ms": [r["device_ms"] for r, _ in rows],
+           "request_max_memory_allocated_bytes": peak}
+    emit(row)
+    if not math.isfinite(row["loss"]) or step != CONV_ONLY_TRAIN_LAUNCHES:
+        raise AssertionError(f"expected a finite loss and {CONV_ONLY_TRAIN_LAUNCHES}: {row}")
+    return requests, step
+
+
 def _student_train_setup(seed, generator_seed):
     """The stage-2 model (``tsd_model``, cr=1.0, cr_t=CR_T), ``sgd_spformer``
     at LR over the student's parameters (the teacher frozen), and its
@@ -1721,6 +2027,81 @@ def _raw_val(model, cfg, val_loader):
         raise AssertionError(f"the raw-point validation scored nothing: {row}")
 
 
+def _saturated(plumbing):
+    """The levels of a batch's plumbing whose voxel grid is full in some
+    sample (where the host pipeline may have dropped voxels), counted on the
+    host from its masks: the independent count of what the step's
+    ``overflow/violations`` counter reports."""
+    return sum(int(m.sum(-1).max() >= m.shape[-1])
+               for m in (np.asarray(_host_copy(v)) for v in plumbing["vmask"]))
+
+
+def _violations_as_counted(phase, rows):
+    """Every step row's ``overflow/violations`` (the step's counter,
+    ``train/overflow.py``) equals the saturated levels counted on the host
+    (``saturated_levels``); the counts and each level's fill are emitted
+    with the phase."""
+    fills = sorted({k for r in rows for k in r if k.startswith("overflow/vox_fill")})
+    emit({"phase": f"{phase}_capacity", "steps": len(rows),
+          "violations": [r["overflow/violations"] for r in rows],
+          "fill_max": {k: max(r[k] for r in rows) for k in fills}})
+    bad = [r for r in rows if r["overflow/violations"] != r["saturated_levels"]]
+    if bad:
+        raise AssertionError(f"the capacity counters disagree with the host's count: {bad}")
+
+
+def _planted_overflow(model, opt, sched, cfg, batch):
+    """One stage-2 step on a batch of the set whose student plumbing is
+    rebuilt at PLANTED_STUDENT_CAPS (level 0 below the scan's valid
+    voxels), through the loop with ``strict_capacity`` and a check every
+    step: the counters must show the student's level 0 full (which it is
+    not at the configs' capacities) and violations, and the loop must
+    fail."""
+    import shutil
+
+    import torch
+    from u2mkd_tpu_torch.train import distill, loop
+
+    t_caps = tuple(cfg.get_path("teacher_capacities") or cfg.capacities)
+    step = distill.make_distill_train_step(
+        model, opt, PLANTED_STUDENT_CAPS, t_caps, w_kl=cfg.criterion.w_kl,
+        w_feat=cfg.criterion.w_feat, ignore_label=cfg.criterion.ignore_index, scheduler=sched,
+        generator=torch.Generator(device=DEVICE).manual_seed(DATA_SEED), overflow_checks=True)
+    seen = []
+
+    def recorded(b):
+        aux = step(b)
+        seen.append({k: v.item() for k, v in aux.items() if k.startswith("overflow/")})
+        return aux
+
+    run_dir = os.path.join(CLI_DIR, "planted")
+    level0 = np.asarray(batch["student"]["plumbing"]["vmask"][0])
+    row = {"phase": "data_planted_overflow", "student_capacities": PLANTED_STUDENT_CAPS,
+           "valid_student_points": int(batch["student"]["pmask"].sum()),
+           "fill_l0_at_config": float(level0.sum(-1).max() / level0.shape[-1])}
+    # the student's plumbing built anew by the step, at the planted capacities
+    batch = dict(batch, student={k: v for k, v in batch["student"].items() if k != "plumbing"})
+    trainer = loop.Trainer(
+        run_dir=run_dir, model=model, optimizer=opt, scheduler=sched, generator=None,
+        train_step=recorded, eval_step=None, train_loader=lambda: iter([batch]),
+        val_loader=None, num_epochs=1, num_classes=cfg.data.num_classes, log_every=1,
+        strict_capacity=True)
+    try:
+        trainer.train()
+        row["strict_raised"] = None
+    except RuntimeError as e:
+        row["strict_raised"] = str(e)[:160]
+    finally:
+        trainer.summary.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    row["counters"] = seen[0] if seen else None
+    emit(row)
+    if not (seen and seen[0]["overflow/violations"] > 0 and row["fill_l0_at_config"] < 1.0
+            and seen[0]["overflow/vox_fill_l0_s"] >= 1.0
+            and row["strict_raised"] and "capacity overflow" in row["strict_raised"]):
+        raise AssertionError(f"the planted undersized capacity went unseen: {row}")
+
+
 def phase_data(root):
     """The training paths from nuScenes-format files: stage 2
     (``make_distill_loaders`` and ``make_distill_train_step`` on DATA_STAGE2,
@@ -1745,13 +2126,14 @@ def phase_data(root):
     step = distill.make_distill_train_step(
         model, opt, s_caps, t_caps, w_kl=cfg.criterion.w_kl, w_feat=cfg.criterion.w_feat,
         ignore_label=cfg.criterion.ignore_index, scheduler=sched,
-        generator=torch.Generator(device=DEVICE).manual_seed(DATA_SEED))
+        generator=torch.Generator(device=DEVICE).manual_seed(DATA_SEED), overflow_checks=True)
 
     def points(batch):
         sb, tb = batch["student"], batch["teacher"]
         return {"student_points": int(sb["pmask"].sum()),
                 "fov_points": int((sb["pmask"] & sb["fov_mask"]).sum()),
-                "teacher_points": int(tb["pmask"].sum())}
+                "teacher_points": int(tb["pmask"].sum()),
+                "saturated_levels": _saturated(sb["plumbing"]) + _saturated(tb["plumbing"])}
 
     kept, launches, summaries = {}, {}, {}
     for tag, opts in (("serial", DATA_SERIAL), ("pipelined", DATA_PIPELINED)):
@@ -1766,6 +2148,7 @@ def phase_data(root):
             c.launches = 0
         rows = _data_epoch("data_student_train_step", train_loader, step,
                            STUDENT_TRAIN_LAUNCHES, counts, points, keep)
+        _violations_as_counted("data_student_train", rows)
         launches[tag] = {c.__name__: c.launches for c in counts}
         peak = torch.cuda.max_memory_allocated()
         held = sum(t.untyped_storage().nbytes() for b in kept[tag] if tag == "pipelined"
@@ -1783,8 +2166,10 @@ def phase_data(root):
                                     for t in summaries}})
     if not (len(equal) == len(kept["serial"]) == DATA_STEPS and all(equal)):
         raise AssertionError("the pipelined loaders' batches differ from the serial ones")
+    planted = kept["serial"][0]
     del kept
     _raw_val(model, cfg, val_loader)
+    _planted_overflow(model, opt, sched, cfg, planted)
     del model, opt, step, train_loader, val_loader
     torch.cuda.empty_cache()
 
@@ -1792,66 +2177,174 @@ def phase_data(root):
     model = builder.make_model(cfg, DEVICE, seed=DATA_SEED)
     opt, sched = builder.make_optimizer_and_schedule(cfg, model.named_parameters())
     step = state.make_train_step(model, opt, tuple(cfg.capacities), cfg.data.ignore_label,
-                                 sched, torch.Generator(device=DEVICE).manual_seed(DATA_SEED))
+                                 sched, torch.Generator(device=DEVICE).manual_seed(DATA_SEED),
+                                 overflow_checks=True)
     train_loader, _ = builder.make_loaders(cfg, model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counts:
         c.launches = 0
     rows = _data_epoch("data_train_step", train_loader, step, TRAIN_LAUNCHES, counts,
-                       lambda b: {"points": int(b["pmask"].sum())}, lambda b: None)
+                       lambda b: {"points": int(b["pmask"].sum()),
+                                  "saturated_levels": _saturated(b["plumbing"])},
+                       lambda b: None)
+    _violations_as_counted("data_train", rows)
     stage1 = {c.__name__: c.launches for c in counts}
     _epoch_summary("data_train", "pipelined", overrides, rows, stage1,
                    torch.cuda.max_memory_allocated())
     return launches["pipelined"], stage1
 
 
-def phase_data_cli(root):
+def phase_data_cli(root, weights):
     """The two training entry points on the set, at the configs' full
     width with DATA_OVERRIDES and one epoch: stage 1 on DATA_STAGE1 (with
-    DATA_STAGE1_OVERRIDES), stage 2 on DATA_STAGE2 with its random-weight
-    cr_t=2.0 teacher (stage 1's
-    cr=1.0 checkpoint cannot be its teacher; phase ``cli`` checks the
-    restore). Each must exit 0 with a finite loss, a validation mIoU scored
-    on the raw points and its checkpoints. Outputs go to OUT_DIR, the run
-    directories under CLI_DIR, which is removed afterwards."""
-    import shutil
-
+    DATA_STAGE1_OVERRIDES), stage 2 on DATA_STAGE2 with the reference-schema
+    files of ``weights`` (:func:`write_reference_weights`) as its cr_t=2.0
+    teacher (``model.teacher_pretrain``) and its image branch's ImageNet
+    start (``model.imagenet_pretrain``; stage 1's cr=1.0 checkpoint cannot
+    be its teacher, phase ``cli`` checks that restore). Each must exit 0
+    with a finite loss, a validation mIoU scored on the raw points and its
+    checkpoints; stage 2 must report both imports. Outputs go to OUT_DIR,
+    the run directories under CLI_DIR, which the caller removes. -> per
+    stage its run directory, overrides and printed mIoU."""
     row = {"phase": "data_cli"}
-    try:
-        for tag, module, path, opts in (
-                ("stage1", "u2mkd_tpu_torch.train_spformer", DATA_STAGE1, DATA_STAGE1_OVERRIDES),
-                ("stage2", "u2mkd_tpu_torch.train_lc_nusc_tsd_full", DATA_STAGE2, ())):
-            run_dir = os.path.join(CLI_DIR, f"data_{tag}")
-            _, overrides = _data_cfg(path, root, *opts, "num_epochs=1")
-            cmd = [sys.executable, "-m", module, path, "--run-dir", run_dir, *overrides,
-                   *DATA_CLI_FLAGS]
+    stage2_opts = (f"model.teacher_pretrain={weights['teacher']}",
+                   f"model.imagenet_pretrain={weights['resnet']}")
+    for tag, module, path, opts in (
+            ("stage1", "u2mkd_tpu_torch.train_spformer", DATA_STAGE1, DATA_STAGE1_OVERRIDES),
+            ("stage2", "u2mkd_tpu_torch.train_lc_nusc_tsd_full", DATA_STAGE2, stage2_opts)):
+        run_dir = os.path.join(CLI_DIR, f"data_{tag}")
+        _, overrides = _data_cfg(path, root, *opts, "num_epochs=1")
+        cmd = [sys.executable, "-m", module, path, "--run-dir", run_dir, *overrides,
+               *DATA_CLI_FLAGS]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, timeout=600)
+        with open(os.path.join(OUT_DIR, f"data_cli_{tag}.txt"), "w") as f:
+            f.write(res.stdout)
+        epoch = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 1/1:")]
+        fields = dict(kv.split("=", 1) for kv in epoch[-1].split()[2:5]) if epoch else {}
+        raw_line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith("[val] scored on raw points:")]
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
+            if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
+        row[tag] = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+                    "run_dir": run_dir, "overrides": overrides, "steps": fields.get("steps"),
+                    "loss": float(fields.get("loss", "nan")),
+                    "miou": float(fields.get("miou", "nan")),
+                    "raw_points": raw_line[-1].split(":", 1)[1].strip() if raw_line else None,
+                    "checkpoints": ckpts}
+        imported = tag == "stage1" or all(
+            line in res.stdout for line in (
+                f"loaded frozen teacher from {weights['teacher']}",
+                f"loaded {RESNET_MATCHED} backbone tensors from {weights['resnet']}",
+                f"loaded ImageNet backbone from {weights['resnet']}"))
+        if not (res.returncode == 0 and math.isfinite(row[tag]["loss"])
+                and math.isfinite(row[tag]["miou"]) and raw_line and imported
+                and {"latest.pt", "max-iou-val-vox.pt"} <= set(ckpts)):
+            emit(row)
+            raise AssertionError(f"the {tag} entry point failed on the files: {row[tag]}; "
+                                 f"its output is in {OUT_DIR}/data_cli_{tag}.txt")
+    emit(row)
+    return {tag: row[tag] for tag in ("stage1", "stage2")}
+
+
+# the evaluation entry point as ``python -m`` runs it (runpy), its eval
+# step wrapped to record each request's scan and a hash of its features,
+# and ``evaluate_tta`` to keep its result; then one line of the requests,
+# the kernels' launches, the result and the peak memory
+EVAL_RUNNER = """
+import hashlib, json, runpy, sys
+import torch
+from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+from u2mkd_tpu_torch.train import distill, evaluator, state
+views, results = [], []
+def recording(make):
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+        def eval_fn(batch):
+            feats = batch.get("student", batch)["feats"]
+            views.append([batch["lidar_tokens"][0],
+                          hashlib.sha1(feats.cpu().numpy().tobytes()).hexdigest()])
+            return step(batch)
+        return eval_fn
+    return wrapped
+state.make_eval_step = recording(state.make_eval_step)
+distill.make_distill_eval_step = recording(distill.make_distill_eval_step)
+tta = evaluator.evaluate_tta
+def kept(*args, **kw):
+    results.append(tta(*args, **kw))
+    return results[-1]
+evaluator.evaluate_tta = kept
+sys.argv = ["u2mkd_tpu_torch.evaluate", *sys.argv[1:]]
+runpy.run_module("u2mkd_tpu_torch.evaluate", run_name="__main__", alter_sys=True)
+print("EVAL_REPORT " + json.dumps({
+    "views": views, "miou": results[-1]["miou"],
+    "seen": int(results[-1]["counts"]["seen"].sum()),
+    "launches": {"rulebook_conv": spconv_kernel.rulebook_conv.launches,
+                 "flash_rpe_fwd": wattn_kernel.flash_rpe_fwd.launches},
+    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()
+    if torch.cuda.is_available() else None}))
+"""
+
+
+def phase_evaluate(root, runs):
+    """The evaluation entry point (``python -m u2mkd_tpu_torch.evaluate``)
+    on each ``data_cli`` run's ``latest.pt`` (the weights its loop
+    validated), stage 1 on DATA_STAGE1 and stage 2 on DATA_STAGE2 (only its
+    student runs), with one vote and with EVAL_VOTES: per run the wall s,
+    the requests, K1 and K3 launches per request and the peak memory. One
+    vote must give the mIoU the training run printed, within 0.01 of a
+    point; each scan's views of the multi-vote run must differ, in one scan
+    order each vote. -> launches by stage, over both runs."""
+    launches = {}
+    for tag, path in (("stage1", DATA_STAGE1), ("stage2", DATA_STAGE2)):
+        run = runs[tag]
+        ckpt = os.path.join(run["run_dir"], "checkpoints", "latest.pt")
+        launches[tag] = {"rulebook_conv": 0, "flash_rpe_fwd": 0}
+        for votes in (1, EVAL_VOTES):
+            cmd = [sys.executable, "-c", EVAL_RUNNER, path, "--checkpoint", ckpt,
+                   "--num-vote", str(votes), *run["overrides"], *DATA_CLI_FLAGS]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True, timeout=600)
-            with open(os.path.join(OUT_DIR, f"data_cli_{tag}.txt"), "w") as f:
+            wall_s = time.perf_counter() - t0
+            with open(os.path.join(OUT_DIR, f"evaluate_{tag}_vote{votes}.txt"), "w") as f:
                 f.write(res.stdout)
-            epoch = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 1/1:")]
-            fields = dict(kv.split("=", 1) for kv in epoch[-1].split()[2:5]) if epoch else {}
-            raw_line = [ln for ln in res.stdout.splitlines()
-                        if ln.startswith("[val] scored on raw points:")]
-            ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
-                if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
-            row[tag] = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
-                        "overrides": overrides, "steps": fields.get("steps"),
-                        "loss": float(fields.get("loss", "nan")),
-                        "miou": float(fields.get("miou", "nan")),
-                        "raw_points": raw_line[-1].split(":", 1)[1].strip() if raw_line else None,
-                        "checkpoints": ckpts}
-            if not (res.returncode == 0 and math.isfinite(row[tag]["loss"])
-                    and math.isfinite(row[tag]["miou"]) and raw_line
-                    and {"latest.pt", "max-iou-val-vox.pt"} <= set(ckpts)):
-                emit(row)
-                raise AssertionError(f"the {tag} entry point failed on the files: {row[tag]}; "
-                                     f"its output is in {OUT_DIR}/data_cli_{tag}.txt")
-        emit(row)
-    finally:
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
+            report = [ln for ln in res.stdout.splitlines() if ln.startswith("EVAL_REPORT ")]
+            printed = [ln for ln in res.stdout.splitlines() if ln.startswith("mIoU: ")]
+            if res.returncode != 0 or not report or not printed:
+                raise AssertionError(f"the evaluation of {tag} ({votes} votes) failed; its "
+                                     f"output is in {OUT_DIR}/evaluate_{tag}_vote{votes}.txt")
+            rep = json.loads(report[-1].split(" ", 1)[1])
+            views = rep["views"]
+            n = len(views) // votes
+            row = {"phase": "evaluate", "stage": tag, "votes": votes, "wall_s": wall_s,
+                   "requests": len(views), "scans": n, "miou": rep["miou"] * 100,
+                   "printed": printed[-1], "trained_miou": run["miou"],
+                   "raw_points_seen": rep["seen"], "launches": rep["launches"],
+                   "launches_per_request": {k: v / max(len(views), 1)
+                                            for k, v in rep["launches"].items()},
+                   "max_memory_allocated_bytes": rep["max_memory_allocated_bytes"]}
+            for k, v in rep["launches"].items():
+                launches[tag][k] += v
+            if votes == 1:
+                row["miou_minus_trained"] = row["miou"] - run["miou"]
+                ok = abs(row["miou_minus_trained"]) < 0.01
+            else:
+                by_vote = [views[v * n:(v + 1) * n] for v in range(votes)]
+                row["same_scan_order"] = all([t for t, _ in b] == [t for t, _ in by_vote[0]]
+                                             for b in by_vote)
+                row["views_differ"] = all(len({b[i][1] for b in by_vote}) == votes
+                                          for i in range(n))
+                ok = row["same_scan_order"] and row["views_differ"]
+            emit(row)
+            want = {k: v * len(views) for k, v in EVAL_LAUNCHES.items()}
+            if not (ok and n > 0 and len(views) == n * votes and rep["launches"] == want
+                    and math.isfinite(row["miou"])):
+                raise AssertionError(f"the evaluation of {tag} ({votes} votes) does not hold: "
+                                     f"{row}")
+    return launches
 
 
 def kernels_line(rows, launches):
@@ -1860,11 +2353,15 @@ def kernels_line(rows, launches):
     teacher's three requests "infer" and three train steps "train", the
     student's three requests "student" and its request with the teacher
     "student_teacher", the stage-2 model's three train steps
-    "student_train", K2's entry point "entry", and the epochs from files
-    of stage 1 "data_train" and of stage 2, pipelined,
-    "data_student_train"; K1 counts its forward and input-gradient
-    launches), split in ``launches_by_path``; the other numbers are from its
-    slowest main-path-shape row in f32."""
+    "student_train", K2's entry point "entry", the epochs from files of
+    stage 1 "data_train" and of stage 2, pipelined, "data_student_train",
+    the request with the imported teacher "import", the conv-only model's
+    three requests "conv_only" (no K3) and its train step
+    "conv_only_train", and the evaluation entry point's runs on the stage-1
+    and stage-2 checkpoints "evaluate_teacher" and "evaluate_student"; K1
+    counts its forward and input-gradient launches), split in
+    ``launches_by_path``; the other numbers are from its slowest
+    main-path-shape row in f32."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
     def paths(name, *which):
@@ -1872,16 +2369,20 @@ def kernels_line(rows, launches):
 
     by_path = {
         "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher",
-                         "student_train", "data_train", "data_student_train"),
+                         "student_train", "data_train", "data_student_train", "import",
+                         "conv_only", "conv_only_train", "evaluate_teacher",
+                         "evaluate_student"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
                    student_train_dx=launches["student_train"]["rulebook_conv_dx"],
                    data_train_dx=launches["data_train"]["rulebook_conv_dx"],
-                   data_student_train_dx=launches["data_student_train"]["rulebook_conv_dx"]),
+                   data_student_train_dx=launches["data_student_train"]["rulebook_conv_dx"],
+                   conv_only_train_dx=launches["conv_only_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
-                     "data_student_train"),
+                     "data_student_train", "conv_only_train"),
         "K2": paths("flash_window_sorted", "entry"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
-                    "student_train", "data_train", "data_student_train"),
+                    "student_train", "data_train", "data_student_train", "import",
+                    "conv_only", "evaluate_teacher", "evaluate_student"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
                     "data_student_train"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
@@ -1929,6 +2430,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     phase_env()
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
                           head_dim=16, seed=0, device=DEVICE)
@@ -1939,25 +2441,32 @@ def main():
     phase_grad_check()
     launches["entry"] = {"flash_window_sorted": phase_window_entry(raw)}
     del raw
-    student = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
-                        head_dim=16, seed=0, device=DEVICE)
-    launches["student"] = phase_student(student)
-    launches["student_teacher"] = phase_student_with_teacher(student)
-    del student
-    launches["student_train"] = phase_student_train()
-    phase_student_grad_check()
-    phase_cli()
+    launches["conv_only"], launches["conv_only_train"] = phase_conv_only()
     import shutil
     import tempfile
 
+    weights_dir = tempfile.mkdtemp(prefix="reference_weights_")
     root = tempfile.mkdtemp(prefix="nusc_files_")
     try:
+        student = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T,
+                            voxel_size=STUDENT_VOXEL, head_dim=16, seed=0, device=DEVICE)
+        launches["student"] = phase_student(student)
+        launches["student_teacher"] = phase_student_with_teacher(student)
+        weights, launches["import"] = phase_import(student, weights_dir)
+        del student
+        launches["student_train"] = phase_student_train()
+        phase_student_grad_check()
+        phase_cli()
         stats, gen_s = make_data_set(root)
         emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})
         launches["data_student_train"], launches["data_train"] = phase_data(root)
-        phase_data_cli(root)
+        evaluated = phase_evaluate(root, phase_data_cli(root, weights))
+        launches["evaluate_teacher"] = evaluated["stage1"]
+        launches["evaluate_student"] = evaluated["stage2"]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for d in (root, weights_dir, CLI_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "command", "wall_s": time.perf_counter() - t_start})
     kernels_line(rows, launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

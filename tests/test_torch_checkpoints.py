@@ -144,9 +144,10 @@ def test_crash_between_renames_recovers(tmp_path):
 def test_zero_match_restores_raise(tmp_path):
     """A pretrain restore that matches no parameter, or (for a model with BN
     statistics) no BN buffer, raises: eval forwards on initial running
-    statistics are wrong in a way no later metric shows. Anything but a
-    checkpoint of the port raises too: a reference ``.pt`` waits for its
-    importer (ROADMAP section 1, item 5)."""
+    statistics are wrong in a way no later metric shows. A teacher restore
+    from a file that is neither a checkpoint of the port nor a reference
+    ``SPVCNN_SPFORMER`` state dict raises, and so does one from a directory
+    (the JAX package's orbax checkpoints)."""
     _, _, _, st, _, _ = _state()
     mgr = C.CheckpointManager(str(tmp_path))
     mgr.save_latest(st, 1)
@@ -164,9 +165,11 @@ def test_zero_match_restores_raise(tmp_path):
 
     ref_pt = os.path.join(tmp_path, "reference.pt")
     torch.save({"model": st["model"]}, ref_pt)
-    for path in (ref_pt, str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            C.load_teacher_any(path, TSDFull(num_classes=5, cr=0.25, cr_t=0.25, **GEOMETRY))
+    tsd = TSDFull(num_classes=5, cr=0.25, cr_t=0.25, **GEOMETRY)
+    with pytest.raises(ValueError, match="expected keys absent"):
+        C.load_teacher_any(ref_pt, tsd)
+    with pytest.raises(NotImplementedError, match="no checkpoint of this port"):
+        C.load_teacher_any(str(tmp_path), tsd)
 
 
 def test_teacher_restore_into_tsd(tmp_path):

@@ -121,11 +121,15 @@ def test_make_model_matches_jax_tree(name):
 
 
 def test_make_model_rejects_what_the_port_lacks():
-    """Other model names, a bf16 policy and multi-host loading raise,
-    naming the ROADMAP item that brings them; the synthetic loaders refuse
-    a real dataset, which ``make_loaders`` sends to ``data/loaders.py``."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        builder.make_model(_synthetic("spformer_tiny.yaml", "model.name=spvcnn"), "cpu")
+    """A model name the JAX package's builder lacks too raises; a bf16
+    policy and multi-host loading raise, naming the ROADMAP item that brings
+    them; the synthetic loaders refuse a real dataset, which
+    ``make_loaders`` sends to ``data/loaders.py``."""
+    cfg = _synthetic("spformer_tiny.yaml", "model.name=spvcnn_swiftnet18")
+    with pytest.raises(NotImplementedError, match="no such model"):
+        builder.make_model(cfg, "cpu")
+    with pytest.raises(NotImplementedError):
+        jax_builder.make_model(cfg)
     with pytest.raises(NotImplementedError, match="item 5"):
         builder.make_model(_synthetic("spformer_tiny.yaml", "precision=bfloat16"), "cpu")
     cfg = _synthetic("spformer_tiny.yaml", "dataset.name=semantic_nusc")

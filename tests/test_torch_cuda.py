@@ -12,17 +12,23 @@ bf16 step apart. K1b, K4 and K5 return f32 computed in f32 from the same
 inputs as their plain versions, so 1e-4 holds for bf16 inputs too.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 from u2mkd_tpu_torch.models.plumbing import _window_geom_from_arrays
-from u2mkd_tpu_torch.models.spvcnn import teacher_model
+from u2mkd_tpu_torch.models.spvcnn import SPVCNN, teacher_model
 from u2mkd_tpu_torch.models.tsd import tsd_model
 from u2mkd_tpu_torch.ops import wattn
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
-from u2mkd_tpu_torch.train import distill, optim, state
+from u2mkd_tpu_torch.train import checkpoints, distill, optim, state
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -216,6 +222,71 @@ def test_student_eval_step_kernels_match_plain(cuda_device):
             assert agree >= 0.999, key
         assert ("counts_teacher" in out) == run_teacher
         assert ("logits_teacher" in out) == run_teacher
+
+
+@pytest.mark.cuda
+def test_conv_only_request_matches_plain(cuda_device):
+    """The conv-only SPVCNN's eval step at a small size: 34 K1 launches and
+    no K3 per forward, and the plain versions' logits on the card."""
+    caps = (2048, 1024, 512, 256, 128)
+    model = SPVCNN(num_classes=17, cr=1.0, sphereformer=False,
+                   generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    raw = synthetic.make_batch(np.random.RandomState(5), 1, 4096, voxel_size=0.2)
+    raw["plumbing"] = plumbing_host.batch_plumbing(
+        raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+        wgeom_params=wgeom_host.params_from_model(model))
+    assert "wgeom" not in raw["plumbing"]
+    eval_fn = state.make_eval_step(model, caps, 17)
+    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd
+    before = (k1.launches, k3.launches)
+    out = eval_fn(raw)
+    assert (k1.launches - before[0], k3.launches - before[1]) == (34, 0)
+    model.set_plain(True)
+    try:
+        ref = eval_fn(raw)
+    finally:
+        model.set_plain(False)
+    valid = torch.from_numpy(raw["pmask"]).to(cuda_device)
+    assert torch.isfinite(out["logits"]).all()
+    assert _rel_err(out["logits"][valid], ref["logits"][valid]) <= 1e-4
+    assert (out["pred"] == ref["pred"])[valid].float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_imported_reference_teacher_on_card(cuda_device, tmp_path):
+    """A reference-schema ``SPVCNN_SPFORMER`` file at cr_t=2.0
+    (``chip_smoke.reference_teacher_state_dict``) imported into the stage-2
+    wrapper's teacher (``checkpoints.load_teacher_any``), then a student
+    request with it (P=4096, 2 cameras at 72x128): 68 K1 and 16 K3
+    launches, and the plain versions' logits, the teacher's too."""
+    s_caps = (4096, 2048, 1024, 512, 256)
+    t_caps = (8192, 4096, 2048, 1024, 512)
+    path = str(tmp_path / "teacher.pt")
+    sd = chip_smoke.reference_teacher_state_dict(2.0, 17, seed=3)
+    torch.save({"model": sd}, path)
+    model = tsd_model(num_classes=17, cr=1.0, cr_t=2.0, voxel_size=0.05, device=cuda_device)
+    info = checkpoints.load_teacher_any(path, model)
+    assert info["leftover"] == [] and len(info["loaded"]) == len(model.model_t.state_dict())
+    assert torch.equal(model.model_t.classifier_vox.weight.cpu(), sd["classifier_vox.0.weight"])
+    raw = synthetic.make_multimodal_batch(np.random.RandomState(6), 1, 4096, 8192,
+                                          voxel_size=0.05, num_cams=2, im_hw=(72, 128))
+    eval_fn = distill.make_distill_eval_step(model, s_caps, t_caps, 17, run_teacher=True)
+    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd
+    before = (k1.launches, k3.launches)
+    out = eval_fn(raw)
+    assert (k1.launches - before[0], k3.launches - before[1]) == (68, 16)
+    model.set_plain(True)
+    try:
+        ref = eval_fn(raw)
+    finally:
+        model.set_plain(False)
+    t_valid = torch.from_numpy(raw["teacher"]["pmask"]).to(cuda_device)
+    valid = torch.from_numpy(raw["student"]["pmask"]).to(cuda_device)
+    for key, rows in (("logits_teacher", t_valid), ("logits", valid)):
+        assert torch.isfinite(out[key]).all()
+        assert _rel_err(out[key][rows], ref[key][rows]) <= 1e-4, key
+        agree = (out[key].argmax(-1) == ref[key].argmax(-1))[rows].float().mean().item()
+        assert agree >= 0.999, key
 
 
 def _small_case(rng, cuda_device, radial, dtype, b=2, v=700, h=4, d=16, g=6):

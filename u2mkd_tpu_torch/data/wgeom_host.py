@@ -13,7 +13,7 @@ from __future__ import annotations
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -87,8 +87,12 @@ def level_window_params(window_size, window_size_sphere, quant_size,
     return out
 
 
-def params_from_model(model) -> Dict:
-    """Geometry spec from a model's window attributes."""
+def params_from_model(model) -> Optional[Dict]:
+    """Geometry spec from a model's window attributes; None for a model
+    without SphereFormer blocks (the conv-only SPVCNN), which reads no
+    window geometry."""
+    if not getattr(model, "sphereformer", True):
+        return None
     heads = heads_for_levels(float(model.cr), int(model.head_dim))
     return dict(
         levels=level_window_params(

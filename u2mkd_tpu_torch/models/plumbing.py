@@ -33,6 +33,10 @@ class UNetPlumbing:
     # window geometry of encoder levels 1..4:
     # {"cubic": (WindowGeom, ...), "sphere": (...)}
     wgeom: Optional[Dict[str, Tuple[WindowGeom, ...]]] = None
+    # [2, 4] int32: the largest window occupancy of each level's cubic (row
+    # 0) and sphere (row 1) windows, from the host geometry; read by the
+    # capacity counters (``train/overflow.py``) only
+    window_occ: Optional[torch.Tensor] = None
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -83,17 +87,20 @@ def from_precomputed(arrays: Dict, pmask,
 
     p2v = point_maps("p2v", torch.int32)
     cap0 = levels[0].grid.capacity
-    wgeom = None
+    wgeom = window_occ = None
     if "wgeom" in arrays:
         wgeom = {branch: tuple(_window_geom_from_arrays(g, dev) for g in geoms)
                  for branch, geoms in arrays["wgeom"].items()}
+        window_occ = torch.stack([
+            torch.cat([_tensor(g["occ"], dev, torch.int32) for g in arrays["wgeom"][branch]])
+            for branch in ("cubic", "sphere")])
     return UNetPlumbing(
         levels=tuple(levels), p2v=p2v,
         devox_idx=point_maps("dvi", torch.int32),
         devox_w=point_maps("dvw", torch.float32),
         pmask=_tensor(pmask, dev, torch.bool),
         p2v0_feats_seg=torch.where(p2v[0] >= 0, p2v[0], cap0),
-        wgeom=wgeom)
+        wgeom=wgeom, window_occ=window_occ)
 
 
 def level_geom(pl: UNetPlumbing, idx: int):

@@ -1,11 +1,14 @@
 """SPVCNN + SphereFormer: the sparse point-voxel U-Net teacher.
 
-Port of ``u2mkd_tpu/models/spvcnn.py`` with ``sphereformer=True`` and the
-host-geometry attention path: stem (2x ks3 conv) -> 4 encoder stages (ks2/s2
-down conv + 2 residual blocks + a SphereFormer block) -> 4 decoder stages
-(transposed conv + skip concat + 2 residual blocks), three point-stream MLP
-fusions, dropout before decoder stages 1 and 3, and a per-point classifier.
-The attribute names mirror the flax module names.
+Port of ``u2mkd_tpu/models/spvcnn.py`` with the host-geometry attention
+path: stem (2x ks3 conv) -> 4 encoder stages (ks2/s2 down conv + 2 residual
+blocks + a SphereFormer block) -> 4 decoder stages (transposed conv + skip
+concat + 2 residual blocks), three point-stream MLP fusions, dropout before
+decoder stages 1 and 3, and a per-point classifier. ``sphereformer=False``
+is the conv-only SPVCNN (reference ``core/models/semantickitti/spvcnn.py``),
+without the SphereFormer blocks; unlike the flax module's, the port's
+default is the SphereFormer teacher. The attribute names mirror the flax
+module names.
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ class SPVCNN(nn.Module):
                  quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
                  window_size_scale=(2.0, 1.5), drop_path_rate: float = 0.3,
                  sphere_a: float = 0.0125, head_dim: int = 16,
-                 return_point_feats: bool = False, generator=None):
+                 return_point_feats: bool = False, sphereformer: bool = True, generator=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
+        self.base_channels, self.sphereformer = tuple(base_channels), sphereformer
         self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
         self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
         self.window_size_scale = tuple(window_size_scale)
@@ -58,11 +62,12 @@ class SPVCNN(nn.Module):
                     blocks.SparseResBlock(cs[idx], cs[idx + 1], generator=gen))
             setattr(self, f"down{idx}_res1",
                     blocks.SparseResBlock(cs[idx + 1], cs[idx + 1], generator=gen))
-            setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
-                dim=cs[idx + 1], num_heads=cs[idx + 1] // head_dim,
-                window_size=tuple(ws), window_size_sphere=tuple(wss),
-                quant_size=tuple(qs), quant_size_sphere=tuple(qss),
-                drop_path=dpr[idx + 1], a=sphere_a, generator=gen))
+            if sphereformer:
+                setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
+                    dim=cs[idx + 1], num_heads=cs[idx + 1] // head_dim,
+                    window_size=tuple(ws), window_size_sphere=tuple(wss),
+                    quant_size=tuple(qs), quant_size_sphere=tuple(qss),
+                    drop_path=dpr[idx + 1], a=sphere_a, generator=gen))
             ws = [w * wsc for w in ws]
             qs = [q * wsc for q in qs]
             wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
@@ -110,8 +115,9 @@ class SPVCNN(nn.Module):
                 out_mask=lv[idx + 1].grid.mask)
             f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
-            f = getattr(self, f"sphereformer{idx + 1}")(
-                f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx), generator)
+            if self.sphereformer:
+                f = getattr(self, f"sphereformer{idx + 1}")(
+                    f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx), generator)
             vox_feats.append(f)
         x1, x2, x3, x4 = vox_feats[1:]
 

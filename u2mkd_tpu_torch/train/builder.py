@@ -3,8 +3,8 @@
 
 The window geometry follows the reference's ``make_model``: window_size =
 voxel_size * patch_size * window_cfg, quantized in window / quant_size_scale
-steps. The port has models for the SphereFormer teacher
-(``spvcnn_spformer``) and the stage-2 TSD student
+steps. The port has models for the conv-only SPVCNN (``spvcnn``), the
+SphereFormer teacher (``spvcnn_spformer``) and the stage-2 TSD student
 (``spvcnn_swiftnet18_spformer_tsd_full``), and the loaders: the synthetic
 dataset's here, the real datasets' in ``data/loaders.py``; each batch comes
 with its host plumbing and window geometry, which the port's steps read.
@@ -52,6 +52,11 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
                                   f"policy is ROADMAP section 1, item 5")
     dev = resolve_device(device)
     name = cfg.model.name
+    if name == "spvcnn":
+        # the conv-only U-Net takes no window options (JAX builder.py:51-56)
+        return SPVCNN(num_classes=cfg.data.num_classes, cr=cfg.model.cr,
+                      in_channel=cfg.model.in_channel, sphereformer=False,
+                      generator=torch.Generator().manual_seed(seed)).to(dev)
     ws, wss, qs, qss = window_geometry(cfg)
     common = dict(
         num_classes=cfg.data.num_classes, window_size=ws, window_size_sphere=wss,
@@ -67,8 +72,8 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
                         in_channel_t=cfg.model.get("in_channel_t", 4),
                         run_pix_decoder=cfg.get_path("eval.run_pix_decoder", True), **common)
     else:
-        raise NotImplementedError(f"model {name}: the port has no such model yet (ROADMAP "
-                                  f"section 1, item 5)")
+        raise NotImplementedError(f"model {name}: the port has no such model (the JAX "
+                                  f"package's builder has none either)")
     return model.to(dev)
 
 
@@ -173,19 +178,24 @@ def make_synthetic_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple
             loaders.device_loader(loader(1, n_val, val_stage), device, depth))
 
 
-def make_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
+def make_loaders(cfg: Config, model: torch.nn.Module,
+                 tta_val: bool = False) -> Tuple[Loader, Loader]:
     """The teacher's train and val loaders, as the JAX package's stage-1
     CLI picks them: the synthetic ones (seeded from ``cfg.train.seed``) for
-    ``dataset.name=synthetic``, else ``data/loaders.make_loaders`` (seed 0)."""
+    ``dataset.name=synthetic``, else ``data/loaders.make_loaders`` (seed 0;
+    ``tta_val``: a val set that augments each pass, for TTA votes; the
+    synthetic sets have no augmentation)."""
     if cfg.dataset.name == "synthetic":
         return make_synthetic_loaders(cfg, model, seed=cfg.train.seed % (2 ** 31))
-    return loaders.make_loaders(cfg, model)
+    return loaders.make_loaders(cfg, model, tta_val=tta_val)
 
 
-def make_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple[Loader, Loader]:
+def make_distill_loaders(cfg: Config, model: torch.nn.Module,
+                         tta_val: bool = False) -> Tuple[Loader, Loader]:
     """The stage-2 train and val loaders, as the JAX package's stage-2 CLI
     picks them: the synthetic ones for ``dataset.name=synthetic``, else
-    ``data/loaders.make_distill_loaders`` (seed 0)."""
+    ``data/loaders.make_distill_loaders`` (seed 0; ``tta_val`` as in
+    :func:`make_loaders`)."""
     if cfg.dataset.name == "synthetic":
         return make_synthetic_distill_loaders(cfg, model)
-    return loaders.make_distill_loaders(cfg, model)
+    return loaders.make_distill_loaders(cfg, model, tta_val=tta_val)

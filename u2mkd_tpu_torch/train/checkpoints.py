@@ -10,8 +10,8 @@ step's generator (:func:`training_state`). Stage 2 restores in three modes
 (reference ``nusc_trainers.py:173-201``): a full resume
 (:func:`load_training_state`), a backbone pretrain without the classifier
 (:func:`load_pretrain_params`), and the frozen teacher alone from a stage-1
-run (:func:`load_teacher_any`). The importer of the reference's ``.pt``
-files is ROADMAP section 1, item 5.
+run (:func:`load_teacher_any`: a stage-1 checkpoint of the port, or a
+reference ``.pt`` through ``models/convert_weights.load_teacher_pt``).
 """
 
 from __future__ import annotations
@@ -47,17 +47,28 @@ def load_training_state(state: Dict, model: torch.nn.Module, optimizer: torch.op
     return int(state["step"])
 
 
+def _read(path: str):
+    """The object a checkpoint file holds, or None for a path that is no
+    file (a directory: the JAX package's orbax checkpoints)."""
+    if not os.path.isfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _is_port(state) -> bool:
+    return isinstance(state, dict) and state.get("format") == FORMAT
+
+
 def load(path: str) -> Dict:
     """A checkpoint file of the port -> its dict. Raises for anything else:
     a directory (the JAX package's orbax checkpoints) or a ``.pt`` of the
-    reference (its importer is ROADMAP section 1, item 5)."""
+    reference (a teacher's goes in through :func:`load_teacher_any`)."""
     path = os.path.abspath(path)
-    if os.path.isfile(path):
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(state, dict) and state.get("format") == FORMAT:
-            return state
-    raise NotImplementedError(f"{path} is no checkpoint of this port; the importers of the "
-                              f"reference's .pt files are ROADMAP section 1, item 5")
+    state = _read(path)
+    if _is_port(state):
+        return state
+    raise NotImplementedError(f"{path} is no checkpoint of this port (a reference .pt teacher "
+                              f"goes in through load_teacher_any, model.teacher_pretrain)")
 
 
 class CheckpointManager:
@@ -176,14 +187,21 @@ def load_pretrain_params(path: str, model: torch.nn.Module,
     return stats
 
 
-def load_teacher_params(path: str, tsd: torch.nn.Module) -> None:
-    """Teacher-only restore into the TSD wrapper: the stage-1 checkpoint's
-    model (parameters and BN statistics) becomes ``tsd.model_t``, strictly
-    (reference ``nusc_trainers.py:190-199``). The JAX package's
-    ``load_teacher_any`` also takes the reference's ``.pt`` here; the port
-    reads its own checkpoints only and raises for anything else
-    (:func:`load`), so the two names are one function."""
-    tsd.model_t.load_state_dict(load(path)["model"])
+def load_teacher_any(path: str, tsd: torch.nn.Module) -> Optional[Dict]:
+    """Teacher-only restore into the TSD wrapper, strictly (reference
+    ``nusc_trainers.py:190-199``): a stage-1 checkpoint of the port
+    (parameters and BN statistics) becomes ``tsd.model_t``, or a reference
+    ``SPVCNN_SPFORMER`` ``.pt`` file (such as the published
+    ``max-iou-val-vox.pt``) is imported into it by
+    ``convert_weights.load_teacher_pt``, whose report it returns (None for a
+    checkpoint of the port). Raises for anything else."""
+    from u2mkd_tpu_torch.models import convert_weights
 
-
-load_teacher_any = load_teacher_params
+    path = os.path.abspath(path)
+    state = _read(path)
+    if _is_port(state):
+        tsd.model_t.load_state_dict(state["model"])
+        return None
+    if state is None:
+        load(path)
+    return convert_weights.teacher_from_state_dict(state, tsd, scope="model_t", source=path)

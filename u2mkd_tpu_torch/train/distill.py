@@ -14,8 +14,7 @@ builds. The eval step scores the student's voxel and pixel heads, and
 optionally the teacher on its own multisweep cloud.
 
 The JAX steps' ``remat`` (a TPU memory workaround) has no counterpart;
-``overflow_checks`` and ``axis_name`` wait for ``train/overflow.py`` and
-data parallelism (ROADMAP section 1, items 5 and 6).
+``axis_name`` waits for data parallelism (ROADMAP section 1, item 6).
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import torch
 
 from u2mkd_tpu_torch.models.tsd import TSDFull
 from u2mkd_tpu_torch.ops import losses
-from u2mkd_tpu_torch.train import metrics, optim
+from u2mkd_tpu_torch.train import metrics, optim, overflow
 from u2mkd_tpu_torch.train.state import batch_reader
 
 STUDENT_KEYS = {"feats": torch.float32, "images": torch.float32,
@@ -86,7 +85,8 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
                             w_feat: float = 1.0, ignore_label: int = 0,
                             mse_norm_feat: bool = False,
                             scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-                            generator: Optional[torch.Generator] = None) -> Callable:
+                            generator: Optional[torch.Generator] = None,
+                            overflow_checks: bool = False) -> Callable:
     """Returns ``step_fn(batch) -> aux`` for ``batch = {"student",
     "teacher", "t2s"}`` as ``data/synthetic.make_multimodal_batch`` gives it
     (numpy arrays; a ``plumbing`` entry in either part skips its host
@@ -97,10 +97,14 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
     ``optimizer.step()`` (the optimizer holds the student's parameters only:
     :func:`make_frozen_teacher_optimizer`) and ``scheduler.step()``. ``aux``
     holds LOSS_TERMS as detached device tensors: the step does not wait for
-    the device. It is :func:`make_distill_split_steps`'s step: in torch the
-    fused step and the split one are the same computation."""
+    the device. ``overflow_checks`` adds the capacity counters of both
+    parts' plumbing (``overflow.stats_for_model``), suffixed ``_s`` and
+    ``_t``, and ``overflow/violations``, the sum of both parts'. It is
+    :func:`make_distill_split_steps`'s step: in torch the fused step and the
+    split one are the same computation."""
     return make_distill_split_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat,
-                                    ignore_label, mse_norm_feat, scheduler, generator)
+                                    ignore_label, mse_norm_feat, scheduler, generator,
+                                    overflow_checks)
 
 
 def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
@@ -108,14 +112,16 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
                              w_feat: float = 1.0, ignore_label: int = 0,
                              mse_norm_feat: bool = False,
                              scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-                             generator: Optional[torch.Generator] = None) -> Callable:
+                             generator: Optional[torch.Generator] = None,
+                             overflow_checks: bool = False) -> Callable:
     """The train step of :func:`make_distill_train_step` in two calls, as
     the JAX package's two programs: ``step.teacher_fn(batch)`` runs the
     frozen teacher and gathers its logits and stage-4 features to student
-    order ({"x_vox_t2s", "feat_t2s"}, detached); ``step.student_fn(batch,
-    t_out)`` runs the student's forward, the loss, the backward and the
-    update. ``step(batch)`` is the two in turn; no gradient crosses
-    between them."""
+    order ({"x_vox_t2s", "feat_t2s"}, detached; with ``overflow_checks``
+    also the teacher plumbing's counters); ``step.student_fn(batch, t_out)``
+    runs the student's forward, the loss, the backward and the update.
+    ``step(batch)`` is the two in turn; no gradient crosses between
+    them."""
     device, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)
     _, teacher_plumbing, _ = batch_reader(model.model_t, t_caps)
     if generator is None:
@@ -123,11 +129,14 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
 
     def teacher_fn(batch: Dict) -> Dict[str, torch.Tensor]:
         tb = batch["teacher"]
-        t_out = model.frozen_teacher({"feats": tensor_of(tb, "feats", torch.float32)},
-                                     teacher_plumbing(tb))
+        tpl = teacher_plumbing(tb)
+        t_out = model.frozen_teacher({"feats": tensor_of(tb, "feats", torch.float32)}, tpl)
         t2s = tensor_of(batch, "t2s", torch.int64)
-        return {"x_vox_t2s": _gather_t2s(t_out["x_vox"], t2s),
-                "feat_t2s": _gather_t2s(t_out["pts_feats"], t2s)}
+        out = {"x_vox_t2s": _gather_t2s(t_out["x_vox"], t2s),
+               "feat_t2s": _gather_t2s(t_out["pts_feats"], t2s)}
+        if overflow_checks:
+            out["overflow"] = overflow.stats_for_model(tpl)
+        return out
 
     def student_fn(batch: Dict, t_out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         sb = batch["student"]
@@ -147,6 +156,13 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        if overflow_checks:
+            # the two parts' counters apart, their violations summed (the
+            # JAX step's keys)
+            for tag, stats in (("s", overflow.stats_for_model(spl)), ("t", t_out["overflow"])):
+                aux.update({f"{k}_{tag}": v for k, v in stats.items()})
+            aux["overflow/violations"] = (aux.pop("overflow/violations_s")
+                                          + aux.pop("overflow/violations_t"))
         return aux
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:

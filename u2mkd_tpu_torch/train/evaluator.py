@@ -7,7 +7,7 @@ optionally summing logits over ``num_vote`` augmented copies of each scan
 (TTA), devoxelize predictions back to the raw points through the stored
 inverse maps, and compute per-class IoU. Vote sums and devoxelization run on
 the host over the full-resolution clouds; the eval step stays fixed-shape.
-The evaluator's command-line entry point is ROADMAP section 1, item 4.
+Its command-line entry point is ``python -m u2mkd_tpu_torch.evaluate``.
 """
 
 from __future__ import annotations

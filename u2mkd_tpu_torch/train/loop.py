@@ -24,6 +24,7 @@ import torch
 
 from u2mkd_tpu_torch.train import evaluator as E
 from u2mkd_tpu_torch.train import metrics as M
+from u2mkd_tpu_torch.train import overflow
 from u2mkd_tpu_torch.train.checkpoints import CheckpointManager, training_state
 
 
@@ -100,10 +101,12 @@ class Trainer:
     With ``eval_raw_points``, a val batch that carries devoxelize
     information (``infos``) is scored on its raw points by ``raw_specs``
     (by default ``eval_counts_key`` on ``logits``, keyframe points only);
-    the other counters come from the eval step. A checkpoint holds the
-    model, ``optimizer``, ``scheduler`` and the step's ``generator``
-    (:func:`checkpoints.training_state`); a resumed run passes its step as
-    ``start_step``."""
+    the other counters come from the eval step. Every ``log_every`` steps
+    the train step's aux is fetched and logged, and its capacity counters
+    checked (``overflow.check_aux``; ``strict_capacity`` fails the run on a
+    violation). A checkpoint holds the model, ``optimizer``, ``scheduler``
+    and the step's ``generator`` (:func:`checkpoints.training_state`); a
+    resumed run passes its step as ``start_step``."""
 
     def __init__(self, run_dir: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  scheduler, generator: Optional[torch.Generator], train_step: Callable,
@@ -112,7 +115,8 @@ class Trainer:
                  ignore_label: int = 0, class_names: Optional[List[str]] = None,
                  eval_counts_key: str = "counts", extra_count_keys: Iterable[str] = (),
                  epoch_to_save: int = 0, log_every: int = 10, start_step: int = 0,
-                 eval_raw_points: bool = True, raw_specs: Optional[List[RawSpec]] = None):
+                 eval_raw_points: bool = True, raw_specs: Optional[List[RawSpec]] = None,
+                 strict_capacity: bool = False):
         self.run_dir = os.path.abspath(run_dir)
         os.makedirs(self.run_dir, exist_ok=True)
         self.model, self.optimizer = model, optimizer
@@ -130,6 +134,7 @@ class Trainer:
         self.log_every = log_every
         self.global_step = start_step
         self.eval_raw_points = eval_raw_points
+        self.strict_capacity = strict_capacity
         self.raw_specs = raw_specs or [RawSpec(eval_counts_key, "logits", None,
                                                "keyframe_mask_full")]
 
@@ -211,8 +216,10 @@ class Trainer:
                 self.global_step += 1
                 n_steps += 1
                 if self.global_step % self.log_every == 0:
-                    for k, v in aux.items():
-                        self.summary.add_scalar(f"train/{k}", float(v), self.global_step)
+                    host_aux = {k: float(v) for k, v in aux.items()}
+                    for k, v in host_aux.items():
+                        self.summary.add_scalar(f"train/{k}", v, self.global_step)
+                    overflow.check_aux(host_aux, self.strict_capacity)
             results = self.evaluate()
             for k, v in results.items():
                 self.summary.add_scalar(f"val/{k}", v, self.global_step)

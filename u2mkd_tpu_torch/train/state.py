@@ -2,9 +2,8 @@
 ``make_eval_step`` of ``u2mkd_tpu/train/state.py``): one training step or one
 inference request from a host batch.
 
-The JAX package's ``remat`` (a TPU memory workaround) and
-``overflow_checks`` (``train/overflow.py``, not ported yet) have no
-counterpart here.
+The JAX package's ``remat`` (a TPU memory workaround) has no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import torch
 from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
 from u2mkd_tpu_torch.models import plumbing as P
 from u2mkd_tpu_torch.ops import losses
-from u2mkd_tpu_torch.train import metrics
+from u2mkd_tpu_torch.train import metrics, overflow
 
 
 def batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
@@ -50,14 +49,17 @@ def batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     capacities: Sequence[int], ignore_label: int = 0,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-                    generator: Optional[torch.Generator] = None) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    overflow_checks: bool = False) -> Callable:
     """Returns ``step_fn(batch) -> {"loss"}``: Lovász + CE on the points
     that are valid, in a keyframe and not ``ignore_label``; the forward in
     train mode (batch-stat BN, whose running stats update in place as flax's
     mutable ``batch_stats`` do; dropout and drop path drawn from
     ``generator``, a seeded one on the model's device by default); then the
     backward, ``optimizer.step()`` and ``scheduler.step()``. The loss comes
-    back as a device tensor, so the step does not wait for the device."""
+    back as a device tensor, so the step does not wait for the device.
+    ``overflow_checks`` adds the batch's capacity counters
+    (``overflow.stats_for_model``), device tensors too."""
     device, plumbing_of, tensor_of = batch_reader(model, capacities)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -75,7 +77,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return {"loss": loss.detach()}
+        aux = {"loss": loss.detach()}
+        if overflow_checks:
+            aux.update(overflow.stats_for_model(pl))
+        return aux
 
     return step_fn
 

@@ -7,19 +7,25 @@ Paired student/teacher batches (``dataset.name``: the synthetic dataset, or
 five-term distillation loss, voxel and pixel mIoU validation on every raw
 point of a real dataset's scans (the best checkpoint follows the voxel
 head's). The
-frozen teacher comes from a stage-1 checkpoint of the port through the
-dotted option ``model.teacher_pretrain=PATH``; ``model.pretrain_weight``
-loads a backbone without its classifier; ``--weight-path`` resumes a run.
-``train.split_step`` and ``train.remat`` have no effect: in torch the split
-step is the fused step's computation, and remat is a TPU workaround. Runs on
-the card unless ``--cpu`` is given.
+frozen teacher comes from a stage-1 checkpoint of the port or a reference
+``SPVCNN_SPFORMER`` ``.pt`` through the dotted option
+``model.teacher_pretrain=PATH``; ``model.imagenet_pretrain=PATH`` starts
+the image branch from torchvision's ResNet-18 (``resnet18-5c106cde.pth``);
+``model.pretrain_weight`` loads a backbone without its classifier;
+``--weight-path`` resumes a run. ``train.overflow_checks`` (on by default)
+logs both parts' capacity counters every ``log_every`` steps;
+``train.strict_capacity`` (off by default) fails the run when a voxel grid
+saturates. ``train.split_step`` and ``train.remat`` have no effect: in
+torch the split step is the fused step's computation, and remat is a TPU
+workaround. Runs on the card unless ``--cpu`` is given.
 
 Usage:
   python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full configs/synthetic/train/tsd_tiny.yaml \\
       --run-dir RUN [--weight-path CKPT] [--cpu] [model.teacher_pretrain=CKPT] [k.e.y=value ...]
   python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full \\
       configs/nuscenes/train/spformer_tsd_full_ours_star.yaml --run-dir RUN \\
-      dataset.root=/data/nuscenes model.teacher_pretrain=CKPT
+      dataset.root=/data/nuscenes model.teacher_pretrain=max-iou-val-vox.pt \\
+      model.imagenet_pretrain=resnet18-5c106cde.pth
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import argparse
 import torch
 
 from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.models import convert_weights
 from u2mkd_tpu_torch.train import builder, checkpoints, distill, loop
 from u2mkd_tpu_torch.utils import config as config_lib
 
@@ -56,9 +63,11 @@ def main(argv=None):
     s_caps = tuple(cfg.get_path("student_capacities") or cfg.capacities)
     t_caps = tuple(cfg.get_path("teacher_capacities") or cfg.capacities)
     train_loader, val_loader = builder.make_distill_loaders(cfg, model)
-    if cfg.get_path("model.imagenet_pretrain"):
-        raise NotImplementedError("model.imagenet_pretrain: the ImageNet ResNet importer is "
-                                  "ROADMAP section 1, item 5")
+    # ImageNet init of the image branch (reference swiftnet.py:338-343)
+    imagenet = cfg.get_path("model.imagenet_pretrain")
+    if imagenet:
+        convert_weights.load_imagenet_pretrain(imagenet, model.model_s)
+        print(f"loaded ImageNet backbone from {imagenet}")
 
     # three restore modes (reference nusc_trainers.py:173-201)
     start_step = 0
@@ -83,7 +92,7 @@ def main(argv=None):
         model, optimizer, s_caps, t_caps, w_kl=cfg.criterion.get("w_kl", 1.0),
         w_feat=cfg.criterion.get("w_feat", 1.0), ignore_label=ignore,
         mse_norm_feat=cfg.criterion.get("mse_norm_feat", False), scheduler=scheduler,
-        generator=generator)
+        generator=generator, overflow_checks=bool(cfg.get_path("train.overflow_checks", True)))
     ev = distill.make_distill_eval_step(model, s_caps, t_caps, ncls, ignore,
                                         run_teacher=debug_val)
     loop.Trainer(
@@ -100,6 +109,7 @@ def main(argv=None):
         eval_raw_points=bool(cfg.get_path("eval.raw_points", True)),
         raw_specs=[loop.RawSpec("counts_vox", "logits", "student", None),
                    loop.RawSpec("counts_pix", "logits_pix", "student", "fov_full")],
+        strict_capacity=bool(cfg.get_path("train.strict_capacity", False)),
     ).train()
 
 

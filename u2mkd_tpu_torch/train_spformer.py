@@ -6,7 +6,10 @@ optimizer and schedule and the loaders (``dataset.name``: the synthetic
 dataset, or nuScenes, SemanticKITTI or Waymo files under ``dataset.root``),
 and runs the epoch loop with mIoU validation (on every raw point of a real
 dataset's scans) and the ``latest`` / ``max-iou-val-vox`` checkpoints under
-``--run-dir``. Runs on the card unless ``--cpu`` is given.
+``--run-dir``. ``train.overflow_checks`` (on by default) logs the capacity
+counters every ``log_every`` steps; ``train.strict_capacity`` (off by
+default) fails the run when a voxel grid saturates. Runs on the card unless
+``--cpu`` is given.
 
 Usage:
   python -m u2mkd_tpu_torch.train_spformer configs/synthetic/train/spformer_tiny.yaml \\
@@ -56,14 +59,17 @@ def main(argv=None):
 
     ignore = cfg.data.ignore_label
     ncls = cfg.data.num_classes
+    ovf = bool(cfg.get_path("train.overflow_checks", True))
     loop.Trainer(
         run_dir=args.run_dir, model=model, optimizer=optimizer, scheduler=scheduler,
         generator=generator,
-        train_step=state.make_train_step(model, optimizer, caps, ignore, scheduler, generator),
+        train_step=state.make_train_step(model, optimizer, caps, ignore, scheduler, generator,
+                                         overflow_checks=ovf),
         eval_step=state.make_eval_step(model, caps, ncls, ignore),
         train_loader=train_loader, val_loader=val_loader, num_epochs=cfg.num_epochs,
         num_classes=ncls, ignore_label=ignore,
         epoch_to_save=cfg.get_path("epoch_to_save", 0), start_step=start_step,
+        strict_capacity=bool(cfg.get_path("train.strict_capacity", False)),
     ).train()
 
 
