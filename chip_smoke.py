@@ -49,6 +49,24 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      cr=1.0, P=131072, no window geometry): three requests (34 K1 launches
      each, no K3), one held to the plain versions, one train step (K1, K1
      as dX, K1b) with a finite loss;
+ 9b. unet: the official SphereFormer U-Net (``models/sphereformer_unet.py``,
+     n_planes (32, 64, 128, 256, 256), head dim 16, attention at all five
+     levels over host geometry of levels 0-4 built on the recursive voxel
+     xyz, level 0's 131072 rows with one head a branch) on phase 3's
+     scans: the recursive xyz on the card against the host twin, each
+     level's largest window occupancy; three requests (37 K1 and 10 K3
+     launches each) and their profile; every K1 and K3 launch of one
+     request held to its plain version; one request through the plain
+     versions; three ``sgd_spformer`` train steps (37 / 36 / 37 / 10 / 10
+     / 10 launches of K1 / dX / K1b / K3 / K4 / K5) and two profiled; and
+     phase 7's whole-step check on one step;
+ 9c. window_msa: ``WindowMultiheadSA`` (dim 64, 4 heads, sine PE) on a
+     teacher request's level-1 voxels (N=65536) with the level's cubic
+     window: K2 launched from a module, held to its plain path;
+ 9d. pointops_clfm: ``knn`` (a 90x160 pixel grid into 65536 projected
+     points), FPS of 4096 from 65536, ``correlation2d`` at d=4 over 64
+     channels and one ``CLFM`` at 64/64, each on the card and on the CPU:
+     indices equal, features within 1e-4, the card's ms;
  10. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
      cr_t=2.0; P=65536, capacities (65536 ... 4096), 6 cameras at 360x640,
      B=1) through ``train.distill.make_distill_eval_step`` without the
@@ -247,6 +265,50 @@ CONV_ONLY_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 0, "rulebook_conv
                       "flash_rpe_fwd": 0}
 CONV_ONLY_TRAIN_LAUNCHES = {"rulebook_conv": 34, "rulebook_conv_dx": 33,
                             "rulebook_conv_dw": 34, "flash_rpe_fwd": 0}
+# the official SphereFormer U-Net (models/sphereformer_unet.py; no builder
+# name or config reaches it in either package) at its full width: 17
+# classes, n_planes (32, 64, 128, 256, 256), head dim 16, block_reps 2,
+# residual blocks, drop path 0.3 at every level, a 0.0125, the geometry of
+# the teacher's (6-voxel windows at VOXEL in 24 steps, sphere windows 2 x 2
+# deg x 120 m, both doubling per level, here from level 0), on phase 3's
+# scans. Launches read from the module: 37 ks=3 convs a request (the stem,
+# 2 x 2 block convs before and 2 x 2 tail convs after each of levels 0-3, 2
+# x 2 at level 4; the 1x1 i_branch is a dense product), 36 input gradients
+# (the stem's input is the point features, which need none), 37 weight
+# gradients; 10 attention branches (two at each of the five levels), K4 and
+# K5 once each per branch in the backward
+UNET_PLANES = (32, 64, 128, 256, 256)
+UNET_LAUNCHES = {"rulebook_conv": 37, "flash_rpe_fwd": 10}
+UNET_TRAIN_LAUNCHES = {"rulebook_conv": 37, "rulebook_conv_dx": 36, "rulebook_conv_dw": 37,
+                       "flash_rpe_fwd": 10, "flash_rpe_bwd_q": 10, "flash_rpe_bwd_k": 10}
+# the U-Net's planted fault: K1b launch 5 in backward order, the weight
+# gradient of level 1's last tail conv (the backward runs the tails of
+# levels 0-3, then the blocks of levels 4-0). Launch 17, the teacher's,
+# is a level-4 conv here, whose gradients lie below GRAD_FLOOR of the
+# model's largest entry, so that zeroing them moves the check by only a
+# share of the floor
+UNET_FAULT_DW_CALL = 5
+# WindowMultiheadSA (models/position_embedding.py) over K2: dim 64, 4 heads
+# of 16, sine PE, on the teacher's level-1 voxels with the level's cubic
+# window; one K2 launch per sample (B=1). Its output against the plain
+# path's to WINDOW_MSA_RTOL of the largest: K2 to 1e-4 (TOL), the
+# projections the same matmuls on both sides
+WINDOW_MSA_DIM = 64
+WINDOW_MSA_RTOL = 1e-4
+# the point ops and CLFM (ops/pointops.py, models/clfm.py) at a camera's
+# size: a 90 x 160 feature grid (nuScenes' 900 x 1600 at stride 10), 65536
+# projected points on a lattice of eighths of a pixel (every squared
+# distance exact in f32, so the card's kNN indices must equal the CPU's
+# whatever the order of the matmul's sums), FPS of 4096, correlation2d at
+# displacement 4 over 64 channels, one CLFM at 64/64; features held to the
+# CPU's to POINTOPS_RTOL of their largest entry
+POINTOPS_HW = (90, 160)
+POINTOPS_N = 65536
+POINTOPS_K = 3
+FPS_SAMPLES = 4096
+CORR_D = 4
+CLFM_CHANNELS = 64
+POINTOPS_RTOL = 1e-4
 # the planted capacity overflow: the stage-2 student's level-0 capacity
 # below the ~28k valid voxels of a scan of the set
 PLANTED_STUDENT_CAPS = (16384, 16384, 16384, 8192, 4096)
@@ -1094,8 +1156,8 @@ def each_launch_held_to_plain(worst):
 
 
 @contextlib.contextmanager
-def planted_fault():
-    """Inside, launch FAULT_DW_CALL of K1b (counting from 1 in the order the
+def planted_fault(call=FAULT_DW_CALL):
+    """Inside, launch ``call`` of K1b (counting from 1 in the order the
     backward makes them) returns its weight gradient zeroed: a wiring fault
     of one mid-level conv that the whole-step check must catch."""
     import torch
@@ -1107,7 +1169,7 @@ def planted_fault():
     def faulty(*args):
         out = kernel(*args)
         calls[0] += 1
-        return torch.zeros_like(out) if calls[0] == FAULT_DW_CALL else out
+        return torch.zeros_like(out) if calls[0] == call else out
 
     # the wrapper counts its launches on the function its module's name
     # holds: carry the count there and back
@@ -1120,7 +1182,7 @@ def planted_fault():
         S.rulebook_conv_dw = kernel
 
 
-def held_step(phase, setup, raw, launches, points):
+def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
     """The two checks of one train step on the card.
 
     ``setup()`` -> (a model with weights from one seed, its step function
@@ -1133,7 +1195,8 @@ def held_step(phase, setup, raw, launches, points):
     through the plain versions (the same weights and generator seed, so the
     same dropout masks) to GRAD_LOSS_RTOL, and each trained parameter's
     gradient within the rule of GRAD_SPREADS, which a step with
-    :func:`planted_fault` must miss by FAULT_MARGIN."""
+    :func:`planted_fault` (at K1b launch ``fault_call``) must miss by
+    FAULT_MARGIN."""
     import torch
 
     runs, per_launch = {}, {}
@@ -1151,7 +1214,8 @@ def held_step(phase, setup, raw, launches, points):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with (each_launch_held_to_plain(per_launch) if tag == "kernels"
-              else planted_fault() if tag == "kernels_fault" else contextlib.nullcontext()):
+              else planted_fault(fault_call) if tag == "kernels_fault"
+              else contextlib.nullcontext()):
             loss = step_fn(raw)["loss"].item()
         torch.cuda.synchronize()
         runs[tag] = ({n: p.grad for n, p in trained(model)}, loss, time.perf_counter() - t0,
@@ -1176,7 +1240,7 @@ def held_step(phase, setup, raw, launches, points):
            "max_grad_rel_diff": worst, "worst_param": worst_name,
            "ulp_nudge_grad_rel_diffs": [sp for sp, _ in spreads],
            "ulp_nudge_worst_params": [n for _, n in spreads], "grad_tol_rel": tol,
-           "planted_fault": f"K1b launch {FAULT_DW_CALL} zeroed",
+           "planted_fault": f"K1b launch {fault_call} zeroed",
            "planted_fault_grad_rel_diff": fault, "planted_fault_param": fault_name,
            "planted_fault_margin": fault / tol, "params": len(ref),
            "step_wall_s": {k: v[2] for k, v in runs.items()},
@@ -1655,6 +1719,280 @@ def phase_conv_only():
     if not math.isfinite(row["loss"]) or step != CONV_ONLY_TRAIN_LAUNCHES:
         raise AssertionError(f"expected a finite loss and {CONV_ONLY_TRAIN_LAUNCHES}: {row}")
     return requests, step
+
+
+def unet_model(seed, drop_path_rate=0.3):
+    """The SphereFormer U-Net at full width with random weights from
+    ``seed``, on the card (in train mode, as built)."""
+    import torch
+    from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
+
+    ws = VOXEL * 6
+    return SphereFormerSemantic(
+        num_classes=NUM_CLASSES, in_channel=4, n_planes=UNET_PLANES, window_size=(ws,) * 3,
+        quant_size=(ws / 24,) * 3, window_size_sphere=WINDOW_SPHERE,
+        quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
+        head_dim=16, drop_path_rate=drop_path_rate, a=0.0125, block_type="residual",
+        generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+
+
+def _unet_train_setup(seed, generator_seed):
+    """The U-Net with ``sgd_spformer`` at LR, its step function and the
+    function giving its trained (name, parameter) pairs."""
+    import torch
+    from u2mkd_tpu_torch.train import optim, state
+
+    model = unet_model(seed)
+    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
+    gen = torch.Generator(device=DEVICE).manual_seed(generator_seed)
+    return (model, state.make_train_step(model, opt, CAPS, generator=gen),
+            lambda m: m.named_parameters())
+
+
+def _counted(counters, fn, *args):
+    """fn(*args) between CUDA events -> (output, device ms, wall ms, the
+    launches of each of ``counters`` it made)."""
+    before = [c.launches for c in counters]
+    out, device_ms, wall_ms = _timed(fn, *args)
+    return out, device_ms, wall_ms, {c.__name__: c.launches - b
+                                     for c, b in zip(counters, before)}
+
+
+def phase_unet():
+    """The SphereFormer U-Net at P (attention at all five levels, level 0's
+    131072 rows with one head a branch): the recursive voxel xyz on the
+    card against the host twin the geometry was built on, the largest
+    window occupancy of each level and branch; three requests through
+    ``make_eval_step`` (host ms, device ms, launches, peak memory) and their
+    profile; every K1 and K3 launch of one request held to its plain
+    version; one request through the plain versions; three
+    ``sgd_spformer`` train steps (finite losses, launches, peak memory),
+    two more profiled; and phase 7's whole-step check on one step. ->
+    (the requests' launches, the steps' launches)."""
+    import torch
+    from u2mkd_tpu_torch.data import plumbing_host
+    from u2mkd_tpu_torch.models import plumbing
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+    from u2mkd_tpu_torch.train import metrics, state
+
+    model = unet_model(seed=0).eval()
+    eval_fn = state.make_eval_step(model, CAPS, NUM_CLASSES)
+    batches = [(seed, *host_batch(seed, model)) for seed in SEEDS]
+    torch.cuda.synchronize()
+
+    arrays = batches[0][1]["plumbing"]
+    pl = plumbing.from_precomputed(arrays, batches[0][1]["pmask"], DEVICE, model.point_levels)
+    xyz0 = torch.as_tensor(arrays["voxxyz"][0], device=DEVICE)
+    dev = plumbing.recursive_vox_xyz(xyz0, pl.levels)
+    twin = plumbing_host.recursive_vox_xyz(arrays["voxxyz"][0], arrays["down8"],
+                                           arrays["vmask"])
+    diff = max(float(np.abs(d.cpu().numpy() - t).max()) for d, t in zip(dev, twin))
+    geom = {"phase": "unet_geometry", "points": P, "capacities": list(CAPS),
+            "valid_voxels": [int(m.sum()) for m in arrays["vmask"]],
+            "geometry_levels": pl.wgeom_first,
+            "max_window_occupancy": {
+                b: [int(g["occ"][0]) for g in arrays["wgeom"][b]] for b in ("cubic", "sphere")},
+            "recursive_xyz_device_vs_host_max_abs_diff": diff}
+    emit(geom)
+    if diff > 1e-6 or pl.wgeom_first != 0 or len(arrays["wgeom"]["cubic"]) != len(CAPS):
+        raise AssertionError(f"the U-Net's geometry is not levels 0-4 over the recursive "
+                             f"xyz: {geom}")
+    del pl, dev, xyz0
+
+    counters = (S.rulebook_conv, W.flash_rpe_fwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rows, outs = [], []
+    for seed, raw, host_ms in batches:
+        out, device_ms, wall_ms, launched = _counted(counters, eval_fn, raw)
+        row = {"phase": "unet_request", "seed": seed, "points": P,
+               "valid_points": int(raw["pmask"].sum()), "host_ms": host_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms,
+               "logits_shape": list(out["logits"].shape),
+               "finite": bool(torch.isfinite(out["logits"]).all().item()),
+               "launches": launched,
+               "miou_random_weights": metrics.compute_miou(
+                   {k: v.cpu().numpy() for k, v in out["counts"].items()})[0]}
+        emit(row)
+        if not row["finite"] or row["logits_shape"] != [1, P, NUM_CLASSES] \
+                or launched != UNET_LAUNCHES:
+            raise AssertionError(f"expected finite logits and {UNET_LAUNCHES}: {row}")
+        rows.append(row)
+        outs.append(out)
+    requests = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    warm_ms = float(np.median([r["device_ms"] for r in rows[1:]]))
+    groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, batches[0][1],
+                                                     PROFILED_REQUESTS, "profile_unet.txt")
+    emit({"phase": "unet_profile", "requests": PROFILED_REQUESTS, "device_busy_ms": busy_ms,
+          "request_device_ms_unprofiled": warm_ms, "device_busy_share": busy_ms / warm_ms,
+          "request_wall_ms_profiled": profiled_ms, "by_kernel": groups,
+          "max_memory_allocated_bytes": peak})
+
+    seed, raw, _ = batches[0]
+    per_launch = {}
+    with each_launch_held_to_plain(per_launch):
+        eval_fn(raw)
+    for name, r in per_launch.items():
+        r["tol_rel"] = TOL[(name, "f32")]
+    emit({"phase": "unet_per_launch", "points": P, "by_kernel": per_launch})
+    if {n: r["calls"] for n, r in per_launch.items()} != UNET_LAUNCHES \
+            or any(not r["max_rel_err"] <= r["tol_rel"] for r in per_launch.values()):
+        raise AssertionError(f"a kernel launch of the U-Net request disagrees with its plain "
+                             f"version, or the launches are not {UNET_LAUNCHES}: {per_launch}")
+    plain, plain_s = _plain_request(model, eval_fn, raw)
+    _held_to_plain({"phase": "unet_plain_check", "seed": seed, "points": P,
+                    "plain_wall_s": plain_s}, outs[0], plain,
+                   (("vox", "logits", torch.as_tensor(raw["pmask"], device=DEVICE)),))
+    del model, eval_fn, outs, plain
+
+    model, step_fn, _ = _unet_train_setup(seed=0, generator_seed=0)
+    counters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw,
+                W.flash_rpe_fwd, W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for seed, raw, host_ms in batches:
+        out, device_ms, wall_ms, launched = _counted(counters, step_fn, raw)
+        row = {"phase": "unet_train_step", "seed": seed, "points": P, "host_ms": host_ms,
+               "device_ms": device_ms, "wall_ms": wall_ms, "loss": out["loss"].item(),
+               "launches": launched}
+        emit(row)
+        if not math.isfinite(row["loss"]) or launched != UNET_TRAIN_LAUNCHES:
+            raise AssertionError(f"expected a finite loss and {UNET_TRAIN_LAUNCHES}: {row}")
+        steps.append(row)
+    train = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    warm_ms = float(np.median([r["device_ms"] for r in steps[1:]]))
+    groups, busy_ms, profiled_ms = profile_by_kernel(step_fn, batches[0][1], PROFILED_STEPS,
+                                                     "profile_unet_train.txt")
+    emit({"phase": "unet_train", "steps": len(steps), "launches": train,
+          "device_ms": [r["device_ms"] for r in steps], "loss": [r["loss"] for r in steps],
+          "max_memory_allocated_bytes": peak, "profiled_steps": PROFILED_STEPS,
+          "device_busy_ms": busy_ms, "step_device_ms_unprofiled": warm_ms,
+          "device_busy_share": busy_ms / warm_ms, "step_wall_ms_profiled": profiled_ms,
+          "by_kernel": groups})
+    del model, step_fn
+    held_step("unet_grad_check", lambda: _unet_train_setup(seed=1, generator_seed=5),
+              batches[1][1], UNET_TRAIN_LAUNCHES, P, fault_call=UNET_FAULT_DW_CALL)
+    return requests, train
+
+
+def phase_window_msa(raw):
+    """``WindowMultiheadSA`` (dim 64, 4 heads, sine PE) on one teacher
+    request's level-1 voxels (N=65536) with the level's cubic window, in
+    eval mode without gradients: its K2 launches, device ms, and its output
+    against the same module through K2's plain version. -> its launches."""
+    import torch
+    from u2mkd_tpu_torch.models.position_embedding import WindowMultiheadSA
+    from u2mkd_tpu_torch.ops.kernels import wattn_kernel as W
+
+    xyz, valid = level1_voxels(raw)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    feats = torch.randn(1, xyz.shape[0], WINDOW_MSA_DIM, device=DEVICE, generator=gen)
+    module = WindowMultiheadSA(WINDOW_MSA_DIM, WINDOW_HEADS, WINDOW_CUBIC, pe_type="sine",
+                               generator=torch.Generator().manual_seed(4)).to(DEVICE).eval()
+    args = (feats, xyz[None], valid[None])
+    with torch.no_grad():
+        W.flash_window_sorted.launches = 0
+        out, device_ms, wall_ms = _timed(lambda a: module(*a), args)
+        launches = W.flash_window_sorted.launches
+        module.plain = True
+        ref = module(*args)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: module(*args), reps=3, warmup=1)
+        module.plain = False
+        ms = cuda_ms(lambda: module(*args))
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    row = {"phase": "window_msa", "rows": int(xyz.shape[0]), "valid": int(valid.sum()),
+           "dim": WINDOW_MSA_DIM, "heads": WINDOW_HEADS, "pe": "sine",
+           "window": list(WINDOW_CUBIC), "launches": launches, "device_ms": device_ms,
+           "wall_ms": wall_ms, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "max_abs_plain": scale, "tol_rel": WINDOW_MSA_RTOL,
+           "finite": bool(torch.isfinite(out).all().item()),
+           "invalid_rows_zero": bool((out[0][~valid] == 0).all().item())}
+    emit(row)
+    if launches != 1 or not (err <= WINDOW_MSA_RTOL * scale and row["finite"]
+                             and row["invalid_rows_zero"]):
+        raise AssertionError(f"WindowMultiheadSA: expected one K2 launch and the plain "
+                             f"path's output: {row}")
+    return launches
+
+
+def _held_to_cpu(name, got, want, exact=False):
+    """(largest |card - CPU|, its share of the CPU output's largest entry);
+    raises unless equal (``exact``) or within POINTOPS_RTOL."""
+    got = got.detach().cpu()
+    err = (got.double() - want.double()).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if not (err == 0 if exact else rel <= POINTOPS_RTOL):
+        raise AssertionError(f"{name} on the card disagrees with the CPU: max |diff| {err} "
+                             f"({rel} of the largest)")
+    return err, rel
+
+
+def phase_pointops_clfm(raw):
+    """kNN (a 90 x 160 pixel grid into 65536 projected points, k=3, 10%
+    masked), FPS of 4096 from the 65536 first points of a teacher scan,
+    correlation2d at d=4 over a 90 x 160 x 64 map and one CLFM at 64/64 on
+    those points: each on the card and on the CPU from the same inputs
+    (indices equal, features within POINTOPS_RTOL), with the card's ms."""
+    import torch
+    from u2mkd_tpu_torch.models.clfm import CLFM
+    from u2mkd_tpu_torch.ops import pointops
+
+    h, w = POINTOPS_HW
+    rng = np.random.RandomState(5)
+    uv = np.stack([rng.randint(0, (w - 1) * 8 + 1, POINTOPS_N),
+                   rng.randint(0, (h - 1) * 8 + 1, POINTOPS_N)], -1).astype(np.float32) / 8
+    mask = rng.rand(POINTOPS_N) < 0.9
+    uv[~mask] = 0.0
+    gx = np.tile(np.arange(w, dtype=np.float32), h)
+    gy = np.repeat(np.arange(h, dtype=np.float32), w)
+    grid = np.stack([gx, gy], -1)
+    pts = np.ascontiguousarray(raw["xyz"][0, :POINTOPS_N], np.float32)
+    fmap_a = rng.randn(h, w, CLFM_CHANNELS).astype(np.float32)
+    fmap_b = rng.randn(h, w, CLFM_CHANNELS).astype(np.float32)
+    f3d = rng.randn(POINTOPS_N, CLFM_CHANNELS).astype(np.float32)
+    clfm = CLFM(CLFM_CHANNELS, CLFM_CHANNELS, generator=torch.Generator().manual_seed(6))
+    clfm_gpu = CLFM(CLFM_CHANNELS, CLFM_CHANNELS).to(DEVICE)
+    clfm_gpu.load_state_dict(clfm.state_dict())
+
+    def cpu(x):
+        return torch.from_numpy(x)
+
+    def gpu(x):
+        return torch.from_numpy(x).to(DEVICE)
+
+    calls = {
+        "knn": (lambda t: pointops.knn(t(grid), t(uv), POINTOPS_K, t(mask)), True),
+        "fps": (lambda t: pointops.farthest_point_sampling(t(pts), FPS_SAMPLES), True),
+        "correlation2d": (lambda t: pointops.correlation2d(t(fmap_a), t(fmap_b), CORR_D),
+                          False),
+        "clfm": (lambda t: (clfm_gpu if t is gpu else clfm)(t(uv), t(fmap_a), t(f3d),
+                                                             t(mask)), False),
+    }
+    row = {"phase": "pointops_clfm", "grid_hw": [h, w], "points": POINTOPS_N,
+           "k": POINTOPS_K, "fps_samples": FPS_SAMPLES, "corr_d": CORR_D,
+           "channels": CLFM_CHANNELS, "tol_rel": POINTOPS_RTOL}
+    with torch.no_grad():
+        for name, (fn, exact) in calls.items():
+            t0 = time.perf_counter()
+            want = fn(cpu)
+            row[f"{name}_cpu_s"] = time.perf_counter() - t0
+            got = fn(gpu)
+            if torch.is_tensor(want):
+                got, want = (got,), (want,)
+            errs = [_held_to_cpu(f"{name}[{i}]", g, wnt, exact)
+                    for i, (g, wnt) in enumerate(zip(got, want))]
+            row[f"{name}_max_abs_err"] = max(e for e, _ in errs)
+            row[f"{name}_max_rel_err"] = max(r for _, r in errs)
+            row[f"{name}_ms"] = cuda_ms(lambda: fn(gpu), reps=3 if name == "fps" else 10,
+                                        warmup=1)
+    emit(row)
 
 
 def _student_train_setup(seed, generator_seed):
@@ -2357,8 +2695,10 @@ def kernels_line(rows, launches):
     stage 1 "data_train" and of stage 2, pipelined, "data_student_train",
     the request with the imported teacher "import", the conv-only model's
     three requests "conv_only" (no K3) and its train step
-    "conv_only_train", and the evaluation entry point's runs on the stage-1
-    and stage-2 checkpoints "evaluate_teacher" and "evaluate_student"; K1
+    "conv_only_train", the evaluation entry point's runs on the stage-1
+    and stage-2 checkpoints "evaluate_teacher" and "evaluate_student", the
+    SphereFormer U-Net's three requests "unet" and three train steps
+    "unet_train", and ``WindowMultiheadSA``'s call "window_msa"; K1
     counts its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32."""
@@ -2371,22 +2711,24 @@ def kernels_line(rows, launches):
         "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher",
                          "student_train", "data_train", "data_student_train", "import",
                          "conv_only", "conv_only_train", "evaluate_teacher",
-                         "evaluate_student"),
+                         "evaluate_student", "unet", "unet_train"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
                    student_train_dx=launches["student_train"]["rulebook_conv_dx"],
                    data_train_dx=launches["data_train"]["rulebook_conv_dx"],
                    data_student_train_dx=launches["data_student_train"]["rulebook_conv_dx"],
-                   conv_only_train_dx=launches["conv_only_train"]["rulebook_conv_dx"]),
+                   conv_only_train_dx=launches["conv_only_train"]["rulebook_conv_dx"],
+                   unet_train_dx=launches["unet_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
-                     "data_student_train", "conv_only_train"),
-        "K2": paths("flash_window_sorted", "entry"),
+                     "data_student_train", "conv_only_train", "unet_train"),
+        "K2": paths("flash_window_sorted", "entry", "window_msa"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
                     "student_train", "data_train", "data_student_train", "import",
-                    "conv_only", "evaluate_teacher", "evaluate_student"),
+                    "conv_only", "evaluate_teacher", "evaluate_student", "unet",
+                    "unet_train"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
-                    "data_student_train"),
+                    "data_student_train", "unet_train"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
-                    "data_student_train"),
+                    "data_student_train", "unet_train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -2440,8 +2782,11 @@ def main():
     launches["train"] = phase_train()
     phase_grad_check()
     launches["entry"] = {"flash_window_sorted": phase_window_entry(raw)}
-    del raw
     launches["conv_only"], launches["conv_only_train"] = phase_conv_only()
+    launches["unet"], launches["unet_train"] = phase_unet()
+    launches["window_msa"] = {"flash_window_sorted": phase_window_msa(raw)}
+    phase_pointops_clfm(raw)
+    del raw
     import shutil
     import tempfile
 

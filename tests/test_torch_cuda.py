@@ -818,3 +818,115 @@ def test_device_loader_uploads_on_a_side_stream(cuda_device):
             assert sorted(g) == sorted(k for k in b if k not in loaders.HOST_LOCAL_KEYS)
             for k, v in g.items():
                 assert torch.equal(v, torch.from_numpy(b[k])), k
+
+
+@pytest.mark.cuda
+def test_unet_request_and_step_match_plain(cuda_device):
+    """The SphereFormer U-Net (``chip_smoke.unet_model``: full width,
+    attention at all five levels) at a small size: 37 K1 and 10 K3 launches
+    a request with the plain versions' logits; a train step's 37 / 36 / 37
+    / 10 / 10 / 10 launches and its loss equal to a plain step's (same
+    weights and generator seed, so the same drop-path masks)."""
+    caps = (2048, 1024, 512, 256, 128)
+    raw = synthetic.make_batch(np.random.RandomState(8), 1, 4096, voxel_size=0.1)
+    model = chip_smoke.unet_model(seed=2).to(cuda_device).eval()
+    raw["plumbing"] = plumbing_host.batch_plumbing(
+        raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+        wgeom_params=wgeom_host.params_from_model(model))
+    assert len(raw["plumbing"]["wgeom"]["sphere"]) == 5
+    eval_fn = state.make_eval_step(model, caps, 17)
+    k1, k3 = spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd
+    before = (k1.launches, k3.launches)
+    out = eval_fn(raw)
+    assert (k1.launches - before[0], k3.launches - before[1]) == (37, 10)
+    model.set_plain(True)
+    try:
+        ref = eval_fn(raw)
+    finally:
+        model.set_plain(False)
+    valid = torch.from_numpy(raw["pmask"]).to(cuda_device)
+    assert torch.isfinite(out["logits"]).all()
+    assert _rel_err(out["logits"][valid], ref["logits"][valid]) <= 1e-4
+    assert (out["pred"] == ref["pred"])[valid].float().mean().item() >= 0.999
+
+    counters = (spconv_kernel.rulebook_conv, spconv_kernel.rulebook_conv_dx,
+                spconv_kernel.rulebook_conv_dw, wattn_kernel.flash_rpe_fwd,
+                wattn_kernel.flash_rpe_bwd_q, wattn_kernel.flash_rpe_bwd_k)
+    losses = []
+    for plain in (False, True):
+        model = chip_smoke.unet_model(seed=3).to(cuda_device)
+        model.set_plain(plain)
+        opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", 0.02)
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        step_fn = state.make_train_step(model, opt, caps, generator=gen)
+        before = [c.launches for c in counters]
+        losses.append(step_fn(raw)["loss"].item())
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([0] * 6 if plain else [37, 36, 37, 10, 10, 10])
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+@pytest.mark.cuda
+def test_window_msa_launches_k2(cuda_device, rng):
+    """``WindowMultiheadSA`` on the card: one K2 launch a sample and the
+    plain path's output; under autograd it refuses (K2 has no backward)."""
+    from u2mkd_tpu_torch.models.position_embedding import WindowMultiheadSA
+
+    b, v, dim = 2, 1000, 64
+    xyz = torch.from_numpy(rng.uniform(0, 6, (b, v, 3)).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy(rng.rand(b, v) < 0.9).to(cuda_device)
+    feats = torch.from_numpy(rng.randn(b, v, dim).astype(np.float32)).to(cuda_device)
+    module = WindowMultiheadSA(dim, 4, (0.6, 0.6, 0.6), pe_type="sine",
+                               generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    k2 = wattn_kernel.flash_window_sorted
+    with torch.no_grad():
+        before = k2.launches
+        out = module(feats, xyz, mask)
+        assert k2.launches - before == b
+        module.plain = True
+        ref = module(feats, xyz, mask)
+        module.plain = False
+    assert _rel_err(out, ref) <= 1e-4
+    assert (out[~mask] == 0).all()
+    with pytest.raises(NotImplementedError):
+        module(feats, xyz, mask)
+
+
+@pytest.mark.cuda
+def test_pointops_and_clfm_on_card_match_cpu(cuda_device, rng):
+    """kNN (points on a lattice of eighths, ties included), FPS,
+    correlation2d and CLFM on the card against the same calls on the CPU:
+    indices equal, features within 1e-4 of the largest."""
+    from u2mkd_tpu_torch.models.clfm import CLFM
+    from u2mkd_tpu_torch.ops import pointops
+
+    h, w, n = 24, 40, 3000
+    uv = (np.stack([rng.randint(0, (w - 1) * 8 + 1, n), rng.randint(0, (h - 1) * 8 + 1, n)],
+                   -1) / 8).astype(np.float32)
+    uv[1000:1200] = uv[:200]
+    mask = rng.rand(n) < 0.9
+    grid = np.stack([np.tile(np.arange(w), h), np.repeat(np.arange(h), w)], -1).astype(np.float32)
+    pts = rng.randn(n, 3).astype(np.float32)
+    fa = rng.randn(h, w, 16).astype(np.float32)
+    fb = rng.randn(h, w, 16).astype(np.float32)
+    f3d = rng.randn(n, 16).astype(np.float32)
+
+    def both(fn):
+        return fn(torch.from_numpy), fn(lambda x: torch.from_numpy(x).to(cuda_device))
+
+    for fn in (lambda t: pointops.knn(t(grid), t(uv), 4, t(mask), tile=256),
+               lambda t: pointops.farthest_point_sampling(t(pts), 200, t(mask))):
+        cpu, gpu = both(fn)
+        assert torch.equal(gpu.cpu(), cpu)
+    cpu, gpu = both(lambda t: pointops.correlation2d(t(fa), t(fb), 3))
+    assert _rel_err(gpu.cpu(), cpu) <= 1e-4
+    clfm = CLFM(16, 16, generator=torch.Generator().manual_seed(2))
+    clfm_gpu = CLFM(16, 16).to(cuda_device)
+    clfm_gpu.load_state_dict(clfm.state_dict())
+    with torch.no_grad():
+        want = clfm(torch.from_numpy(uv), torch.from_numpy(fa), torch.from_numpy(f3d),
+                    torch.from_numpy(mask))
+        got = clfm_gpu(*(torch.from_numpy(x).to(cuda_device) for x in (uv, fa, f3d, mask)))
+    for g, c in zip(got, want):
+        assert _rel_err(g.cpu(), c) <= 1e-4

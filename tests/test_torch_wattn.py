@@ -181,6 +181,46 @@ def test_plain_forward_lse(rng):
     assert out.shape == (len(cq), h, d)
 
 
+def test_plain_forward_keeps_no_per_pair_tensors(rng):
+    """Under autograd the plain K3 holds between forward and backward only
+    its inputs and the pair lists, not the per-pair intermediates (gathered
+    projections, scores, values: some kilobytes a pair), which made a
+    plain train step of the SphereFormer U-Net (attention at level 0 of
+    P=131072) exhaust a card's 80 GB; its gradients stay autograd's."""
+    n, h, d, g = 512, 2, 16, 24
+    qs, ks, vs = (torch.from_numpy(rng.randn(n, h, d).astype(np.float32) * 0.3)
+                  .requires_grad_(True) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(rng.randn(2 * g, 3, h, d).astype(np.float32) * 0.05)
+                  .requires_grad_(True) for _ in range(3))
+    rank = torch.zeros(n)                                  # one window of 512 rows
+    quant = torch.from_numpy(rng.randint(0, g, (n, 3)).astype(np.int32))
+    r = torch.from_numpy(rng.uniform(0, 50, n).astype(np.float32))
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        qT, kT = wattn.table_projections(qs, tq), wattn.table_projections(ks, tk)
+        out, lse = wattn.window_attention_rpe_fwd(qs, ks, vs, qT, kT, tv, rank, quant, r,
+                                                  g, 0.0125)
+    pairs = n * n
+    assert sum(saved) < 64 * pairs, sum(saved) / pairs    # kept: ~18 bytes a pair
+    (out.square().sum() + lse.sum()).backward()
+    grads = [x.grad.clone() for x in (qs, ks, vs, tq, tk, tv)]
+    for x in (qs, ks, vs, tq, tk, tv):
+        x.grad = None
+    qT, kT = wattn.table_projections(qs, tq), wattn.table_projections(ks, tk)
+    out2, lse2 = wattn._rpe_chunk(qs.float(), ks.float(), vs.float(), qT, kT, tv.float(),
+                                  quant.long().clamp(0, g - 1), r,
+                                  torch.arange(n).repeat_interleave(n),
+                                  torch.arange(n).repeat(n), 0, n, g, 0.0125)
+    (out2.square().sum() + lse2.sum()).backward()
+    for got, x in zip(grads, (qs, ks, vs, tq, tk, tv)):
+        np.testing.assert_allclose(got.numpy(), x.grad.numpy(), rtol=1e-5, atol=1e-6)
+
+
 def _lane_walk_fwd(qs, ks, vs, qT, kT, tv, rank, quant, r, g, a, nk=2):
     """K3's walk (``csrc/wattn_rpe_fwd.cu``) in torch: each row steps through
     its own run [start, end) from ``wattn_kernel.warp_run_bounds`` in key

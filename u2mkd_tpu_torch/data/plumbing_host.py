@@ -14,7 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -124,7 +124,9 @@ def batch_plumbing(pcoords: np.ndarray, pxyz: np.ndarray, pmask: np.ndarray,
     ``wgeom_params`` (``wgeom_host.params_from_model``) adds the window
     geometry of the attention branches over the whole batch (the JAX
     package's arrays with its leading shard axis dropped: the port has no
-    data-parallel shards yet)."""
+    data-parallel shards yet), over the flat voxel means ``voxxyz`` or, for
+    a spec with ``recursive_xyz`` (the SphereFormer U-Net's), over
+    :func:`recursive_vox_xyz`."""
     b = len(pcoords)
     out = _alloc(b, pcoords.shape[1], capacities)
 
@@ -143,6 +145,33 @@ def batch_plumbing(pcoords: np.ndarray, pxyz: np.ndarray, pmask: np.ndarray,
     if wgeom_params is not None:
         from u2mkd_tpu_torch.data import wgeom_host
 
-        out["wgeom"] = wgeom_host.batch_window_geometry(out["voxxyz"], out["vmask"],
-                                                        wgeom_params)
+        xyz = out["voxxyz"]
+        if wgeom_params.get("recursive_xyz"):
+            xyz = recursive_vox_xyz(out["voxxyz"][0], out["down8"], out["vmask"])
+        out["wgeom"] = wgeom_host.batch_window_geometry(xyz, out["vmask"], wgeom_params)
+    return out
+
+
+def recursive_vox_xyz(xyz0: np.ndarray, down8: Sequence[np.ndarray],
+                      vmask: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Per-level voxel xyz [B, V_L, 3] f32 by recursive mean-of-means: level
+    0 is ``xyz0`` (the plumbing's ``voxxyz[0]``); each coarser voxel is the
+    mean of its live ``down8`` rows at the finer level (the SphereFormer
+    U-Net's coordinate tracking). The host twin of
+    ``models/plumbing.recursive_vox_xyz`` and of the JAX package's, in its
+    order of f32 operations: a masked sum over the 8 offsets in offset order
+    from 0, then one division by max(count, 1); dead voxels get 0. The
+    window keys and in-window quantization depend on the last bit."""
+    out = [np.asarray(xyz0, np.float32)]
+    for li in range(1, len(vmask)):
+        prev, nbr = out[-1], np.asarray(down8[li])          # [B, Vp, 3], [B, 8, V]
+        ok = nbr >= 0
+        rows = np.clip(nbr, 0, prev.shape[1] - 1)
+        s = np.zeros(nbr.shape[:1] + nbr.shape[2:] + (3,), np.float32)
+        for k in range(nbr.shape[1]):
+            vals = np.take_along_axis(prev, rows[:, k, :, None], axis=1)
+            s += np.where(ok[:, k, :, None], vals, np.float32(0.0))
+        c = np.maximum(ok.sum(axis=1).astype(np.float32), np.float32(1.0))[..., None]
+        live = np.asarray(vmask[li]).astype(bool)[..., None]
+        out.append(np.where(live, s / c, np.float32(0.0)))
     return out

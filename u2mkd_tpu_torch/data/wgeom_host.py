@@ -1,7 +1,7 @@
 """Host-side window geometry for the attention kernel.
 
-Port of ``u2mkd_tpu/data/wgeom_host.py`` (native builder only). Per encoder
-level and attention branch, the flattened [B*V] voxel batch is window-sorted
+Port of ``u2mkd_tpu/data/wgeom_host.py`` (native builder only). Per
+attention level and branch, the flattened [B*V] voxel batch is window-sorted
 on the host; the device gathers by ``order``, runs the kernel over each
 128-row query tile's key range [kmin, kmax), and gathers back by ``inv``.
 Arrays per level and branch (see ``core.structures.WindowGeom``): order,
@@ -64,9 +64,10 @@ def heads_for_levels(cr: float, head_dim: int) -> List[Tuple[int, int, int]]:
 def level_window_params(window_size, window_size_sphere, quant_size,
                         quant_size_sphere, window_size_scale, n_levels: int = 4,
                         heads=None) -> List[Dict]:
-    """Per-encoder-level (cubic, sphere) window and quantization sizes,
-    doubling as SPVCNN's encoder does; entry i is U-Net level i+1. With
-    ``heads`` each entry also carries the branch tiles."""
+    """Per-attention-level (cubic, sphere) window and quantization sizes,
+    doubling per level as both models do; entry i is the i-th attention
+    level (U-Net level i+1 of a SPVCNN encoder, level i of the SphereFormer
+    U-Net). With ``heads`` each entry also carries the branch tiles."""
     ws = [float(w) for w in window_size]
     qs = [float(q) for q in quant_size]
     wss = [float(w) for w in window_size_sphere]
@@ -87,20 +88,38 @@ def level_window_params(window_size, window_size_sphere, quant_size,
     return out
 
 
+def unet_heads(n_planes: Sequence[int], head_dim: int) -> List[Tuple[int, int, int]]:
+    """Per-level (h_cubic, h_sphere, head_dim) of the SphereFormer U-Net:
+    ``n_planes[i] // head_dim`` heads at level i, split h // 2 and
+    h - h // 2 (``models/sphereformer_unet.py``)."""
+    out = []
+    for c in n_planes:
+        h = int(c) // head_dim
+        out.append((h // 2, h - h // 2, head_dim))
+    return out
+
+
 def params_from_model(model) -> Optional[Dict]:
     """Geometry spec from a model's window attributes; None for a model
     without SphereFormer blocks (the conv-only SPVCNN), which reads no
-    window geometry."""
+    window geometry. A SPVCNN encoder's spec covers levels 1..4 over the
+    flat voxel means; the SphereFormer U-Net's (a model with ``n_planes``)
+    covers levels 0..4 (``first_level`` 0) over the recursive means
+    (``recursive_xyz``), its windows starting at the model's own and
+    doubling per level by ``window_size_scale``."""
     if not getattr(model, "sphereformer", True):
         return None
-    heads = heads_for_levels(float(model.cr), int(model.head_dim))
-    return dict(
-        levels=level_window_params(
-            model.window_size, model.window_size_sphere, model.quant_size,
-            model.quant_size_sphere, model.window_size_scale, heads=heads),
-        tile=128,
-        branch_workers=min(8, os.cpu_count() or 1),
-    )
+    spec = dict(tile=128, branch_workers=min(8, os.cpu_count() or 1))
+    if hasattr(model, "n_planes"):
+        heads = unet_heads(model.n_planes, int(model.head_dim))
+        spec.update(first_level=0, recursive_xyz=True)
+    else:
+        heads = heads_for_levels(float(model.cr), int(model.head_dim))
+    spec["levels"] = level_window_params(
+        model.window_size, model.window_size_sphere, model.quant_size,
+        model.quant_size_sphere, model.window_size_scale, n_levels=len(heads),
+        heads=heads)
+    return spec
 
 
 def branch_geometry(coords: np.ndarray, valid: np.ndarray, ws, qs, tile: int,
@@ -134,12 +153,13 @@ def branch_geometry(coords: np.ndarray, valid: np.ndarray, ws, qs, tile: int,
 def batch_window_geometry(voxxyz: Sequence[np.ndarray],
                           vmask: Sequence[np.ndarray],
                           params: Dict) -> Dict[str, list]:
-    """Geometry of encoder levels 1..4 of one batch: {"cubic": [...],
-    "sphere": [...]}, one dict per level. voxxyz/vmask are the per-level
-    [B, V_L, 3] / [B, V_L] plumbing arrays (level 0 is unused)."""
+    """Geometry of the attention levels of one batch: {"cubic": [...],
+    "sphere": [...]}, one dict per level from ``params["first_level"]``
+    (1, a SPVCNN encoder's, unless the spec says otherwise) on. voxxyz/vmask
+    are the per-level [B, V_L, 3] / [B, V_L] plumbing arrays."""
     tile = int(params["tile"])
     jobs = []
-    for li, p in enumerate(params["levels"], start=1):
+    for li, p in enumerate(params["levels"], start=int(params.get("first_level", 1))):
         xyz = np.asarray(voxxyz[li], np.float32)
         mask = np.asarray(vmask[li]).astype(bool)
         t_cub = min(tile, int(p.get("tile_cubic", tile)))

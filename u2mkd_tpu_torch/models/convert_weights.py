@@ -4,9 +4,12 @@
 a flax model (``variables["params"]``, ``variables["batch_stats"]``) and
 returns a state dict for its counterpart in the port: a SPVCNN for
 :class:`~u2mkd_tpu_torch.models.spvcnn.SPVCNN`, a whole ``TSDFull`` tree
-(``model_s``, ``model_t``) for :class:`~u2mkd_tpu_torch.models.tsd.TSDFull`.
-The port's module names mirror the flax tree (the SwiftNet stages, the
-fusion layers and the learners included), so the bridge is a rename:
+(``model_s``, ``model_t``) for :class:`~u2mkd_tpu_torch.models.tsd.TSDFull`,
+the SphereFormer U-Net's (its nested ``u`` scopes and a
+``transformer_block`` per level), ``CLFM``'s and ``WindowMultiheadSA``'s
+(with a Fourier ``gauss_B``, which keeps its name and layout). The port's
+module names mirror the flax tree (the SwiftNet stages, the fusion layers
+and the learners included), so the bridge is a rename:
 
   * ``SparseConv_i`` / ``SparseDownConv_0`` / ``SparseDeconv_0`` -> ``conv{i}``,
     ``MaskedBatchNorm_i`` -> ``bn{i}``, ``Dense_i`` -> ``fc{i}``;

@@ -166,7 +166,7 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
             f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
             if not lidar_only:
-                geom = P.level_geom(plumbing, idx)
+                geom = P.level_geom(plumbing, idx + 1)
                 if geom is None:
                     raise ValueError("the student's SphereFormer blocks need the host window "
                                      "geometry (batch_plumbing with wgeom_params)")

@@ -30,12 +30,14 @@ class UNetPlumbing:
     devox_w: Tuple[Optional[torch.Tensor], ...]
     pmask: torch.Tensor                   # [B, P] bool
     p2v0_feats_seg: torch.Tensor          # [B, P] segment ids of the first voxelize
-    # window geometry of encoder levels 1..4:
-    # {"cubic": (WindowGeom, ...), "sphere": (...)}
+    # window geometry of the attention levels, from level ``wgeom_first``
+    # down to the deepest: {"cubic": (WindowGeom, ...), "sphere": (...)}
+    # (levels 1..4 for a SPVCNN encoder, 0..4 for the SphereFormer U-Net)
     wgeom: Optional[Dict[str, Tuple[WindowGeom, ...]]] = None
-    # [2, 4] int32: the largest window occupancy of each level's cubic (row
-    # 0) and sphere (row 1) windows, from the host geometry; read by the
-    # capacity counters (``train/overflow.py``) only
+    wgeom_first: int = 1
+    # [2, L] int32: the largest window occupancy of each attention level's
+    # cubic (row 0) and sphere (row 1) windows, from the host geometry; read
+    # by the capacity counters (``train/overflow.py``) only
     window_occ: Optional[torch.Tensor] = None
 
 
@@ -88,9 +90,12 @@ def from_precomputed(arrays: Dict, pmask,
     p2v = point_maps("p2v", torch.int32)
     cap0 = levels[0].grid.capacity
     wgeom = window_occ = None
+    first = 1
     if "wgeom" in arrays:
         wgeom = {branch: tuple(_window_geom_from_arrays(g, dev) for g in geoms)
                  for branch, geoms in arrays["wgeom"].items()}
+        # the geometry covers the deepest levels, down from its first
+        first = n_levels - len(wgeom["cubic"])
         window_occ = torch.stack([
             torch.cat([_tensor(g["occ"], dev, torch.int32) for g in arrays["wgeom"][branch]])
             for branch in ("cubic", "sphere")])
@@ -100,14 +105,42 @@ def from_precomputed(arrays: Dict, pmask,
         devox_w=point_maps("dvw", torch.float32),
         pmask=_tensor(pmask, dev, torch.bool),
         p2v0_feats_seg=torch.where(p2v[0] >= 0, p2v[0], cap0),
-        wgeom=wgeom, window_occ=window_occ)
+        wgeom=wgeom, wgeom_first=first, window_occ=window_occ)
 
 
-def level_geom(pl: UNetPlumbing, idx: int):
-    """Window geometry of encoder stage ``idx`` (U-Net level idx+1)."""
+def level_geom(pl: UNetPlumbing, level: int):
+    """Window geometry of U-Net level ``level`` (None without host
+    geometry)."""
     if pl.wgeom is None:
         return None
-    return {branch: pl.wgeom[branch][idx] for branch in pl.wgeom}
+    if level < pl.wgeom_first:
+        raise ValueError(f"the plumbing's window geometry starts at level {pl.wgeom_first}, "
+                         f"not {level}")
+    return {branch: pl.wgeom[branch][level - pl.wgeom_first] for branch in pl.wgeom}
+
+
+def recursive_vox_xyz(xyz0: torch.Tensor,
+                      levels: Sequence[LevelContext]) -> Tuple[torch.Tensor, ...]:
+    """Per-level voxel xyz [B, V_L, 3] by recursive mean-of-means through the
+    downsample rulebooks (port of ``u2mkd_tpu/models/plumbing.py:
+    recursive_vox_xyz``, the SphereFormer U-Net's coordinate tracking):
+    level 0 is ``xyz0``, the level-0 voxel means; each coarser voxel is the
+    mean of its live ``down_nbr8`` rows at the finer level, summed over the
+    8 offsets in offset order and divided once by max(count, 1), as the JAX
+    package and the host twin (``data/plumbing_host.recursive_vox_xyz``)
+    do; dead voxels get 0."""
+    out = [xyz0.float()]
+    for lv in levels[1:]:
+        prev, nbr = out[-1], lv.down_nbr8.long()            # [B, Vp, 3], [B, 8, V]
+        ok = nbr >= 0
+        rows = nbr.clamp(0, prev.shape[1] - 1)
+        s = prev.new_zeros(nbr.shape[0], nbr.shape[2], 3)
+        for k in range(nbr.shape[1]):
+            vals = torch.gather(prev, 1, rows[:, k, :, None].expand(-1, -1, 3))
+            s = s + torch.where(ok[:, k, :, None], vals, 0.0)
+        c = ok.sum(dim=1).to(s.dtype).clamp(min=1.0)[..., None]
+        out.append(torch.where(lv.grid.mask[..., None], s / c, 0.0))
+    return tuple(out)
 
 
 def point_to_voxel(pfeats: torch.Tensor, p2v: torch.Tensor,

@@ -1,0 +1,209 @@
+"""The official SphereFormer U-Net (the alternative teacher architecture).
+
+Port of ``u2mkd_tpu/models/sphereformer_unet.py``: a recursive ``UBlock``
+U-Net of pre-activation residual blocks (or VGG blocks), a SphereFormer
+block at every level named in ``sphere_layers``, ks2/s2 down and up convs,
+skip concatenation, and the ``Semantic`` wrapper (stem conv, the
+devoxelize and re-pool round trip, the U-Net, norm-relu and a linear head
+read through each point's own level-0 voxel row). The attribute names
+mirror the flax module names, so ``models/convert_weights.from_flax``
+carries a flax tree across.
+
+The attention reuses :class:`~u2mkd_tpu_torch.models.sphereformer.
+SphereFormerBlock` over host window geometry of levels 0..4
+(``data/wgeom_host.params_from_model`` gives this model's spec), built on
+the recursive mean-of-means voxel xyz (``data/plumbing_host.
+recursive_vox_xyz``), so it runs kernel K3 (and K4 and K5 in training)
+and is exact at any window occupancy. The JAX module runs the banded XLA
+attention, which drops the pairs of a window that lie more than band x
+tile rows apart (1 x 128 cubic, 4 x 128 radial): the two agree wherever
+every window fits its band. Every 3x3x3 conv runs kernel K1 (K1b in
+training); the 1x1 ``i_branch`` is a dense product, as in JAX. Every level
+takes the same drop-path rate, ``drop_path_rate`` itself, as the JAX
+module does.
+
+No builder name or config reaches this model in either package; it is
+driven through the generic steps (``train/state.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from u2mkd_tpu_torch.models import blocks
+from u2mkd_tpu_torch.models import plumbing as P
+from u2mkd_tpu_torch.models.plumbing import UNetPlumbing, point_to_voxel, voxel_to_point
+from u2mkd_tpu_torch.models.sphereformer import SphereAttention, SphereFormerBlock
+
+
+class PreActResBlock(nn.Module):
+    """norm-relu-conv3-norm-relu-conv3 plus the input, through a 1x1 conv
+    (``i_branch``) where the widths differ."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.bn1 = blocks.MaskedBatchNorm(in_ch)
+        self.conv1 = blocks.SparseConv(in_ch, out_ch, 3, generator)
+        self.bn2 = blocks.MaskedBatchNorm(out_ch)
+        self.conv2 = blocks.SparseConv(out_ch, out_ch, 3, generator)
+        if in_ch != out_ch:
+            self.i_branch = blocks.SparseConv(in_ch, out_ch, 1, generator)
+
+    def forward(self, feats: torch.Tensor, level) -> torch.Tensor:
+        mask = level.grid.mask
+        x = self.conv1(torch.relu(self.bn1(feats, mask)), level)
+        x = self.conv2(torch.relu(self.bn2(x, mask)), level)
+        ident = self.i_branch(feats, None) if hasattr(self, "i_branch") else feats
+        return x + ident
+
+
+class VGGBlock(nn.Module):
+    """norm-relu-conv3, no residual (the reference's ``VGGBlock``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
+        super().__init__()
+        self.bn1 = blocks.MaskedBatchNorm(in_ch)
+        self.conv1 = blocks.SparseConv(in_ch, out_ch, 3, generator)
+
+    def forward(self, feats: torch.Tensor, level) -> torch.Tensor:
+        return self.conv1(torch.relu(self.bn1(feats, level.grid.mask)), level)
+
+
+_BLOCK_TYPES = {"residual": PreActResBlock, "vgg": VGGBlock}
+
+
+class UBlock(nn.Module):
+    """One U-Net level, holding the deeper levels as ``u``."""
+
+    def __init__(self, n_planes: Sequence[int], level_idx: int,
+                 window_size: Tuple[float, float, float],
+                 window_size_sphere: Tuple[float, float, float],
+                 quant_size: Tuple[float, float, float],
+                 quant_size_sphere: Tuple[float, float, float],
+                 window_size_scale: Tuple[float, float] = (2.0, 2.0),
+                 block_reps: int = 2, head_dim: int = 16, drop_path: float = 0.0,
+                 sphere_layers: Sequence[int] = (1, 2, 3, 4, 5), a: float = 0.0125,
+                 block_type: str = "residual", generator=None):
+        super().__init__()
+        gen = generator
+        self.level_idx = level_idx
+        self.block_reps = block_reps
+        block_cls = _BLOCK_TYPES[block_type]
+        c0 = n_planes[0]
+        for i in range(block_reps):
+            setattr(self, f"block{i}", block_cls(c0, c0, gen))
+        self.has_attention = level_idx + 1 in tuple(sphere_layers)
+        if self.has_attention:
+            self.transformer_block = SphereFormerBlock(
+                dim=c0, num_heads=c0 // head_dim, window_size=tuple(window_size),
+                window_size_sphere=tuple(window_size_sphere), quant_size=tuple(quant_size),
+                quant_size_sphere=tuple(quant_size_sphere), drop_path=drop_path, a=a,
+                generator=gen)
+        self.has_child = len(n_planes) > 1
+        if self.has_child:
+            c1 = n_planes[1]
+            wsc, wss = window_size_scale
+            self.down_bn = blocks.MaskedBatchNorm(c0)
+            self.down_conv = blocks.SparseDownConv(c0, c1, gen)
+            self.u = UBlock(
+                n_planes=tuple(n_planes[1:]), level_idx=level_idx + 1,
+                window_size=tuple(w * wsc for w in window_size),
+                quant_size=tuple(q * wsc for q in quant_size),
+                window_size_sphere=(window_size_sphere[0] * wss,
+                                    window_size_sphere[1] * wss, window_size_sphere[2]),
+                quant_size_sphere=(quant_size_sphere[0] * wss,
+                                   quant_size_sphere[1] * wss, quant_size_sphere[2]),
+                window_size_scale=window_size_scale, block_reps=block_reps,
+                head_dim=head_dim, drop_path=drop_path, sphere_layers=sphere_layers,
+                a=a, block_type=block_type, generator=gen)
+            self.up_bn = blocks.MaskedBatchNorm(c1)
+            self.up_conv = blocks.SparseDeconv(c1, c0, gen)
+            for i in range(block_reps):
+                setattr(self, f"tail{i}", block_cls(2 * c0 if i == 0 else c0, c0, gen))
+
+    def forward(self, feats: torch.Tensor, plumbing: UNetPlumbing,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        lv = plumbing.levels[self.level_idx]
+        for i in range(self.block_reps):
+            feats = getattr(self, f"block{i}")(feats, lv)
+        if self.has_attention:
+            geom = P.level_geom(plumbing, self.level_idx)
+            if geom is None:
+                raise ValueError("the U-Net's SphereFormer blocks need the host window "
+                                 "geometry (batch_plumbing with wgeom_params)")
+            feats = self.transformer_block(feats, lv.grid.mask, geom, generator)
+        if self.has_child:
+            nxt = plumbing.levels[self.level_idx + 1]
+            d = torch.relu(self.down_bn(feats, lv.grid.mask))
+            d = self.down_conv(d, nxt.down_nbr8)
+            child = self.u(d, plumbing, generator)
+            up = torch.relu(self.up_bn(child, nxt.grid.mask))
+            up = self.up_conv(up, lv.up_parent, lv.up_koff)
+            feats = torch.cat([feats, up], dim=-1)
+            for i in range(self.block_reps):
+                feats = getattr(self, f"tail{i}")(feats, lv)
+        return feats
+
+
+class SphereFormerSemantic(nn.Module):
+    """The ``Semantic`` wrapper: pfeats [B, P, in_channel] -> {"x_vox":
+    [B, P, num_classes]}."""
+
+    # the levels whose point maps the forward reads (the stem's voxelize,
+    # its round trip and the head)
+    point_levels = (0,)
+
+    def __init__(self, num_classes: int = 17, in_channel: int = 4,
+                 n_planes: Tuple[int, ...] = (32, 64, 128, 256, 256),
+                 window_size=(0.3, 0.3, 0.3), window_size_sphere=(2.0, 2.0, 120.0),
+                 quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
+                 window_size_scale=(2.0, 2.0), head_dim: int = 16,
+                 drop_path_rate: float = 0.3, sphere_layers: Sequence[int] = (1, 2, 3, 4, 5),
+                 a: float = 0.0125, block_type: str = "residual", block_reps: int = 2,
+                 generator=None):
+        super().__init__()
+        self.n_planes, self.head_dim = tuple(n_planes), head_dim
+        self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
+        self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
+        self.window_size_scale = tuple(window_size_scale)
+        gen = generator
+        self.input_conv = blocks.SparseConv(in_channel, n_planes[0], 3, gen)
+        self.unet = UBlock(
+            n_planes=self.n_planes, level_idx=0, window_size=self.window_size,
+            window_size_sphere=self.window_size_sphere, quant_size=self.quant_size,
+            quant_size_sphere=self.quant_size_sphere, window_size_scale=self.window_size_scale,
+            block_reps=block_reps, head_dim=head_dim, drop_path=drop_path_rate,
+            sphere_layers=sphere_layers, a=a, block_type=block_type, generator=gen)
+        self.output_bn = blocks.MaskedBatchNorm(n_planes[0])
+        self.classifier = blocks.dense(n_planes[0], num_classes, gen)
+
+    def set_plain(self, plain: bool) -> None:
+        """Run the kernels' plain versions (True) or the kernels (False) on
+        any device: the reference mode a card run is checked against."""
+        for m in self.modules():
+            if isinstance(m, (blocks.SparseConv, SphereAttention)):
+                m.plain = plain
+
+    def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
+                generator: Optional[torch.Generator] = None):
+        """In training, ``generator`` (on the model's device) draws the
+        drop-path masks."""
+        lv0 = plumbing.levels[0]
+        cap0 = lv0.grid.capacity
+        x = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, cap0)
+        x = self.input_conv(x, lv0)
+        # the reference's round trip after the stem: devoxelize to the
+        # points, then pool again per voxel
+        z0 = voxel_to_point(x, plumbing.devox_idx[0], plumbing.devox_w[0])
+        x = point_to_voxel(z0, plumbing.p2v0_feats_seg, cap0)
+        x = self.unet(x, plumbing, generator)
+        x = torch.relu(self.output_bn(x, lv0.grid.mask))
+        # each point reads its own level-0 voxel row (zero for dead points)
+        rows = plumbing.p2v[0].long()
+        safe = rows.clamp(0, x.shape[1] - 1)
+        z = torch.gather(x, 1, safe[..., None].expand(-1, -1, x.shape[-1]))
+        z = torch.where(rows[..., None] >= 0, z, 0.0)
+        return {"x_vox": self.classifier(z)}

@@ -117,7 +117,7 @@ class SPVCNN(nn.Module):
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
             if self.sphereformer:
                 f = getattr(self, f"sphereformer{idx + 1}")(
-                    f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx), generator)
+                    f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx + 1), generator)
             vox_feats.append(f)
         x1, x2, x3, x4 = vox_feats[1:]
 

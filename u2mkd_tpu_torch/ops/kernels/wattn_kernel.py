@@ -8,7 +8,8 @@ backward).
     flash_window_attention_sorted``. :func:`sparse_window_attention_flash`,
     the counterpart of ``sparse_window_attention_pallas``, is its entry: sort
     by window, pad to the tile, attend, unsort, zero invalid rows. No model
-    path of the JAX package reaches it.
+    path of the JAX package reaches it; in the port
+    ``models/position_embedding.WindowMultiheadSA`` calls it.
   * K3, ``csrc/wattn_rpe_fwd.cu`` (:func:`flash_rpe_fwd`): the forward and
     each row's log-sum-exp; it replaces the TPU kernel
     ``u2mkd_tpu/ops/pallas/wattn_kernel.py:_call_fwd`` with its XLA prologue

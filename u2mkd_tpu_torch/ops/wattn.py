@@ -31,6 +31,7 @@ import math
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from u2mkd_tpu_torch.ops import hashing
 
@@ -177,6 +178,27 @@ def _scores(q, k, qT, kT, qi, kj, idx):
     return s
 
 
+def _rpe_chunk(q, k, v, qT, kT, tv, cq, r, qi, kj, lo: int, hi: int, g: int,
+               a: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K3 over the pairs (qi, kj) of queries lo..hi-1 -> (out [hi-lo,
+    h, d], lse [hi-lo, h])."""
+    h, d = q.shape[1], q.shape[2]
+    dev = q.device
+    idx = _bins(cq, r, qi, kj, g, a)
+    s = _scores(q, k, qT, kT, qi, kj, idx)
+    seg = qi - lo
+    with torch.no_grad():
+        smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
+            0, seg[:, None].expand(-1, h), s.detach(), "amax")
+    e = torch.exp(s - smax[seg])
+    den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
+    p = e / den[seg]
+    val = (v[kj] + tv[idx[:, 0], 0] + tv[idx[:, 1], 1]
+           + tv[idx[:, 2], 2])                                        # [M, h, d]
+    out = torch.zeros(hi - lo, h, d, device=dev).index_add(0, seg, p[..., None] * val)
+    return out, smax + torch.log(den)
+
+
 def window_attention_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                              qT: torch.Tensor, kT: torch.Tensor, table_v: torch.Tensor,
                              rank: torch.Tensor, quant: torch.Tensor,
@@ -186,29 +208,27 @@ def window_attention_rpe_fwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tenso
     projections qT/kT [N, h, 3, L2], table_v [L2, 3, h, d], rank [N], quant
     [N, 3], r [N] or None -> (out f32 [N, h, d], lse f32 [N, h]).
     Differentiable: the softmax max is taken without gradient, so autograd
-    through this function stays exact and cheap."""
-    n, h, d = qs.shape
+    through this function stays exact and cheap. Under autograd each chunk
+    of pairs is checkpointed (``torch.utils.checkpoint``): the backward
+    recomputes the chunk's per-pair tensors instead of keeping them, so the
+    memory held between forward and backward is that of the pair lists,
+    not of every per-pair intermediate (some kilobytes a pair)."""
     g = int(grid_len)
-    dev = qs.device
     q, k, v = qs.float(), ks.float(), vs.float()
     tv = table_v.float()
     cq = quant.long().clamp(0, g - 1)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, qT, kT, tv))
     outs, lses = [], []
-    for lo, hi, qi, kj in _pair_chunks(rank, h):
-        idx = _bins(cq, r, qi, kj, g, a)
-        s = _scores(q, k, qT, kT, qi, kj, idx)
-        seg = qi - lo
-        with torch.no_grad():
-            smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
-                0, seg[:, None].expand(-1, h), s.detach(), "amax")
-        e = torch.exp(s - smax[seg])
-        den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
-        p = e / den[seg]
-        val = (v[kj] + tv[idx[:, 0], 0] + tv[idx[:, 1], 1]
-               + tv[idx[:, 2], 2])                                    # [M, h, d]
-        outs.append(torch.zeros(hi - lo, h, d, device=dev).index_add(
-            0, seg, p[..., None] * val))
-        lses.append(smax + torch.log(den))
+    for lo, hi, qi, kj in _pair_chunks(rank, q.shape[1]):
+        args = (q, k, v, qT, kT, tv, cq, r, qi, kj, lo, hi, g, a)
+        if grad:
+            out, lse = torch.utils.checkpoint.checkpoint(_rpe_chunk, *args,
+                                                         use_reentrant=False)
+        else:
+            out, lse = _rpe_chunk(*args)
+        outs.append(out)
+        lses.append(lse)
     return torch.cat(outs), torch.cat(lses)
 
 

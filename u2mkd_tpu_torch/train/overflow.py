@@ -13,6 +13,10 @@ recorded, and only grid saturation counts as a violation. They come from the
 host window geometry (``UNetPlumbing.window_occ``), which the plumbing stage
 builds; the JAX package's device-side ``max_window_occupancy``, for plumbing
 built in the step, has no counterpart, as the port has only host geometry.
+The occupancies are the model's own windows, at the levels its geometry
+covers; the JAX counters measure SPVCNN's windows of levels 1-4 on the flat
+voxel means for any model, so for the SphereFormer U-Net (levels 0-4, the
+recursive means) the two packages' occupancies differ.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ def stats_for_model(pl: UNetPlumbing) -> Dict[str, torch.Tensor]:
     voxel grid (the fullest sample's valid voxels over the capacity,
     ``overflow/vox_fill_l{i}``), per attention level the largest window
     occupancy of either branch (``overflow/occ_cubic_l{i}``,
-    ``overflow/occ_sphere_l{i}``, levels 1-4, when the plumbing carries
-    window geometry), and ``overflow/violations``: the number of grids that
+    ``overflow/occ_sphere_l{i}``, named by the level the windows belong
+    to: 1-4 for a SPVCNN encoder, 0-4 for the SphereFormer U-Net, when the
+    plumbing carries window geometry), and ``overflow/violations``: the number of grids that
     are full, where voxels may have been dropped."""
     out = {}
     violations = torch.zeros((), dtype=torch.int32, device=pl.pmask.device)
@@ -40,9 +45,10 @@ def stats_for_model(pl: UNetPlumbing) -> Dict[str, torch.Tensor]:
         out[f"overflow/vox_fill_l{li}"] = count.to(torch.float32) / cap
         violations = violations + (count >= cap).to(torch.int32)
     if pl.window_occ is not None:
-        for li in range(1, min(len(pl.levels), 5)):
-            out[f"overflow/occ_cubic_l{li}"] = pl.window_occ[0, li - 1]
-            out[f"overflow/occ_sphere_l{li}"] = pl.window_occ[1, li - 1]
+        for j in range(pl.window_occ.shape[1]):
+            li = pl.wgeom_first + j
+            out[f"overflow/occ_cubic_l{li}"] = pl.window_occ[0, j]
+            out[f"overflow/occ_sphere_l{li}"] = pl.window_occ[1, j]
     out["overflow/violations"] = violations
     return out
 
