@@ -20,6 +20,23 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
   3. main path: three teacher inference requests (SPVCNN + SphereFormer,
      cr=1.0, P=131072, B=1) through ``train.state.make_eval_step``, counting
      kernel launches;
+ 3b. device_plumbing: the in-program path on phase 3's scans, their
+     plumbing built on the card (``models/plumbing.build_plumbing``, as
+     under ``host_plumbing: false``): the build's warm ms beside the host
+     build's and its voxels per level against the host plumbing by packed
+     key; three requests with ``pallas_attention`` on (34 K1 and 8 K3 each,
+     the windows sorted in the step) with their warm ms and profile
+     (``chiprun_out/profile_device_plumbing.txt``, the build and the sorts
+     as ranges), logits against the host-plumbing request's, each launch of
+     one request held to its plain version, and the largest K1 launch on
+     the card's packed-key rows beside the host's Morton rows; three banded
+     requests (``pallas_attention`` off: 34 K1, no K3) with each level's
+     largest window occupancy per branch, held to the exact request where
+     every window fits the band; three teacher train steps (34 / 33 / 34 /
+     8 / 8 / 8) and one with each launch held to its plain version; one
+     banded step of ``configs/nuscenes/mini/spformer_mini.yaml``'s model
+     with its capacity counters; two stage-2 steps with both parts'
+     plumbing built on the card (the launches of phase 12 each);
   4. profile: three more requests under ``torch.profiler``, device time by
      kernel (and of the ``conv_plan`` range, the rulebook plans' build),
      and the device's busy share against the unprofiled requests'
@@ -62,7 +79,9 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      phase 7's whole-step check on one step;
  9c. window_msa: ``WindowMultiheadSA`` (dim 64, 4 heads, sine PE) on a
      teacher request's level-1 voxels (N=65536) with the level's cubic
-     window: K2 launched from a module, held to its plain path;
+     window: K2 launched from a module, held to its plain path; then one
+     SGD step of the module under autograd on the card (K2's plain
+     version, no K2 launch) held to the same step on the CPU;
  9d. pointops_clfm: ``knn`` (a 90x160 pixel grid into 65536 projected
      points), FPS of 4096 from 65536, ``correlation2d`` at d=4 over 64
      channels and one ``CLFM`` at 64/64, each on the card and on the CPU:
@@ -93,8 +112,11 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
  14. cli: ``python -m u2mkd_tpu_torch.train_spformer`` on the tiny synthetic
      teacher config at cr=0.5, then ``python -m
      u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
-     that run's checkpoint as its frozen teacher: losses finite, validation
-     mIoU and checkpoints written, the teacher restored bitwise;
+     that run's checkpoint as its frozen teacher, both with
+     ``model.pallas_attention=true``: losses finite, validation mIoU and
+     checkpoints written, the teacher restored bitwise; and stage 1 on the
+     tiny config as it stands (the banded attention), K1 launched and K3
+     never;
  15. data: a nuScenes-format set from ``tools/make_nusc_mini.py`` in a
      temporary directory (2 train and 1 val scene of 3 keyframes, 34720
      points a scan, 6 cameras); one epoch (6 steps) of the stage-2 train
@@ -152,7 +174,9 @@ PROFILE_GROUPS = {"rulebook_conv_kernel": "K1 rulebook_conv",
 # ranges named in the port (torch.profiler.record_function), shown beside
 # the kernel groups with the device ms of the kernels they launched, which
 # the groups also count
-PROFILE_ANNOTATIONS = {"conv_plan": "conv_plan (K1/K1b plans, range)"}
+PROFILE_ANNOTATIONS = {"conv_plan": "conv_plan (K1/K1b plans, range)",
+                       "build_plumbing": "build_plumbing (device build, range)",
+                       "window_sort": "window_sort (windows sorted in the step, range)"}
 TRAIN_SEEDS = (21, 22, 23)
 PROFILED_STEPS = 2
 LR = 0.02
@@ -223,10 +247,16 @@ LOSS_TERMS = ("loss", "ce_vox", "ce_pix", "kl", "feat", "mse")
 # the training entry points, run as a user runs them: stage 1 on the tiny
 # synthetic teacher at cr=0.5, then stage 2 on the tiny TSD config, whose
 # teacher is that model (cr_t=0.5), restored from stage 1's checkpoint
+# (the tiny configs set no attention flag: ``model.pallas_attention=true``
+# keeps both on kernel K3; CLI_BANDED is stage 1 as the config stands, the
+# banded attention, whose launches a runner in the process counts)
 CLI_STAGE1 = ("u2mkd_tpu_torch.train_spformer", "configs/synthetic/train/spformer_tiny.yaml",
-              "num_epochs=1", "data.training_size=8", "model.cr=0.5")
+              "num_epochs=1", "data.training_size=8", "model.cr=0.5",
+              "model.pallas_attention=true")
 CLI_STAGE2 = ("u2mkd_tpu_torch.train_lc_nusc_tsd_full", "configs/synthetic/train/tsd_tiny.yaml",
-              "num_epochs=1", "data.training_size=8")
+              "num_epochs=1", "data.training_size=8", "model.pallas_attention=true")
+CLI_BANDED = ("u2mkd_tpu_torch.train_spformer", "configs/synthetic/train/spformer_tiny.yaml",
+              "num_epochs=1", "data.training_size=8", "model.cr=0.5")
 CLI_DIR = os.path.join("u2mkd_tpu_torch", "_build", "cli")
 # the real-data paths: a nuScenes-format set from tools/make_nusc_mini.py
 # (2 train scenes and 1 val scene of 3 keyframes, a sweep between
@@ -961,12 +991,13 @@ def _plain_request(model, eval_fn, raw):
         model.set_plain(False)
 
 
-def _held_to_plain(check, out, plain, heads):
+def _held_to_plain(check, out, plain, heads, what="the plain path"):
     """Each head's argmax agreement, largest logit difference and largest
     plain logit on its rows (``heads``: (name, logits key, bool rows))
     between a request through the kernels, ``out``, and the same request
-    through the plain versions, ``plain``, added to ``check`` and emitted;
-    raises unless every head holds to REQUEST_RTOL and ARGMAX_AGREEMENT."""
+    through the plain versions, ``plain`` (or another reference request,
+    named ``what``), added to ``check`` and emitted; raises unless every
+    head holds to REQUEST_RTOL and ARGMAX_AGREEMENT."""
     for head, key, rows in heads:
         got, want = out[key][rows], plain[key][rows]
         check[f"argmax_agreement_{head}"] = (
@@ -978,7 +1009,7 @@ def _held_to_plain(check, out, plain, heads):
         if not (check[f"argmax_agreement_{head}"] >= ARGMAX_AGREEMENT
                 and check[f"max_logit_abs_diff_{head}"]
                 <= REQUEST_RTOL * check[f"max_abs_logit_{head}"]):
-            raise AssertionError(f"the kernel path disagrees with the plain path on the "
+            raise AssertionError(f"the kernel path disagrees with {what} on the "
                                  f"{head} head: {check}")
 
 
@@ -1919,7 +1950,45 @@ def phase_window_msa(raw):
                              and row["invalid_rows_zero"]):
         raise AssertionError(f"WindowMultiheadSA: expected one K2 launch and the plain "
                              f"path's output: {row}")
+    _window_msa_step(args)
     return launches
+
+
+def _window_msa_step(args):
+    """One SGD step of ``WindowMultiheadSA`` under autograd on the card
+    (K2 has no backward: the module takes K2's plain version, and launches
+    no K2), held to the same step on the CPU: the loss, and each
+    parameter's update within WINDOW_MSA_RTOL of its largest entry."""
+    import torch
+    from u2mkd_tpu_torch.models.position_embedding import WindowMultiheadSA
+    from u2mkd_tpu_torch.ops.kernels import wattn_kernel as W
+
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        module = WindowMultiheadSA(WINDOW_MSA_DIM, WINDOW_HEADS, WINDOW_CUBIC, pe_type="sine",
+                                   generator=torch.Generator().manual_seed(5)).to(dev)
+        start = {k: p.detach().clone() for k, p in module.named_parameters()}
+        opt = torch.optim.SGD(module.parameters(), lr=0.1)
+        before = W.flash_window_sorted.launches
+        t0 = time.perf_counter()
+        loss = (module(*(a.to(dev) for a in args)) ** 2).mean()
+        loss.backward()
+        opt.step()
+        runs[dev] = (loss.item(), {k: (p.detach() - start[k]).cpu()
+                                   for k, p in module.named_parameters()},
+                     W.flash_window_sorted.launches - before, time.perf_counter() - t0)
+    (loss_g, upd_g, k2_g, wall_g), (loss_c, upd_c, _, wall_c) = runs[DEVICE], runs["cpu"]
+    worst = max((upd_g[k] - u).abs().max().item() / max(u.abs().max().item(), 1e-30)
+                for k, u in upd_c.items())
+    row = {"phase": "window_msa_train_step", "loss_card": loss_g, "loss_cpu": loss_c,
+           "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+           "max_update_rel_diff": worst, "params": len(upd_c), "k2_launches": k2_g,
+           "wall_s_card": wall_g, "wall_s_cpu": wall_c, "tol_rel": WINDOW_MSA_RTOL}
+    emit(row)
+    if not (k2_g == 0 and row["loss_rel_diff"] <= WINDOW_MSA_RTOL
+            and worst <= WINDOW_MSA_RTOL):
+        raise AssertionError(f"WindowMultiheadSA's train step on the card disagrees with the "
+                             f"CPU's: {row}")
 
 
 def _held_to_cpu(name, got, want, exact=False):
@@ -2084,6 +2153,334 @@ def phase_student_grad_check():
     held_step("student_grad_check", setup, raw, STUDENT_TRAIN_LAUNCHES, STUDENT_P)
 
 
+def device_scan(seed, points=None, voxel=VOXEL):
+    """A synthetic scan of ``points`` (P by default) with no plumbing, its
+    arrays uploaded to the card: the step builds its plumbing there."""
+    import torch
+    from u2mkd_tpu_torch.data import synthetic
+
+    raw = synthetic.make_batch(np.random.RandomState(seed), 1, points or P, voxel_size=voxel)
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in raw.items()}
+
+
+def _by_key(pl, arrays):
+    """Per level, the device build ``pl`` against the host plumbing
+    ``arrays`` of the same scan, each row read by its packed key: the voxel
+    counts, the same voxel set, and the same 27-neighbour and down maps
+    (where neither build's grid, nor the finer one, is full)."""
+    import torch
+    from u2mkd_tpu_torch.ops import hashing
+
+    rows, maps = [], []
+    for li, lv in enumerate(pl.levels):
+        cap = lv.grid.capacity
+        hmask = torch.as_tensor(arrays["vmask"][li][0], device=DEVICE).bool()
+        hkey = hashing.pack_coords(torch.as_tensor(arrays["coords"][li][0], device=DEVICE),
+                                   hmask)
+        to_dev = hashing.lookup(hkey, lv.grid.key[0])      # host row -> device row
+        n_d, n_h = int(lv.grid.num[0]), int(hmask.sum())
+        full = max(n_d, n_h) >= cap
+        row = {"level": li, "capacity": cap, "voxels_device": n_d, "voxels_host": n_h,
+               "full": full,
+               "same_set": n_d == n_h and bool((to_dev[hmask] >= 0).all())}
+        if not full:
+            def mapped(host_rows, into):
+                ok = (host_rows >= 0) & (host_rows < into.shape[0])
+                return torch.where(ok, into[host_rows.clamp(0, into.shape[0] - 1)], -1)
+
+            live = to_dev[hmask]
+            hn = torch.as_tensor(arrays["nbr27"][li][0], device=DEVICE).long()
+            row["nbr27_same"] = bool(torch.equal(lv.nbr27[0][:, live].long(),
+                                                 mapped(hn, to_dev)[:, hmask]))
+            if li and not rows[-1]["full"]:
+                hd = torch.as_tensor(arrays["down8"][li][0], device=DEVICE).long()
+                row["down8_same"] = bool(torch.equal(lv.down_nbr8[0][:, live].long(),
+                                                     mapped(hd, maps[-1])[:, hmask]))
+        rows.append(row)
+        maps.append(to_dev)
+    return rows
+
+
+def _geometry_gap(pl, arrays, model):
+    """Per attention level and branch, how the windows taken in the step
+    on the device build's voxel means differ from the host geometry of the
+    same scan (``arrays["wgeom"]``), each row read by its packed key: the
+    live rows whose window partition or quantized position differs, and the
+    sphere rows whose range differs."""
+    import torch
+    from u2mkd_tpu_torch.data import wgeom_host
+    from u2mkd_tpu_torch.ops import hashing, wattn
+
+    spec = wgeom_host.params_from_model(model)
+    out = {}
+    for j, p in enumerate(spec["levels"]):
+        li = j + 1
+        hmask = torch.as_tensor(arrays["vmask"][li][0], device=DEVICE).bool()
+        hkey = hashing.pack_coords(torch.as_tensor(arrays["coords"][li][0], device=DEVICE),
+                                   hmask)
+        to_dev = hashing.lookup(hkey, pl.levels[li].grid.key[0]).clamp(min=0)
+        xyz = pl.vox_xyz[li][0][to_dev]                       # device means, host rows
+        for branch, ws, qs in (("cubic", p["ws"], p["qs"]), ("sphere", p["wss"], p["qss"])):
+            g = arrays["wgeom"][branch][j]
+            inv = torch.as_tensor(g["inv"], device=DEVICE).long()
+            rank_h = torch.as_tensor(g["rank"], device=DEVICE)[inv][hmask]
+            quant_h = torch.as_tensor(g["quant"], device=DEVICE)[inv][hmask]
+            coords = xyz if branch == "cubic" else wattn.cart2sphere(xyz)
+            key = wattn.window_keys(coords, hmask, ws)[hmask]
+            quant = wattn.quantize_in_window(coords, hmask, ws, qs)[hmask]
+            pairs = torch.unique(torch.stack([rank_h.double(), key.double()]), dim=1).shape[1]
+            row = {"rows": int(hmask.sum()),
+                   "same_partition": pairs == torch.unique(rank_h).numel()
+                   == torch.unique(key).numel(),
+                   "quant_rows_differ": int((quant != quant_h).any(1).sum())}
+            if branch == "sphere":
+                r_h = torch.as_tensor(g["r"], device=DEVICE)[inv][hmask]
+                row["r_rows_differ"] = int((coords[hmask][:, 2] != r_h).sum())
+            out[f"l{li}_{branch}"] = row
+    return out
+
+
+def _k1_rows(levels0, tag):
+    """The largest K1 launch of a request (level 0, Cin 128 -> Cout 96, f32)
+    on a level-0 rulebook: its ms, over random features on the live rows."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    nbr, mask = levels0.nbr27, levels0.grid.mask
+    x = torch.where(mask[..., None], torch.randn(*mask.shape, 128, device=DEVICE,
+                                                 generator=gen), 0.0).contiguous()
+    w = ((torch.rand(27, 128, 96, device=DEVICE, generator=gen) * 2 - 1)
+         * (27 * 128) ** -0.5).contiguous()
+    plan = S.conv_plan(nbr)
+    return {f"k1_ms_{tag}_rows": cuda_ms(lambda: S.rulebook_conv(x, w, nbr, plan))}
+
+
+def phase_device_plumbing(model):
+    """The in-program path: plumbing built on the card
+    (``models/plumbing.build_plumbing``, as under ``host_plumbing: false``)
+    on phase 3's scans, for the teacher of phase 3 (cr=1.0, P=131072).
+
+    Build: its warm ms beside the host build's, and the voxels per level by
+    packed key against the host plumbing. Requests with ``pallas_attention``
+    on (34 K1, 8 K3 each, the windows sorted in the step): their warm ms,
+    their profile with the build and the window sorts as ranges, the logits
+    against the host-plumbing request's, each K1 and K3 launch of one
+    request held to its plain version, and the largest K1 launch on the
+    device's packed-key rows against the host's Morton rows. Requests with
+    it off (34 K1, no K3, the banded attention): each level's largest
+    occupancy per branch, the logits against the exact request's where
+    every window fits the band, else the gap and the counted violations.
+    Train: three teacher steps from scans without plumbing (34 / 33 / 34 /
+    8 / 8 / 8 launches), one more with each launch held to its plain
+    version, and one banded step of ``spformer_mini.yaml``'s model and
+    capacities. Stage 2: two distillation steps with both parts built on
+    the card. -> launches by path."""
+    import torch
+    from u2mkd_tpu_torch.data import synthetic
+    from u2mkd_tpu_torch.models import plumbing as Pl
+    from u2mkd_tpu_torch.models.spvcnn import teacher_model
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+    from u2mkd_tpu_torch.train import builder, optim, overflow, state
+    from u2mkd_tpu_torch.utils import config
+
+    launches = {}
+    scans = [device_scan(seed) for seed in SEEDS]
+    hosts = [host_batch(seed, model) for seed in SEEDS]
+    torch.cuda.synchronize()
+
+    def build(b):
+        return Pl.build_plumbing(b["pcoords"], b["xyz"], b["pmask"], CAPS, model.point_levels)
+
+    device_build_ms = cuda_ms(lambda: build(scans[0]), reps=3, warmup=1)
+    pl0 = build(scans[0])
+    by_key = _by_key(pl0, hosts[0][0]["plumbing"])
+    row = {"phase": "device_build", "gpu": gpu_line(), "points": P, "capacities": CAPS,
+           "device_build_ms": device_build_ms,
+           "host_build_ms": float(np.median([h for _, h in hosts])), "by_level": by_key}
+    emit(row)
+    bad = [r for r in by_key if not r["full"] and not (
+        r["same_set"] and r["nbr27_same"] and r.get("down8_same", True))]
+    if bad:
+        raise AssertionError(f"the device build differs from the host plumbing by key: {bad}")
+
+    # requests, pallas_attention on: K3 over windows sorted in the step
+    eval_fn = state.make_eval_step(model, CAPS, NUM_CLASSES)
+    counters = (S.rulebook_conv, W.flash_rpe_fwd)
+
+    def requests(fn, want, tag):
+        for c in counters:
+            c.launches = 0
+        rows, outs = [], []
+        for seed, b in zip(SEEDS, scans):
+            before = [c.launches for c in counters]
+            out, device_ms, wall_ms = _timed(fn, b)
+            r = {"phase": f"device_request_{tag}", "seed": seed, "device_ms": device_ms,
+                 "wall_ms": wall_ms,
+                 "finite": bool(torch.isfinite(out["logits"]).all().item()),
+                 "launches": {c.__name__: c.launches - n for c, n in zip(counters, before)}}
+            emit(r)
+            if not r["finite"] or r["launches"] != want:
+                raise AssertionError(f"expected {want} launches and finite logits: {r}")
+            rows.append(r)
+            outs.append(out)
+        return outs, {c.__name__: c.launches for c in counters}, float(
+            np.median([r["device_ms"] for r in rows[1:]]))
+
+    outs, launches["device_infer"], warm_ms = requests(
+        eval_fn, {"rulebook_conv": 34, "flash_rpe_fwd": 8}, "flash")
+    groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, scans[0], PROFILED_REQUESTS,
+                                                     "profile_device_plumbing.txt")
+    # against the host plumbing of the same scan: with its windows sorted in
+    # the step (the same means to the last bit, so the same windows), to
+    # REQUEST_RTOL; and with the host geometry, whose sphere coordinates come
+    # from numpy's f32 atan2 and can differ from the card's in the last bit,
+    # which moves a voxel's quantized position now and then: its argmax
+    heads = (("vox", "logits", scans[0]["pmask"]),)
+    host_raw = hosts[0][0]
+    no_geom = dict(host_raw, plumbing={k: v for k, v in host_raw["plumbing"].items()
+                                       if k != "wgeom"})
+    _held_to_plain({"phase": "device_request_vs_host", "seed": SEEDS[0],
+                    "host_windows": "sorted in the step"}, outs[0], eval_fn(no_geom), heads,
+                   what="the host-plumbing request")
+    host_out = eval_fn(host_raw)
+    got, want = outs[0]["logits"][heads[0][2]], host_out["logits"][heads[0][2]]
+    gap = {"phase": "device_request_vs_host_geometry", "seed": SEEDS[0],
+           "argmax_agreement_vox": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+           "max_logit_abs_diff_vox": (got - want).abs().max().item(),
+           "max_abs_logit_vox": want.abs().max().item(),
+           "geometry_gap": _geometry_gap(pl0, host_raw["plumbing"], model)}
+    emit(gap)
+    if not gap["argmax_agreement_vox"] >= ARGMAX_AGREEMENT:
+        raise AssertionError(f"the device-plumbing request disagrees with the host-geometry "
+                             f"request: {gap}")
+    worst = {}
+    with each_launch_held_to_plain(worst):
+        eval_fn(scans[0])
+    torch.cuda.synchronize()
+    for name, r in worst.items():
+        r["tol_rel"] = TOL[(name, "f32")]
+    k1 = dict(_k1_rows(pl0.levels[0], "device"),
+              **_k1_rows(Pl.from_precomputed(hosts[0][0]["plumbing"], hosts[0][0]["pmask"],
+                                             DEVICE).levels[0], "host"))
+    k1["device_over_host"] = k1["k1_ms_device_rows"] / k1["k1_ms_host_rows"]
+    emit({"phase": "device_requests", "requests": len(SEEDS),
+          "launches": launches["device_infer"], "request_device_ms_warm": warm_ms,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / warm_ms,
+          "request_wall_ms_profiled": profiled_ms, "by_kernel": groups,
+          "per_launch": worst, "largest_k1": k1})
+    if {n: r["calls"] for n, r in worst.items()} != {"rulebook_conv": 34, "flash_rpe_fwd": 8} \
+            or any(not r["max_rel_err"] <= r["tol_rel"] for r in worst.values()):
+        raise AssertionError(f"a launch of the device-plumbing request disagrees with its "
+                             f"plain version: {worst}")
+
+    # requests, pallas_attention off: the banded attention, no K3
+    banded = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL, head_dim=16,
+                           seed=0, device=DEVICE, pallas_attention=False)
+    outs_b, launches["device_banded"], warm_b = requests(
+        state.make_eval_step(banded, CAPS, NUM_CLASSES), {"rulebook_conv": 34,
+                                                          "flash_rpe_fwd": 0}, "banded")
+    stats = overflow.stats_for_model(banded, pl0)
+    occ = {f"l{li}": {b: int(stats[f"overflow/occ_{b}_l{li}"]) for b in ("cubic", "sphere")}
+           for li in range(1, 5)}
+    fits = all(o["cubic"] <= 128 and o["sphere"] <= 4 * 128 for o in occ.values())
+    check = {"phase": "device_banded", "request_device_ms_warm": warm_b, "occupancy": occ,
+             "every_window_fits_band": fits,
+             "violations": int(stats["overflow/violations"])}
+    if fits:
+        _held_to_plain(check, outs_b[0], outs[0], heads, what="the exact request")
+    else:
+        got, want = outs_b[0]["logits"][heads[0][2]], outs[0]["logits"][heads[0][2]]
+        check["max_logit_abs_diff_vs_exact"] = (got - want).abs().max().item()
+        check["max_abs_logit_exact"] = want.abs().max().item()
+        emit(check)
+        if check["violations"] <= 0:
+            raise AssertionError(f"windows pass the band but the counters count nothing: "
+                                 f"{check}")
+    del banded, outs, outs_b, host_out, hosts
+
+    # train steps on scans without plumbing
+    tmodel, step_fn = _train_setup(seed=0, generator_seed=0)
+    train_scans = [device_scan(seed) for seed in TRAIN_SEEDS]
+    tcounters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw,
+                 W.flash_rpe_fwd, W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+    for c in tcounters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for seed, b in zip(TRAIN_SEEDS, train_scans):
+        before = [c.launches for c in tcounters]
+        out, device_ms, wall_ms = _timed(step_fn, b)
+        r = {"phase": "device_train_step", "seed": seed, "device_ms": device_ms,
+             "wall_ms": wall_ms, "loss": out["loss"].item(),
+             "launches": {c.__name__: c.launches - n for c, n in zip(tcounters, before)}}
+        emit(r)
+        if not math.isfinite(r["loss"]) or r["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"expected {TRAIN_LAUNCHES} launches and a finite loss: {r}")
+        steps.append(r)
+    launches["device_train"] = {c.__name__: c.launches for c in tcounters}
+    peak = torch.cuda.max_memory_allocated()
+    worst = {}
+    with each_launch_held_to_plain(worst):
+        loss = step_fn(train_scans[0])["loss"].item()
+    torch.cuda.synchronize()
+    for name, r in worst.items():
+        r["tol_rel"] = TOL[(name, "f32")]
+    del tmodel, step_fn, train_scans
+
+    cfg = config.load("configs/nuscenes/mini/spformer_mini.yaml")
+    mini = builder.make_model(cfg, DEVICE)
+    opt, _ = optim.make_optimizer(mini.named_parameters(), "sgd_spformer", LR)
+    mini_step = state.make_train_step(mini, opt, tuple(cfg.capacities), overflow_checks=True,
+                                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+    for c in tcounters:
+        c.launches = 0
+    aux = mini_step(device_scan(DATA_SEED, cfg.dataset.num_points, cfg.dataset.voxel_size))
+    mini_row = {"config": "configs/nuscenes/mini/spformer_mini.yaml",
+                "pallas_attention": mini.pallas_attention,
+                "capacities": list(cfg.capacities), "loss": aux["loss"].item(),
+                "counters": {k: v.item() for k, v in aux.items() if k.startswith("overflow/")},
+                "launches": {c.__name__: c.launches for c in tcounters}}
+    emit({"phase": "device_train", "steps": len(steps), "launches": launches["device_train"],
+          "device_ms": [r["device_ms"] for r in steps], "loss": [r["loss"] for r in steps],
+          "max_memory_allocated_bytes": peak, "held_step_loss": loss, "per_launch": worst,
+          "banded_mini_step": mini_row})
+    if {n: r["calls"] for n, r in worst.items()} != TRAIN_LAUNCHES \
+            or any(not r["max_rel_err"] <= r["tol_rel"] for r in worst.values()):
+        raise AssertionError(f"a launch of the device-plumbing train step disagrees with its "
+                             f"plain version: {worst}")
+    if not (math.isfinite(mini_row["loss"]) and not mini.pallas_attention
+            and mini_row["launches"]["flash_rpe_fwd"] == 0
+            and mini_row["launches"]["rulebook_conv"] == 34):
+        raise AssertionError(f"the banded mini step: {mini_row}")
+    del mini, mini_step, opt
+
+    # stage 2: both parts' plumbing built on the card; the first step is the
+    # student's first in the process, the second a warm one
+    smodel, sstep = _student_train_setup(seed=0, generator_seed=0)
+    for c in tcounters:
+        c.launches = 0
+    for seed in STUDENT_TRAIN_SEEDS[:2]:
+        raw = synthetic.make_multimodal_batch(np.random.RandomState(seed), 1, STUDENT_P, P,
+                                              voxel_size=STUDENT_VOXEL,
+                                              num_cams=STUDENT_TRAIN_CAMS, im_hw=IM_HW)
+        before = [c.launches for c in tcounters]
+        aux, device_ms, wall_ms = _timed(sstep, raw)
+        r = {"phase": "device_student_train_step", "seed": seed, "device_ms": device_ms,
+             "wall_ms": wall_ms, **{k: aux[k].item() for k in LOSS_TERMS},
+             "launches": {c.__name__: c.launches - n for c, n in zip(tcounters, before)}}
+        emit(r)
+        if r["launches"] != STUDENT_TRAIN_LAUNCHES or not all(math.isfinite(r[k])
+                                                              for k in LOSS_TERMS):
+            raise AssertionError(f"expected {STUDENT_TRAIN_LAUNCHES} launches and finite loss "
+                                 f"terms: {r}")
+    launches["device_student_train"] = {c.__name__: c.launches for c in tcounters}
+    del smodel, sstep
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_cli():
     """The two training entry points as a user runs them, on the card:
     stage 1 (CLI_STAGE1), then stage 2 (CLI_STAGE2) with
@@ -2130,11 +2527,54 @@ def phase_cli():
         row["teacher_restored_bitwise"] = sorted(teacher) == sorted(
             k[len("model_t."):] for k in tsd if k.startswith("model_t.")) and all(
             torch.equal(tsd["model_t." + k], v) for k, v in teacher.items())
+        row["stage1_banded"] = _cli_banded(os.path.join(CLI_DIR, "stage1_banded"))
         emit(row)
         if not row["teacher_restored_bitwise"]:
             raise AssertionError("stage 2's teacher is not stage 1's model")
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
+CLI_RUNNER = """
+import json, runpy, sys
+from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    print("CLI_REPORT " + json.dumps({
+        "rulebook_conv": spconv_kernel.rulebook_conv.launches,
+        "flash_rpe_fwd": wattn_kernel.flash_rpe_fwd.launches,
+        "flash_rpe_bwd_q": wattn_kernel.flash_rpe_bwd_q.launches}))
+"""
+
+
+def _cli_banded(run_dir):
+    """Stage 1's entry point on CLI_BANDED (the tiny config as it stands:
+    ``pallas_attention`` off, the banded attention) through CLI_RUNNER, which
+    counts the kernels' launches in the process: it must exit 0 with a
+    finite loss and a validation mIoU, K1 launched and K3, K4 never."""
+    module, cfg, *opts = CLI_BANDED
+    cmd = [sys.executable, "-c", CLI_RUNNER, module, cfg, "--run-dir", run_dir, *opts]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         timeout=600)
+    with open(os.path.join(OUT_DIR, "cli_stage1_banded.txt"), "w") as f:
+        f.write(res.stdout)
+    lines = res.stdout.splitlines()
+    epoch = [ln for ln in lines if ln.startswith("epoch 1/1:")]
+    fields = dict(kv.split("=", 1) for kv in epoch[-1].split()[2:5]) if epoch else {}
+    report = [ln for ln in lines if ln.startswith("CLI_REPORT ")]
+    out = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+           "loss": float(fields.get("loss", "nan")), "miou": float(fields.get("miou", "nan")),
+           "launches": json.loads(report[-1].split(" ", 1)[1]) if report else None}
+    if not (res.returncode == 0 and math.isfinite(out["loss"]) and math.isfinite(out["miou"])
+            and out["launches"] and out["launches"]["rulebook_conv"] > 0
+            and out["launches"]["flash_rpe_fwd"] == 0
+            and out["launches"]["flash_rpe_bwd_q"] == 0):
+        raise AssertionError(f"the banded stage-1 entry point failed or launched K3: {out}; "
+                             f"its output is in {OUT_DIR}/cli_stage1_banded.txt")
+    return out
 
 
 def make_data_set(root):
@@ -2698,8 +3138,11 @@ def kernels_line(rows, launches):
     "conv_only_train", the evaluation entry point's runs on the stage-1
     and stage-2 checkpoints "evaluate_teacher" and "evaluate_student", the
     SphereFormer U-Net's three requests "unet" and three train steps
-    "unet_train", and ``WindowMultiheadSA``'s call "window_msa"; K1
-    counts its forward and input-gradient launches), split in
+    "unet_train", ``WindowMultiheadSA``'s call "window_msa", and the
+    in-program path's three requests with K3 "device_infer" and without
+    "device_banded", three train steps "device_train" and stage-2 step
+    "device_student_train", each on plumbing built on the card; K1 counts
+    its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
@@ -2711,24 +3154,32 @@ def kernels_line(rows, launches):
         "K1": dict(paths("rulebook_conv", "infer", "train", "student", "student_teacher",
                          "student_train", "data_train", "data_student_train", "import",
                          "conv_only", "conv_only_train", "evaluate_teacher",
-                         "evaluate_student", "unet", "unet_train"),
+                         "evaluate_student", "unet", "unet_train", "device_infer",
+                         "device_banded", "device_train", "device_student_train"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
+                   device_train_dx=launches["device_train"]["rulebook_conv_dx"],
+                   device_student_train_dx=launches["device_student_train"][
+                       "rulebook_conv_dx"],
                    student_train_dx=launches["student_train"]["rulebook_conv_dx"],
                    data_train_dx=launches["data_train"]["rulebook_conv_dx"],
                    data_student_train_dx=launches["data_student_train"]["rulebook_conv_dx"],
                    conv_only_train_dx=launches["conv_only_train"]["rulebook_conv_dx"],
                    unet_train_dx=launches["unet_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
-                     "data_student_train", "conv_only_train", "unet_train"),
+                     "data_student_train", "conv_only_train", "unet_train", "device_train",
+                     "device_student_train"),
         "K2": paths("flash_window_sorted", "entry", "window_msa"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
                     "student_train", "data_train", "data_student_train", "import",
                     "conv_only", "evaluate_teacher", "evaluate_student", "unet",
-                    "unet_train"),
+                    "unet_train", "device_infer", "device_banded", "device_train",
+                    "device_student_train"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
-                    "data_student_train", "unet_train"),
+                    "data_student_train", "unet_train", "device_train",
+                    "device_student_train"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
-                    "data_student_train", "unet_train"),
+                    "data_student_train", "unet_train", "device_train",
+                    "device_student_train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -2778,6 +3229,7 @@ def main():
                           head_dim=16, seed=0, device=DEVICE)
     rows, raw = phase_kernels(model)
     launches = {"infer": phase_main_path(model)}
+    launches.update(phase_device_plumbing(model))
     del model
     launches["train"] = phase_train()
     phase_grad_check()

@@ -37,6 +37,7 @@ def _state(seed=0, cr=0.25):
     """A small teacher, its optimizer (with momentum buffers after one
     step), its generator, and the checkpoint dict of the three."""
     model = SPVCNN(num_classes=5, cr=cr, generator=torch.Generator().manual_seed(seed),
+                   pallas_attention=True,
                    **GEOMETRY)
     opt, _ = optim.make_optimizer(model.named_parameters(), "sgd", 0.01)
     gen = torch.Generator().manual_seed(seed)
@@ -165,7 +166,7 @@ def test_zero_match_restores_raise(tmp_path):
 
     ref_pt = os.path.join(tmp_path, "reference.pt")
     torch.save({"model": st["model"]}, ref_pt)
-    tsd = TSDFull(num_classes=5, cr=0.25, cr_t=0.25, **GEOMETRY)
+    tsd = TSDFull(num_classes=5, cr=0.25, cr_t=0.25, pallas_attention=True, **GEOMETRY)
     with pytest.raises(ValueError, match="expected keys absent"):
         C.load_teacher_any(ref_pt, tsd)
     with pytest.raises(NotImplementedError, match="no checkpoint of this port"):
@@ -178,6 +179,7 @@ def test_teacher_restore_into_tsd(tmp_path):
     model, _, _, st, _, _ = _state(0, cr=0.5)
     C.CheckpointManager(str(tmp_path)).save_latest(st, 1)
     tsd = TSDFull(num_classes=5, cr=0.25, cr_t=0.5, generator=torch.Generator().manual_seed(4),
+                  pallas_attention=True,
                   **GEOMETRY)
     student = {k: v.clone() for k, v in tsd.model_s.state_dict().items()}
     C.load_teacher_any(os.path.join(tmp_path, "checkpoints", "latest.pt"), tsd)

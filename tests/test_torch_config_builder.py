@@ -178,7 +178,7 @@ def test_synthetic_loaders_match_jax():
     seed, val from seed + 1) with the model's window geometry attached; the
     distillation loaders' train batches carry both parts' plumbing, their
     val batches the student's only (``debug.debug_val`` off)."""
-    cfg = _synthetic("spformer_tiny.yaml", "data.training_size=8")
+    cfg = _synthetic("spformer_tiny.yaml", "data.training_size=8", "model.pallas_attention=true")
     model = builder.make_model(cfg, "cpu")
     train, val = builder.make_synthetic_loaders(cfg, model, seed=5)
     jcfg = jax_config.update_dotted(
@@ -193,7 +193,7 @@ def test_synthetic_loaders_match_jax():
                 np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=k)
             assert "wgeom" in g["plumbing"]
 
-    cfg = _synthetic("tsd_tiny.yaml", "data.training_size=8")
+    cfg = _synthetic("tsd_tiny.yaml", "data.training_size=8", "model.pallas_attention=true")
     model = builder.make_model(cfg, "cpu")
     train, val = builder.make_synthetic_distill_loaders(cfg, model)
     j_train, _ = jax_builder.make_synthetic_distill_loaders(

@@ -47,7 +47,7 @@ SPHERE = dict(window_size_sphere=(30.0, 30.0, 120.0),
 
 def _port_teacher():
     """The port's SPVCNN of ``tc._toy_model``'s geometry."""
-    return SPVCNN(num_classes=tc.NCLS, cr=tc.CR, head_dim=tc.HEAD_DIM,
+    return SPVCNN(num_classes=tc.NCLS, cr=tc.CR, head_dim=tc.HEAD_DIM, pallas_attention=True,
                   window_size=(tc.WS,) * 3, quant_size=(tc.WS / tc.G_CUB,) * 3, **SPHERE)
 
 
@@ -116,12 +116,14 @@ def test_teacher_import_into_tsd_scope(jax_target, tmp_path):
     _equal(want_staged, want)
 
     tsd = TSDFull(num_classes=tc.NCLS, cr=0.25, cr_t=tc.CR, head_dim=tc.HEAD_DIM,
+                  pallas_attention=True,
                   window_size=(tc.WS,) * 3, quant_size=(tc.WS / tc.G_CUB,) * 3, **SPHERE)
     student = {k: v.clone() for k, v in tsd.model_s.state_dict().items()}
     checkpoints.load_teacher_any(plain, tsd)
     _equal(tsd.model_t.state_dict(), want_t)
     _equal(tsd.model_s.state_dict(), student)
     fresh = TSDFull(num_classes=tc.NCLS, cr=0.25, cr_t=tc.CR, head_dim=tc.HEAD_DIM,
+                    pallas_attention=True,
                     window_size=(tc.WS,) * 3, quant_size=(tc.WS / tc.G_CUB,) * 3, **SPHERE)
     convert_weights.load_teacher_pt(staged, fresh, scope="model_t", sub_prefix="model_t.")
     _equal(fresh.model_t.state_dict(), want_t)

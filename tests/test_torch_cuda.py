@@ -870,7 +870,8 @@ def test_unet_request_and_step_match_plain(cuda_device):
 @pytest.mark.cuda
 def test_window_msa_launches_k2(cuda_device, rng):
     """``WindowMultiheadSA`` on the card: one K2 launch a sample and the
-    plain path's output; under autograd it refuses (K2 has no backward)."""
+    plain path's output; under autograd it takes K2's plain version (K2 has
+    no backward) and launches nothing."""
     from u2mkd_tpu_torch.models.position_embedding import WindowMultiheadSA
 
     b, v, dim = 2, 1000, 64
@@ -889,8 +890,90 @@ def test_window_msa_launches_k2(cuda_device, rng):
         module.plain = False
     assert _rel_err(out, ref) <= 1e-4
     assert (out[~mask] == 0).all()
-    with pytest.raises(NotImplementedError):
-        module(feats, xyz, mask)
+    before = k2.launches
+    grad_out = module(feats, xyz, mask)
+    assert k2.launches == before and grad_out.requires_grad
+    assert _rel_err(grad_out.detach(), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_msa_trains_on_card(cuda_device, rng):
+    """One optimizer step of ``WindowMultiheadSA`` under autograd on the
+    card, held to the same step on the CPU: the loss and every parameter
+    after the step."""
+    from u2mkd_tpu_torch.models.position_embedding import WindowMultiheadSA
+
+    b, v, dim = 1, 2000, 64
+    xyz = rng.uniform(0, 6, (b, v, 3)).astype(np.float32)
+    mask = rng.rand(b, v) < 0.9
+    feats = rng.randn(b, v, dim).astype(np.float32)
+    results = []
+    for dev in ("cpu", cuda_device):
+        module = WindowMultiheadSA(dim, 4, (0.6, 0.6, 0.6), pe_type="sine",
+                                   generator=torch.Generator().manual_seed(2)).to(dev)
+        opt = torch.optim.SGD(module.parameters(), lr=0.1)
+        out = module(*(torch.from_numpy(x).to(dev) for x in (feats, xyz, mask)))
+        loss = (out ** 2).mean()
+        loss.backward()
+        opt.step()
+        results.append((loss.item(), {k: p.detach().cpu() for k, p in
+                                      module.named_parameters()}))
+    (loss_c, params_c), (loss_g, params_g) = results
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, p in params_c.items():
+        assert _rel_err(params_g[k], p) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_device_build_on_card_equals_cpu(cuda_device):
+    """``build_plumbing`` on the card against the same build on the CPU:
+    every integer array (keys, rulebooks, point maps) equal, saturated
+    levels included; the voxel means and weights (sums whose order the
+    card's atomics choose) within 1e-6 of their scale."""
+    from u2mkd_tpu_torch.models import plumbing as P
+
+    raw = synthetic.make_batch(np.random.RandomState(4), 2, 20000, voxel_size=0.1)
+    caps = (16384, 8192, 4096, 2048, 1024)
+    args = [torch.from_numpy(raw[k]) for k in ("pcoords", "xyz", "pmask")]
+    cpu = P.build_plumbing(*args, caps)
+    gpu = P.build_plumbing(*(a.to(cuda_device) for a in args), caps)
+    assert gpu.levels[0].grid.key.is_cuda
+    for lc, lg in zip(cpu.levels, gpu.levels):
+        for k in ("mask", "coords", "key", "num"):
+            assert torch.equal(getattr(lg.grid, k).cpu(), getattr(lc.grid, k)), k
+        for k in ("nbr27", "down_nbr8", "up_parent", "up_koff"):
+            if getattr(lc, k) is not None:
+                assert torch.equal(getattr(lg, k).cpu(), getattr(lc, k)), k
+    assert int(cpu.levels[0].grid.num.max()) == caps[0]
+    for li in range(len(caps)):
+        assert torch.equal(gpu.p2v[li].cpu(), cpu.p2v[li])
+        assert torch.equal(gpu.devox_idx[li].cpu(), cpu.devox_idx[li])
+        assert _rel_err(gpu.devox_w[li].cpu(), cpu.devox_w[li]) <= 1e-6
+        assert _rel_err(gpu.vox_xyz[li].cpu(), cpu.vox_xyz[li]) <= 1e-6
+    assert torch.equal(gpu.p2v0_feats_seg.cpu(), cpu.p2v0_feats_seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pallas", [True, False], ids=["flash", "banded"])
+def test_request_on_device_plumbing(cuda_device, pallas):
+    """A teacher request from a scan without plumbing builds it on the card
+    and launches 34 K1 and 8 K3 (flash) or no K3 (banded), with logits
+    within 1e-4 of the same request on its host plumbing."""
+    raw = synthetic.make_batch(np.random.RandomState(6), 1, 8192, voxel_size=0.1)
+    caps = (8192, 8192, 8192, 4096, 2048)  # no grid full: host and card hold one voxel set
+    model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.1, head_dim=16, seed=3,
+                          device=cuda_device, pallas_attention=pallas)
+    eval_fn = state.make_eval_step(model, caps, 17)
+    counters = (spconv_kernel.rulebook_conv, wattn_kernel.flash_rpe_fwd)
+    before = [c.launches for c in counters]
+    out = eval_fn(raw)["logits"]
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [34, 8 if pallas else 0]
+    arrays = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+                                          wgeom_params=wgeom_host.params_from_model(model))
+    ref = eval_fn(dict(raw, plumbing=arrays))["logits"]
+    valid = torch.from_numpy(raw["pmask"]).to(cuda_device)
+    assert _rel_err(out[valid], ref[valid]) <= 1e-4
 
 
 @pytest.mark.cuda

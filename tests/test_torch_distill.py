@@ -140,7 +140,8 @@ def _port_batch(raw, port):
 
 
 def _port(variables, **kw):
-    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, **dict(GEOMETRY, **kw))
+    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True,
+                   **dict(GEOMETRY, **kw))
     port.load_state_dict(convert_weights.from_flax(variables["params"],
                                                    variables["batch_stats"]))
     return port
@@ -296,7 +297,7 @@ def _port_setup(seed=5, **kw):
     """A port TSDFull with random weights from ``seed`` (dropout and drop
     path at their defaults unless ``kw`` says otherwise), its optimizer, and
     one scan with its plumbing."""
-    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5,
+    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True,
                    generator=torch.Generator().manual_seed(seed), **dict(GEOMETRY, **kw))
     opt, _ = distill.make_frozen_teacher_optimizer(port, "sgd_spformer", LR)
     raw = jax_synthetic.make_multimodal_batch(np.random.RandomState(3), 1, 512, 640,

@@ -115,7 +115,7 @@ def _compare_streams(ours, ref, params, caps):
 def test_make_loaders_match_jax(mini_root):
     """Stage 1 (``semantic_nusc``, one past and one future sweep, flip,
     rotate+scale): two shuffled train epochs and a val epoch."""
-    cfg, jcfg = _cfgs(STAGE1, mini_root, "workers=2")
+    cfg, jcfg = _cfgs(STAGE1, mini_root, "workers=2", "model.pallas_attention=true")
     model = builder.make_model(cfg, "cpu")
     train, val = loaders.make_loaders(cfg, model, seed=3)
     j_train, j_val = jax_loaders.make_loaders(jcfg, seed=3, n_shards=1)
@@ -129,7 +129,7 @@ def test_make_distill_loaders_match_jax(mini_root):
     """Stage 2 (``lc_semantic_nusc_tsd_full``): the paired feeds, ``t2s``
     and both parts' plumbing over two shuffled train epochs; the val
     batches carry the student's plumbing only (``debug.debug_val`` off)."""
-    cfg, jcfg = _cfgs(STAGE2, mini_root)
+    cfg, jcfg = _cfgs(STAGE2, mini_root, "model.pallas_attention=true")
     model = builder.make_model(cfg, "cpu")
     train, val = loaders.make_distill_loaders(cfg, model, seed=4)
     j_train, j_val = jax_loaders.make_distill_loaders(jcfg, seed=4, n_shards=1)

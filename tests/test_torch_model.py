@@ -119,10 +119,11 @@ def test_sphereformer_block_matches_flax(rng, n_heads):
         g = wgeom_host.branch_geometry(coords, mask, w_, q_, 128, branch == "sphere")
         assert g["occ"][0] <= 128, "banded reference would truncate"
         geom[branch] = _window_geom_from_arrays(g, "cpu")
-    port = SphereFormerBlock(dim, n_heads, ws, wss, qs, qss, drop_path=0.2).eval()
+    port = SphereFormerBlock(dim, n_heads, ws, wss, qs, qss, drop_path=0.2,
+                             pallas_attention=True).eval()
     port.load_state_dict(convert_weights.from_flax(params, {}))
     with torch.no_grad():
-        out = port(torch.from_numpy(feats), torch.from_numpy(mask), geom)
+        out = port(torch.from_numpy(feats), None, torch.from_numpy(mask), geom)
     # f32, different summation order in softmax and projections
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 

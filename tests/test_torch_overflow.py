@@ -52,7 +52,7 @@ def _counters(caps):
     port = teacher_model(num_classes=5, cr=0.25, voxel_size=0.3, head_dim=4, device="cpu")
     arrays = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"], caps,
                                           wgeom_params=wgeom_host.params_from_model(port))
-    got = overflow.stats_for_model(from_precomputed(arrays, raw["pmask"], "cpu"))
+    got = overflow.stats_for_model(port, from_precomputed(arrays, raw["pmask"], "cpu"))
     return got, ref
 
 
@@ -89,7 +89,7 @@ def test_train_step_aux_carries_counters():
     opt, _ = optim.make_optimizer(model.named_parameters(), "sgd", 0.01)
     arrays = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"], PLANTED,
                                           wgeom_params=wgeom_host.params_from_model(model))
-    want = overflow.stats_for_model(from_precomputed(arrays, raw["pmask"], "cpu"))
+    want = overflow.stats_for_model(model, from_precomputed(arrays, raw["pmask"], "cpu"))
     aux = state.make_train_step(model, opt, PLANTED, overflow_checks=True)(
         dict(raw, plumbing=arrays))
     assert sorted(aux) == sorted(["loss", *want])
@@ -105,7 +105,7 @@ def test_distill_step_aux_carries_both_parts():
     raw = synthetic.make_multimodal_batch(np.random.RandomState(3), 1, 512, 640, voxel_size=0.3,
                                           num_cams=2, im_hw=(32, 48))
     model = TSDFull(num_classes=5, cr=0.25, cr_t=0.5, generator=torch.Generator().manual_seed(0),
-                    **GEOMETRY)
+                    pallas_attention=True, **GEOMETRY)
     opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd", 0.01)
     s_caps, t_caps = PLANTED, TEACHER_GENEROUS
     want = {}
@@ -115,7 +115,8 @@ def test_distill_step_aux_carries_both_parts():
         b["plumbing"] = plumbing_host.batch_plumbing(
             b["pcoords"], b["xyz"], b["pmask"], caps,
             wgeom_params=wgeom_host.params_from_model(sub))
-        stats = overflow.stats_for_model(from_precomputed(b["plumbing"], b["pmask"], "cpu"))
+        stats = overflow.stats_for_model(sub, from_precomputed(b["plumbing"], b["pmask"],
+                                                               "cpu"))
         want.update({f"{k}_{tag}": v for k, v in stats.items()})
     want["overflow/violations"] = want.pop("overflow/violations_s") + want.pop(
         "overflow/violations_t")

@@ -95,6 +95,7 @@ def _geometry(cfg):
 
 def _port(cfg, variables):
     port = TSDFull(num_classes=cfg.data.num_classes, cr=cfg.model.cr, cr_t=cfg.model.cr_t,
+                   pallas_attention=True,
                    dropout_rate=0.0, drop_path_rate=0.0, **_geometry(cfg))
     port.load_state_dict(convert_weights.from_flax(variables["params"],
                                                    variables["batch_stats"]))
@@ -172,6 +173,7 @@ def _real_batch_setup(root):
                              pallas_cubic=False, **geometry)
     s_caps, t_caps = tuple(cfg.student_capacities), tuple(cfg.teacher_capacities)
     probe = TSDFull(num_classes=cfg.data.num_classes, cr=cfg.model.cr, cr_t=cfg.model.cr_t,
+                    pallas_attention=True,
                     **geometry)
     batch = next(iter(loaders.make_distill_loaders(cfg, probe)[0]()))
     raw = _host(batch)

@@ -178,7 +178,7 @@ def test_geometry_spec_covers_every_level():
     for li in range(len(CAPS)):
         geom = P.level_geom(pl, li)
         assert geom["cubic"].order.shape[0] == -(-CAPS[li] // 128) * 128
-    stats = overflow.stats_for_model(pl)
+    stats = overflow.stats_for_model(port, pl)
     occ = batch["plumbing"]["wgeom"]
     for li in range(len(CAPS)):
         assert int(stats[f"overflow/occ_cubic_l{li}"]) == int(occ["cubic"][li]["occ"][0])
@@ -214,7 +214,7 @@ def test_spvcnn_and_tsd_geometry_bitwise_unchanged():
         assert P.level_geom(pl, 1)["sphere"] is pl.wgeom["sphere"][0]
         with pytest.raises(ValueError):
             P.level_geom(pl, 0)
-        assert sorted(k for k in overflow.stats_for_model(pl) if "occ_" in k) == sorted(
+        assert sorted(k for k in overflow.stats_for_model(model, pl) if "occ_" in k) == sorted(
             f"overflow/occ_{b}_l{li}" for b in ("cubic", "sphere") for li in range(1, 5))
 
 
@@ -368,10 +368,10 @@ def test_radial_window_beyond_band_is_exact_in_the_port():
         geom[branch] = _window_geom_from_arrays(g, "cpu")
         if branch == "sphere":
             assert g["occ"][0] == v > 4 * 128
-    port = SphereAttention(dim, heads, ws, wss, qs, qss)
+    port = SphereAttention(dim, heads, ws, wss, qs, qss, pallas_attention=True)
     port.load_state_dict(convert_weights.from_flax(params, {}))
     with torch.no_grad():
-        got = port(torch.from_numpy(feats), torch.from_numpy(mask), geom).numpy()[0]
+        got = port(torch.from_numpy(feats), None, torch.from_numpy(mask), geom).numpy()[0]
 
     # the oracle: the same projections, exact attention per window and branch
     p = {k: np.asarray(x, np.float64) for k, x in params.items() if k.startswith("rel_")}

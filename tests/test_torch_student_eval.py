@@ -87,7 +87,7 @@ def xla_setup():
 
 
 def _port(variables):
-    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, **GEOMETRY).eval()
+    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, **GEOMETRY).eval()
     port.load_state_dict(convert_weights.from_flax(variables["params"],
                                                    variables["batch_stats"]))
     return port
@@ -100,7 +100,7 @@ def test_weight_bridge_covers_every_leaf(xla_setup):
     teacher's subtree alone still loads into the port's SPVCNN."""
     _, _, variables, _ = xla_setup
     sd = convert_weights.from_flax(variables["params"], variables["batch_stats"])
-    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, **GEOMETRY)
+    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, **GEOMETRY)
     want = port.state_dict()
     assert sorted(sd) == sorted(want)
     for k, t in sd.items():
@@ -113,7 +113,8 @@ def test_weight_bridge_covers_every_leaf(xla_setup):
                                   stem.transpose(3, 2, 0, 1))
     fuse = variables["params"]["model_s"]["l2c2"]["fuse_conv"]
     np.testing.assert_array_equal(sd["model_s.l2c2.fuse_conv.bias"].numpy(), fuse["bias"])
-    teacher = SPVCNN(cr=0.5, return_point_feats=True, num_classes=NCLS, **GEOMETRY)
+    teacher = SPVCNN(cr=0.5, return_point_feats=True, num_classes=NCLS, pallas_attention=True,
+                     **GEOMETRY)
     teacher.load_state_dict(convert_weights.from_flax(variables["params"]["model_t"],
                                                       variables["batch_stats"]["model_t"]))
 
@@ -124,7 +125,7 @@ def test_geometry_params_follow_the_student(cr, head_dim):
     teacher's) attention heads per level, and the window sizes of its
     SphereFormer blocks, doubling per level."""
     geom = dict(GEOMETRY, head_dim=head_dim)
-    port = TSDFull(num_classes=NCLS, cr=cr, cr_t=2 * cr, **geom)
+    port = TSDFull(num_classes=NCLS, cr=cr, cr_t=2 * cr, pallas_attention=True, **geom)
     for model in (port.model_s, port.model_t):
         blocks = [getattr(model, f"sphereformer{i}").attn for i in range(1, 5)]
         heads = [(a.num_heads // 2, a.num_heads - a.num_heads // 2, head_dim) for a in blocks]

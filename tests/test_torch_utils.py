@@ -49,7 +49,7 @@ def test_useful_flops_equal_jax(train):
         pl = jax_plumbing_host.batch_plumbing(
             raw["pcoords"], raw["xyz"], raw["pmask"], CAPS,
             wgeom_params=jax_wgeom_host.params_from_model(model))
-        port = SPVCNN(num_classes=5, cr=0.25, head_dim=4, **geom)
+        port = SPVCNN(num_classes=5, cr=0.25, head_dim=4, pallas_attention=True, **geom)
         arrays = plumbing_host.batch_plumbing(
             raw["pcoords"], raw["xyz"], raw["pmask"], CAPS,
             wgeom_params=wgeom_host.params_from_model(port))

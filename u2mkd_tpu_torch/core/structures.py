@@ -1,10 +1,12 @@
 """Fixed-capacity sparse structures, as plain dataclasses of tensors.
 
-Port of ``u2mkd_tpu/core/structures.py``. Every tensor carries a leading
-batch axis ``B``. The grids come from the host pipeline
-(``data/plumbing_host.py``), which resolves every voxel lookup, so no key
-tables are kept; the TPU conv tiling (``conv_jl/jn/kr``) has no counterpart,
-because the CUDA rulebook conv reads the rulebook directly.
+Port of ``u2mkd_tpu/core/structures.py``. Every tensor of a model's
+plumbing carries a leading batch axis ``B`` (the device build,
+``models/plumbing.build_plumbing``, works on one sample's, without it). The
+grids come from the host pipeline (``data/plumbing_host.py``), which
+resolves every voxel lookup and keeps no key tables, or from the device
+build, which keeps them; the TPU conv tiling (``conv_jl/jn/kr``) has no
+counterpart, because the CUDA rulebook conv reads the rulebook directly.
 """
 
 from __future__ import annotations
@@ -18,11 +20,16 @@ import torch
 @dataclass
 class VoxelGrid:
     """The active voxels of one U-Net level, ``stride`` in finest-grid units.
-    Coordinates and counts stay on the host: the forward reads only the
-    mask."""
+    The forward reads only the mask. The device build also keeps what its
+    lookups need, the coordinates (multiples of ``stride``, 0 on dead rows),
+    the sorted packed-key table (``ops/hashing.py``) and the number of live
+    rows; a grid from the host pipeline leaves them on the host (None)."""
 
     mask: torch.Tensor    # [B, V] bool
     stride: int
+    coords: Optional[torch.Tensor] = None  # [B, V, 3] int32
+    key: Optional[torch.Tensor] = None     # [B, V] int64, ascending, PACKED_INVALID pads
+    num: Optional[torch.Tensor] = None     # [B] int32
 
     @property
     def capacity(self) -> int:

@@ -102,12 +102,15 @@ def unet_heads(n_planes: Sequence[int], head_dim: int) -> List[Tuple[int, int, i
 def params_from_model(model) -> Optional[Dict]:
     """Geometry spec from a model's window attributes; None for a model
     without SphereFormer blocks (the conv-only SPVCNN), which reads no
-    window geometry. A SPVCNN encoder's spec covers levels 1..4 over the
+    window geometry, and for one whose branches all run banded
+    (``pallas_attention`` off), which takes its windows in the step (the
+    JAX package builds none then either). A SPVCNN encoder's spec covers levels 1..4 over the
     flat voxel means; the SphereFormer U-Net's (a model with ``n_planes``)
     covers levels 0..4 (``first_level`` 0) over the recursive means
     (``recursive_xyz``), its windows starting at the model's own and
     doubling per level by ``window_size_scale``."""
-    if not getattr(model, "sphereformer", True):
+    if not getattr(model, "sphereformer", True) or not getattr(model, "pallas_attention",
+                                                                 False):
         return None
     spec = dict(tile=128, branch_workers=min(8, os.cpu_count() or 1))
     if hasattr(model, "n_planes"):

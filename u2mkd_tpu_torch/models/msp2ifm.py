@@ -3,9 +3,10 @@ ways with a SwiftNet-18 image branch (MSP2IFM).
 
 Port of ``u2mkd_tpu/models/msp2ifm.py``. Per encoder stage:
 
-  * sparse down conv, two residual blocks and a SphereFormer block (K1 and
-    K3; its window geometry comes from the host, ``level_geom``), then the
-    stage's point features (trilinear devoxelize);
+  * sparse down conv, two residual blocks and a SphereFormer block (K1, and
+    K3 or the banded attention as ``pallas_attention`` and ``pallas_cubic``
+    say; K3 over the host geometry, ``level_geom``, or over windows sorted
+    in the step), then the stage's point features (trilinear devoxelize);
   * the image ResNet stage (and the SPP at stage 4);
   * L2C: the point features scattered into each camera grid at 4 - idx
     scales, averaged, then :class:`~fusion.L2CFusion`;
@@ -49,9 +50,10 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
                  window_size_scale=(2.0, 2.0), drop_path_rate: float = 0.3,
                  sphere_a: float = 0.0125, head_dim: int = 16,
                  adapt_out_ch: Optional[int] = None, run_pix_decoder: bool = True,
-                 generator=None):
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
+        self.pallas_attention, self.pallas_cubic = pallas_attention, pallas_cubic
         self.num_classes = num_classes
         self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
         self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
@@ -78,7 +80,7 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
                 dim=c, num_heads=c // head_dim, window_size=tuple(ws),
                 window_size_sphere=tuple(wss), quant_size=tuple(qs),
                 quant_size_sphere=tuple(qss), drop_path=dpr[idx + 1], a=sphere_a,
-                generator=gen))
+                pallas_attention=pallas_attention, pallas_cubic=pallas_cubic, generator=gen))
             ws = [w * wsc for w in ws]
             qs = [q * wsc for q in qs]
             wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
@@ -138,8 +140,9 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
         """pfeats [B, P, Cin]; images [B, NCAM, H, W, 3] (the JAX package's
         NHWC); pix_coords [B, NCAM, P, 2] in [-1, 1]; cam_masks [B, NCAM, P];
         fov_mask [B, P]; the last four None with ``lidar_only``. The plumbing
-        carries the point maps of every level and the window geometry of
-        every encoder level. Returns {"x_vox" [B, P, classes]} and, on the
+        carries the point maps of every level, and the window geometry of
+        every encoder level or the voxel means the attention sorts its
+        windows on. Returns {"x_vox" [B, P, classes]} and, on the
         camera path, "x_pix" [B, P, classes] (zero outside every field of
         view), "mse_loss" (one per stage) and "pts_feats" (the adapted
         stage-4 features, with ``adapt_out_ch``)."""
@@ -166,12 +169,9 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
             f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
             if not lidar_only:
-                geom = P.level_geom(plumbing, idx + 1)
-                if geom is None:
-                    raise ValueError("the student's SphereFormer blocks need the host window "
-                                     "geometry (batch_plumbing with wgeom_params)")
                 f = getattr(self, f"sphereformer{idx + 1}")(
-                    f, lv[idx + 1].grid.mask, geom, generator)
+                    f, P.level_xyz(plumbing, idx + 1), lv[idx + 1].grid.mask,
+                    P.level_geom(plumbing, idx + 1), generator)
             pts_feat = voxel_to_point(f, plumbing.devox_idx[idx + 1],
                                       plumbing.devox_w[idx + 1])
             if idx == 3 and self.adapt_out_ch is not None:

@@ -96,9 +96,11 @@ class WindowMultiheadSA(nn.Module):
     kernel K2 per sample through its entry point
     (``wattn_kernel.sparse_window_attention_flash``), exact at any window
     occupancy; the JAX module's banded XLA attention agrees wherever every
-    window fits ``band`` tiles of 128 sorted rows. K2 has no backward: on
-    the card the module runs without gradients (its plain version, with
-    ``plain``, is differentiable anywhere)."""
+    window fits ``band`` tiles of 128 sorted rows. K2 has no backward, so
+    wherever a gradient is needed the module runs K2's plain version, which
+    is exact and differentiable on any device; under ``torch.no_grad()``
+    (or with inputs that need none) it launches K2 on the card.
+    ``plain`` takes the plain version always."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[float],
                  pe_type: str = "none", qkv_bias: bool = True, generator=None):
@@ -121,12 +123,10 @@ class WindowMultiheadSA(nn.Module):
             feats = feats + torch.stack([self.pos_enc(x) for x in xyz])
         qkv = self.qkv(feats).reshape(b, vcap, 3, h, dd)
         q, k, v = qkv[:, :, 0] * dd ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
-        if feats.is_cuda and not self.plain and q.requires_grad:
-            raise NotImplementedError("K2 has no backward kernel: run WindowMultiheadSA "
-                                      "under torch.no_grad() on the card, or set plain")
+        plain = self.plain or (torch.is_grad_enabled() and q.requires_grad)
         out = torch.stack([
             wattn_kernel.sparse_window_attention_flash(
-                q[i], k[i], v[i], xyz[i], mask[i], self.window_size, plain=self.plain)
+                q[i], k[i], v[i], xyz[i], mask[i], self.window_size, plain=plain)
             for i in range(b)])
         out = self.proj(out.reshape(b, vcap, c).to(feats.dtype))
         return torch.where(mask[..., None], out, 0.0)

@@ -13,8 +13,10 @@ The attention reuses :class:`~u2mkd_tpu_torch.models.sphereformer.
 SphereFormerBlock` over host window geometry of levels 0..4
 (``data/wgeom_host.params_from_model`` gives this model's spec), built on
 the recursive mean-of-means voxel xyz (``data/plumbing_host.
-recursive_vox_xyz``), so it runs kernel K3 (and K4 and K5 in training)
-and is exact at any window occupancy. The JAX module runs the banded XLA
+recursive_vox_xyz``), or, on plumbing built on the device, over windows
+sorted in the step on the same recursive means (``models/plumbing.
+recursive_vox_xyz``); either way it runs kernel K3 (and K4 and K5 in
+training) and is exact at any window occupancy. The JAX module runs the banded XLA
 attention, which drops the pairs of a window that lie more than band x
 tile rows apart (1 x 128 cubic, 4 x 128 radial): the two agree wherever
 every window fits its band. Every 3x3x3 conv runs kernel K1 (K1b in
@@ -101,7 +103,7 @@ class UBlock(nn.Module):
                 dim=c0, num_heads=c0 // head_dim, window_size=tuple(window_size),
                 window_size_sphere=tuple(window_size_sphere), quant_size=tuple(quant_size),
                 quant_size_sphere=tuple(quant_size_sphere), drop_path=drop_path, a=a,
-                generator=gen)
+                pallas_attention=True, generator=gen)
         self.has_child = len(n_planes) > 1
         if self.has_child:
             c1 = n_planes[1]
@@ -125,21 +127,22 @@ class UBlock(nn.Module):
                 setattr(self, f"tail{i}", block_cls(2 * c0 if i == 0 else c0, c0, gen))
 
     def forward(self, feats: torch.Tensor, plumbing: UNetPlumbing,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                xyz: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``xyz``: the recursive voxel means of every level, where the
+        plumbing carries no window geometry."""
         lv = plumbing.levels[self.level_idx]
         for i in range(self.block_reps):
             feats = getattr(self, f"block{i}")(feats, lv)
         if self.has_attention:
-            geom = P.level_geom(plumbing, self.level_idx)
-            if geom is None:
-                raise ValueError("the U-Net's SphereFormer blocks need the host window "
-                                 "geometry (batch_plumbing with wgeom_params)")
-            feats = self.transformer_block(feats, lv.grid.mask, geom, generator)
+            feats = self.transformer_block(
+                feats, None if xyz is None else xyz[self.level_idx], lv.grid.mask,
+                P.level_geom(plumbing, self.level_idx), generator)
         if self.has_child:
             nxt = plumbing.levels[self.level_idx + 1]
             d = torch.relu(self.down_bn(feats, lv.grid.mask))
             d = self.down_conv(d, nxt.down_nbr8)
-            child = self.u(d, plumbing, generator)
+            child = self.u(d, plumbing, generator, xyz)
             up = torch.relu(self.up_bn(child, nxt.grid.mask))
             up = self.up_conv(up, lv.up_parent, lv.up_koff)
             feats = torch.cat([feats, up], dim=-1)
@@ -155,6 +158,8 @@ class SphereFormerSemantic(nn.Module):
     # the levels whose point maps the forward reads (the stem's voxelize,
     # its round trip and the head)
     point_levels = (0,)
+    # every attention branch runs kernel K3 (the model stays exact)
+    pallas_attention = pallas_cubic = True
 
     def __init__(self, num_classes: int = 17, in_channel: int = 4,
                  n_planes: Tuple[int, ...] = (32, 64, 128, 256, 256),
@@ -199,7 +204,10 @@ class SphereFormerSemantic(nn.Module):
         # points, then pool again per voxel
         z0 = voxel_to_point(x, plumbing.devox_idx[0], plumbing.devox_w[0])
         x = point_to_voxel(z0, plumbing.p2v0_feats_seg, cap0)
-        x = self.unet(x, plumbing, generator)
+        xyz = None
+        if plumbing.wgeom is None:
+            xyz = P.recursive_vox_xyz(plumbing.vox_xyz[0], plumbing.levels)
+        x = self.unet(x, plumbing, generator, xyz)
         x = torch.relu(self.output_bn(x, lv0.grid.mask))
         # each point reads its own level-0 voxel row (zero for dead points)
         rows = plumbing.p2v[0].long()

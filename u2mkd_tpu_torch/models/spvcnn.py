@@ -1,14 +1,16 @@
 """SPVCNN + SphereFormer: the sparse point-voxel U-Net teacher.
 
-Port of ``u2mkd_tpu/models/spvcnn.py`` with the host-geometry attention
-path: stem (2x ks3 conv) -> 4 encoder stages (ks2/s2 down conv + 2 residual
+Port of ``u2mkd_tpu/models/spvcnn.py``: stem (2x ks3 conv) -> 4 encoder stages (ks2/s2 down conv + 2 residual
 blocks + a SphereFormer block) -> 4 decoder stages (transposed conv + skip
 concat + 2 residual blocks), three point-stream MLP fusions, dropout before
 decoder stages 1 and 3, and a per-point classifier. ``sphereformer=False``
 is the conv-only SPVCNN (reference ``core/models/semantickitti/spvcnn.py``),
 without the SphereFormer blocks; unlike the flax module's, the port's
-default is the SphereFormer teacher. The attribute names mirror the flax
-module names.
+default is the SphereFormer teacher. ``pallas_attention`` and
+``pallas_cubic`` route each attention branch as the flax module's do
+(``models/sphereformer.py``): kernel K3 over the host geometry or over
+windows sorted in the step, or the banded attention. The attribute names
+mirror the flax module names.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ class SPVCNN(nn.Module):
                  quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
                  window_size_scale=(2.0, 1.5), drop_path_rate: float = 0.3,
                  sphere_a: float = 0.0125, head_dim: int = 16,
-                 return_point_feats: bool = False, sphereformer: bool = True, generator=None):
+                 return_point_feats: bool = False, sphereformer: bool = True,
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
+        self.pallas_attention, self.pallas_cubic = pallas_attention, pallas_cubic
         self.base_channels, self.sphereformer = tuple(base_channels), sphereformer
         self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
         self.quant_size, self.quant_size_sphere = tuple(quant_size), tuple(quant_size_sphere)
@@ -67,7 +71,8 @@ class SPVCNN(nn.Module):
                     dim=cs[idx + 1], num_heads=cs[idx + 1] // head_dim,
                     window_size=tuple(ws), window_size_sphere=tuple(wss),
                     quant_size=tuple(qs), quant_size_sphere=tuple(qss),
-                    drop_path=dpr[idx + 1], a=sphere_a, generator=gen))
+                    drop_path=dpr[idx + 1], a=sphere_a, pallas_attention=pallas_attention,
+                    pallas_cubic=pallas_cubic, generator=gen))
             ws = [w * wsc for w in ws]
             qs = [q * wsc for q in qs]
             wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
@@ -117,7 +122,8 @@ class SPVCNN(nn.Module):
             f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
             if self.sphereformer:
                 f = getattr(self, f"sphereformer{idx + 1}")(
-                    f, lv[idx + 1].grid.mask, P.level_geom(plumbing, idx + 1), generator)
+                    f, P.level_xyz(plumbing, idx + 1), lv[idx + 1].grid.mask,
+                    P.level_geom(plumbing, idx + 1), generator)
             vox_feats.append(f)
         x1, x2, x3, x4 = vox_feats[1:]
 
@@ -158,12 +164,16 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
                   head_dim: int = 16, seed: int = 0,
                   device: Optional[Union[str, torch.device]] = None,
                   return_point_feats: bool = False, dropout_rate: float = 0.3,
-                  drop_path_rate: float = 0.3) -> SPVCNN:
+                  drop_path_rate: float = 0.3, pallas_attention: bool = True,
+                  pallas_cubic: bool = True) -> SPVCNN:
     """The flagship teacher (``__graft_entry__._teacher_model``): windows of
     6 voxels quantized in 24 steps, sphere windows [2 deg, 2 deg, 120 m],
     both doubling per level; dropout 0.3 and drop path up to 0.3 in
-    training (the tests set them to 0). Random weights from ``seed``, in
-    eval mode, on ``device`` (CUDA unless asked otherwise)."""
+    training (the tests set them to 0). Its attention runs kernel K3 unless
+    ``pallas_attention`` is off, as ``configs/nuscenes/train/spformer.yaml``
+    sets it (the flax module's default is off: the banded attention).
+    Random weights from ``seed``, in eval mode, on ``device`` (CUDA unless
+    asked otherwise)."""
     dev = resolve_device(device)
     ws = voxel_size * 6
     gen = torch.Generator().manual_seed(seed)
@@ -172,6 +182,6 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
         quant_size=(ws / 24, ws / 24, ws / 24), window_size_sphere=(2.0, 2.0, 120.0),
         quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
         dropout_rate=dropout_rate, drop_path_rate=drop_path_rate, sphere_a=0.0125,
-        head_dim=head_dim,
-        return_point_feats=return_point_feats, generator=gen)
+        head_dim=head_dim, return_point_feats=return_point_feats,
+        pallas_attention=pallas_attention, pallas_cubic=pallas_cubic, generator=gen)
     return model.to(dev).eval()

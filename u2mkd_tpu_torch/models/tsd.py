@@ -27,7 +27,8 @@ class TSDFull(nn.Module):
                  quant_size=(0.3 / 24,) * 3, quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0),
                  window_size_scale=(2.0, 2.0), dropout_rate: float = 0.3,
                  drop_path_rate: float = 0.3, sphere_a: float = 0.0125,
-                 head_dim: int = 16, run_pix_decoder: bool = True, generator=None):
+                 head_dim: int = 16, run_pix_decoder: bool = True,
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
         super().__init__()
         self.cr, self.cr_t = cr, cr_t
         self.in_channel, self.in_channel_t = in_channel, in_channel_t
@@ -37,7 +38,7 @@ class TSDFull(nn.Module):
             window_size_sphere=window_size_sphere, quant_size=quant_size,
             quant_size_sphere=quant_size_sphere, window_size_scale=window_size_scale,
             dropout_rate=dropout_rate, drop_path_rate=drop_path_rate, sphere_a=sphere_a,
-            head_dim=head_dim)
+            head_dim=head_dim, pallas_attention=pallas_attention, pallas_cubic=pallas_cubic)
         self.model_s = self.make_student(generator)
         self.model_t = self.make_teacher(generator)
         self.model_t.eval()
@@ -102,13 +103,15 @@ class TSDFull(nn.Module):
 
 def tsd_model(num_classes: int = 17, cr: float = 1.0, cr_t: float = 2.0,
               voxel_size: float = 0.05, head_dim: int = 16, seed: int = 0,
-              device: Optional[Union[str, torch.device]] = None) -> TSDFull:
+              device: Optional[Union[str, torch.device]] = None,
+              pallas_attention: bool = True) -> TSDFull:
     """The stage-2 model of ``configs/nuscenes/train/spformer_tsd_full_ours_star.yaml``
     with the window geometry the JAX package's config factory derives from
     it: windows of 6 voxels quantized in 24 steps, sphere windows [2 deg,
     2 deg, 120 m] quantized in [2/24 deg, 2/24 deg, 5 m], both doubling per
-    level. Random weights from ``seed``, in eval mode, on ``device`` (CUDA
-    unless asked otherwise)."""
+    level; both models' attention runs kernel K3 unless ``pallas_attention``
+    is off, as the config sets it. Random weights from ``seed``, in eval
+    mode, on ``device`` (CUDA unless asked otherwise)."""
     dev = resolve_device(device)
     ws = voxel_size * 6
     gen = torch.Generator().manual_seed(seed)
@@ -116,5 +119,5 @@ def tsd_model(num_classes: int = 17, cr: float = 1.0, cr_t: float = 2.0,
         num_classes=num_classes, cr=cr, cr_t=cr_t, window_size=(ws, ws, ws),
         quant_size=(ws / 24, ws / 24, ws / 24), window_size_sphere=(2.0, 2.0, 120.0),
         quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
-        sphere_a=0.0125, head_dim=head_dim, generator=gen)
+        sphere_a=0.0125, head_dim=head_dim, pallas_attention=pallas_attention, generator=gen)
     return model.to(dev).eval()

@@ -29,8 +29,11 @@ the table projections qT = q . Tq and kT = k . Tk, and the value table; the
 projections are computed outside it, so autograd's einsum backward turns the
 masses (the gradients of qT and kT) into dq, dk, dTq and dTk, as the JAX
 package's XLA epilogue does. :func:`flash_pregeom_batched` is the model's
-entry: gather by the host geometry's ``order``, attend, gather back by
-``inv``, zero invalid rows; autograd scatter-adds the gathers back.
+entry over host geometry: gather by the host geometry's ``order``, attend,
+gather back by ``inv``, zero invalid rows; autograd scatter-adds the gathers
+back. :func:`sparse_window_attention_flash_batched` is its entry over
+geometry taken in the step, for plumbing built on the device: the window
+sort runs on the card, then the same kernels.
 """
 
 from __future__ import annotations
@@ -117,16 +120,25 @@ class SortedWindows(NamedTuple):
 def sort_by_window(xyz: torch.Tensor, valid: torch.Tensor,
                    window_size: Sequence[float]) -> SortedWindows:
     """Stable sort of the rows of xyz [V, 3] by window key (invalid rows
-    last), padded to a multiple of the tile: pads get rank ``PAD_RANK``,
-    window start 0 and window end ``pad_to``; each tile's key range runs
-    from the start of its first row's window to the end of its last row's.
+    last), padded to a multiple of the tile: :func:`sort_window_keys` of
+    the rows' window keys.
 
     Each invalid row is a window of its own. The JAX package gives them one
     shared key, so they attend each other, quadratic work whose output the
     caller zeroes; here each attends itself only, which leaves every valid
     row's output as it was."""
-    vcap = xyz.shape[0]
-    key_s, order = torch.sort(wattn.window_keys(xyz, valid, window_size), stable=True)
+    return sort_window_keys(wattn.window_keys(xyz, valid, window_size))
+
+
+def sort_window_keys(key: torch.Tensor) -> SortedWindows:
+    """Stable sort of packed window keys [V] (``hashing.PACKED_INVALID`` for
+    a dead row), padded to a multiple of the tile: each dead row is a
+    window of its own (the JAX package's ``_sorted_setup``); pads get rank
+    ``PAD_RANK``, window start 0 and window end ``pad_to``; each tile's key
+    range runs from the start of its first row's window to the end of its
+    last row's."""
+    vcap = key.shape[0]
+    key_s, order = torch.sort(key, stable=True)
     pad_to = -(-vcap // TILE) * TILE
     padn = pad_to - vcap
     new = wattn.window_starts(key_s) | (key_s == hashing.PACKED_INVALID)
@@ -470,3 +482,48 @@ def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     res = out_s[geom.inv]
     res = torch.where(valid.reshape(n)[:, None, None], res, 0.0).to(q.dtype)
     return res.reshape(b, vcap, h, d)
+
+
+def sparse_window_attention_flash_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                          xyz: torch.Tensor, valid: torch.Tensor,
+                                          window_size: Sequence[float], rpe: wattn.RPEParams,
+                                          plain: bool = False) -> torch.Tensor:
+    """Window attention with contextual RPE over geometry taken in the step
+    (the JAX package's ``sparse_window_attention_flash_batched``): q/k/v
+    [B, V, h, d] (q pre-scaled), xyz [B, V, 3] the window coordinates,
+    valid [B, V], ``rpe`` with quant [B, V, 3] and r [B, V] or None ->
+    [B, V, h, d] in q's dtype, zero on invalid rows. Each sample's window
+    keys, tagged with its batch index above the key's 48 bits (the JAX
+    package adds it to the high half), sort the flattened batch in one
+    sequence (:func:`sort_window_keys`: a dead row is a window of its own);
+    the sorted, padded rows go through :class:`FlashRPE` (K3, and K4 and K5
+    in the backward) as the host geometry's do, or through the plain
+    version with ``plain``. The sort is named ``window_sort`` in a
+    ``torch.profiler`` trace."""
+    b, vcap, h, d = q.shape
+    n = b * vcap
+    if b >= 1 << 15:
+        raise ValueError(f"the batch tag takes 15 bits of the window key; B={b}")
+    with torch.profiler.record_function("window_sort"):
+        keys = torch.stack([wattn.window_keys(xyz[i], valid[i], window_size)
+                            for i in range(b)])
+        tag = torch.arange(b, device=q.device, dtype=torch.int64)[:, None] << 48
+        keys = torch.where(valid & (keys != hashing.PACKED_INVALID), keys + tag,
+                           hashing.PACKED_INVALID)
+        sw = sort_window_keys(keys.reshape(n))
+    padn = sw.rank.shape[0] - n
+
+    def sorted_padded(x):
+        x = x.reshape((n,) + x.shape[2:])[sw.order]
+        return torch.cat([x, x.new_zeros((padn,) + x.shape[1:])]).contiguous()
+
+    qs, ks, vs = sorted_padded(q), sorted_padded(k), sorted_padded(v)
+    quant = sorted_padded(rpe.quant.to(torch.int32))
+    r = None if rpe.r is None else sorted_padded(rpe.r.float())
+    rank = sw.rank.float()
+    fn = flash_rpe_sorted_plain if plain else flash_rpe_sorted
+    out_s = fn(qs, ks, vs, rank, quant, r, rpe.table_q, rpe.table_k, rpe.table_v,
+               int(rpe.grid_len), float(rpe.a))
+    out = torch.zeros_like(out_s[:n]).index_copy(0, sw.order, out_s[:n])
+    out = torch.where(valid.reshape(n)[:, None, None], out, 0.0).to(q.dtype)
+    return out.reshape(b, vcap, h, d)

@@ -23,12 +23,19 @@ Also the RPE-free pieces of ``u2mkd_tpu/ops/wattn.py`` and
 ``sparse_window_attention_pallas``): :func:`cart2sphere`,
 :func:`window_keys`, :func:`window_bounds_from_sorted`, and
 :func:`window_attention_plain`, the plain version of K2.
+
+And the JAX package's banded attention, :func:`sparse_window_attention`
+(``u2mkd_tpu/ops/wattn.py``, left to XLA there and written in plain torch
+here): the route of a branch whose ``pallas_attention`` (or
+``pallas_cubic``) flag is off. It drops the pairs of a window that lie
+further apart in the sorted order than its band of key tiles reaches, the
+same pairs the JAX function drops.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -110,6 +117,35 @@ def window_attention_plain(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
         num = torch.zeros(hi - lo, h, d, device=dev).index_add(0, seg, e[..., None] * v[kj])
         outs.append(num / den[..., None])
     return torch.cat(outs)
+
+
+def quantize_in_window(xyz: torch.Tensor, valid: torch.Tensor,
+                       window_size: Sequence[float],
+                       quant_size: Sequence[float]) -> torch.Tensor:
+    """Per-axis quantized position [V, 3] int32 of each row of xyz [V, 3]
+    within its (unshifted) window: floor(((xyz - min) mod window) / quant),
+    the minimum over the valid rows (0 where there is none)."""
+    ws = torch.as_tensor(window_size, dtype=xyz.dtype, device=xyz.device)
+    qs = torch.as_tensor(quant_size, dtype=xyz.dtype, device=xyz.device)
+    mn = torch.where(valid[:, None], xyz, math.inf).min(dim=0).values
+    mn = torch.where(torch.isfinite(mn), mn, 0.0)
+    rel = torch.remainder(xyz - mn, ws)
+    return torch.floor(rel / qs).to(torch.int32)
+
+
+class RPEParams(NamedTuple):
+    """Contextual RPE inputs of one attention branch (the JAX package's):
+    tables [L2, 3, h, d]; quant [V, 3] int32 in-window coords; r [V] the
+    range (sphere branch only, binned by the exponential split); grid_len G;
+    a, the split's parameter."""
+
+    table_q: torch.Tensor
+    table_k: torch.Tensor
+    table_v: torch.Tensor
+    quant: torch.Tensor
+    grid_len: int
+    r: Optional[torch.Tensor] = None
+    a: float = 0.0125
 
 
 def exponential_split_index(rel_r: torch.Tensor, a: float) -> torch.Tensor:
@@ -292,3 +328,137 @@ def window_attention_rpe_bwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tenso
             pm.index_add_(0, fq.reshape(-1), p.reshape(-1))
     shape = (n, h, 3, l2)
     return dq, dk, dv, mq.view(shape), mk.view(shape), pm.view(shape)
+
+
+def _banded_chunk(q, k, v, key, qT, kT, tv, uq, cq, r, t0: int, t1: int, tile: int,
+                  band: int, g: int, a: float, radial: bool) -> torch.Tensor:
+    """Query tiles t0..t1-1 of :func:`sparse_window_attention` over the
+    padded sorted rows -> [(t1 - t0) * tile, h, d]. The key band of tile t
+    is padded rows t * tile .. t * tile + (2 band + 1) tile, its queries
+    those from ``band * tile`` on. Each difference axis adds qT at bin
+    uq_i - cq_j + G - 1 and kT at cq_i - uq_j + G - 1 (zero outside the
+    table), with cq the clipped and uq the raw quantized coords, as the JAX
+    package's shifted one-hots do; the radial axis bins the range
+    difference."""
+    n_t = t1 - t0
+    width = (2 * band + 1) * tile
+    margin = band * tile
+    h = q.shape[1]
+    l2 = qT.shape[-1]
+    dev = q.device
+    qrows = (margin + torch.arange(t0, t1, device=dev)[:, None] * tile
+             + torch.arange(tile, device=dev)).reshape(-1)                 # [T]
+    krows = (torch.arange(t0, t1, device=dev)[:, None] * tile
+             + torch.arange(width, device=dev))                           # [nt, W]
+    same = key[qrows].view(n_t, tile, 1) == key[krows][:, None, :]        # [nt, tile, W]
+    kflat = krows.reshape(-1)
+    qv, kv = q[qrows].view(n_t, tile, h, -1), k[kflat].view(n_t, width, h, -1)
+    attn = torch.einsum("ntha,nwha->ntwh", qv, kv)                         # [nt, tile, W, h]
+    qT_t = qT[qrows].view(n_t, tile, h, 3, l2)
+    kT_w = kT[kflat].view(n_t, width, h, 3, l2)
+    vbins = []
+    n_diff = 2 if radial else 3
+    for ax in range(n_diff):
+        uq_i = uq[qrows, ax].view(n_t, tile, 1)
+        cq_i = cq[qrows, ax].view(n_t, tile, 1)
+        bq = uq_i - cq[kflat, ax].view(n_t, 1, width) + g - 1               # [nt, tile, W]
+        bk = cq_i - uq[kflat, ax].view(n_t, 1, width) + g - 1
+        attn = attn + _table_term(qT_t[..., ax, :], bq, l2, query_side=True)
+        attn = attn + _table_term(kT_w[..., ax, :], bk, l2, query_side=False)
+        vbins.append(bq)
+    if radial:
+        rb = exponential_split_index(r[qrows].view(n_t, tile, 1) - r[kflat].view(n_t, 1, width),
+                                     a).long().clamp(0, 2 * g - 1)
+        attn = attn + _table_term(qT_t[..., 2, :], rb, l2, query_side=True)
+        attn = attn + _table_term(kT_w[..., 2, :], rb, l2, query_side=False)
+        vbins.append(rb)
+    attn = torch.where(same[..., None], attn, -math.inf)
+    with torch.no_grad():
+        mx = attn.detach().amax(dim=2, keepdim=True)
+    attn = attn - mx
+    attn = torch.where(torch.isfinite(attn), attn, -math.inf)
+    e = torch.exp(attn)
+    p = e / e.sum(dim=2, keepdim=True).clamp(min=1e-20)                    # [nt, tile, W, h]
+    out = torch.einsum("ntwh,nwhd->nthd", p, v[kflat].view(n_t, width, h, -1))
+    for ax, b in enumerate(vbins):
+        # m[i, h, l] = sum_j p_ij [bin_ij = l], bins outside the table dropped
+        ok = (b >= 0) & (b < l2)
+        idx = torch.where(ok, b, l2)[..., None].expand(-1, -1, -1, h)
+        m = p.new_zeros(n_t, tile, l2 + 1, h).scatter_add_(2, idx, p)[:, :, :l2]
+        out = out + torch.einsum("ntlh,lhd->nthd", m, tv[:, ax])
+    return out.reshape(n_t * tile, h, -1)
+
+
+def _table_term(proj: torch.Tensor, bins: torch.Tensor, l2: int,
+                query_side: bool) -> torch.Tensor:
+    """proj [nt, R, h, L2] (R the tile's queries or its band's keys) read
+    at bins [nt, tile, W] -> [nt, tile, W, h], zero where a bin falls
+    outside [0, L2). One gather from the flat projections, whose backward
+    accumulates into a tensor of proj's size."""
+    n_t, rows, h, _ = proj.shape
+    dev = proj.device
+    ok = (bins >= 0) & (bins < l2)
+    base = torch.arange(n_t, device=dev)[:, None, None] * rows
+    if query_side:                                   # row i of the tile
+        row = base + torch.arange(bins.shape[1], device=dev)[None, :, None]
+    else:                                            # key j of the band
+        row = base + torch.arange(bins.shape[2], device=dev)[None, None, :]
+    idx = ((row[..., None] * h + torch.arange(h, device=dev)) * l2
+           + bins.clamp(0, l2 - 1)[..., None])
+    return torch.where(ok[..., None], proj.reshape(-1)[idx], 0.0)
+
+
+def sparse_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            xyz: torch.Tensor, valid: torch.Tensor,
+                            window_size: Sequence[float], rpe: RPEParams,
+                            band: int = 2, tile: int = 128) -> torch.Tensor:
+    """The JAX package's banded window attention over one sample: q/k/v
+    [V, h, d] (q pre-scaled), xyz [V, 3] the window coordinates, valid [V]
+    -> f32 [V, h, d], zero on invalid rows. Stable sort by window key
+    (invalid rows last, all with the invalid key), pad to the tile with
+    ``band * tile`` invalid-key rows on each side, and let each 128-row
+    query tile attend the key tiles within ``band`` of it, masked to its own
+    window: exact where every window holds at most ``band * tile`` rows;
+    beyond that the pairs outside the band are dropped, as in JAX.
+    Differentiable; under autograd each chunk of tiles is checkpointed, so
+    the memory held for the backward is that of the inputs."""
+    vcap, h, d = q.shape
+    dev = q.device
+    g = int(rpe.grid_len)
+    radial = rpe.r is not None
+    key_s, order = torch.sort(window_keys(xyz, valid, window_size), stable=True)
+    pad_to = -(-vcap // tile) * tile
+    margin = band * tile
+    total = pad_to + 2 * margin
+
+    def pad(x, fill=0):
+        out = x.new_full((total,) + x.shape[1:], fill)
+        out[margin:margin + vcap] = x
+        return out
+
+    key = pad(key_s, hashing.PACKED_INVALID)
+    qp, kp, vp = (pad(x[order].float()) for x in (q, k, v))
+    uq = pad(rpe.quant[order].long())
+    cq = uq.clamp(0, g - 1)
+    r = pad(rpe.r[order].float()) if radial else None
+    qT = table_projections(qp, rpe.table_q)
+    kT = table_projections(kp, rpe.table_k)
+    tv = rpe.table_v.float()
+    width = (2 * band + 1) * tile
+    n_tiles = pad_to // tile
+    per_tile = tile * width * h
+    chunk = max(1, _PAIR_BUDGET // per_tile)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qp, kp, vp, qT, kT, tv))
+    outs = []
+    for t0 in range(0, n_tiles, chunk):
+        args = (qp, kp, vp, key, qT, kT, tv, uq, cq, r, t0, min(n_tiles, t0 + chunk), tile,
+                band, g, float(rpe.a), radial)
+        if grad:
+            outs.append(torch.utils.checkpoint.checkpoint(_banded_chunk, *args,
+                                                          use_reentrant=False))
+        else:
+            outs.append(_banded_chunk(*args))
+    out_s = torch.cat(outs)[:vcap]
+    out = torch.zeros_like(out_s).index_copy(0, order, out_s)
+    return torch.where(valid[:, None, None], out, 0.0)

@@ -5,9 +5,13 @@ The window geometry follows the reference's ``make_model``: window_size =
 voxel_size * patch_size * window_cfg, quantized in window / quant_size_scale
 steps. The port has models for the conv-only SPVCNN (``spvcnn``), the
 SphereFormer teacher (``spvcnn_spformer``) and the stage-2 TSD student
-(``spvcnn_swiftnet18_spformer_tsd_full``), and the loaders: the synthetic
-dataset's here, the real datasets' in ``data/loaders.py``; each batch comes
-with its host plumbing and window geometry, which the port's steps read.
+(``spvcnn_swiftnet18_spformer_tsd_full``), with the JAX builder's
+attention flags (``model.pallas_attention``, default off: the banded
+attention; ``model.pallas_cubic``, default on), and the loaders: the
+synthetic dataset's here, the real datasets' in ``data/loaders.py``; each
+batch comes with its host plumbing and window geometry (under
+``host_plumbing``, on by default), or without, and the steps build it on the
+device.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         window_size_scale=tuple(cfg.model.window_size_scale),
         drop_path_rate=cfg.model.drop_path_rate, sphere_a=cfg.model.a,
         head_dim=cfg.model.get("head_dim", 16),
+        pallas_attention=cfg.model.get("pallas_attention", False),
+        pallas_cubic=cfg.model.get("pallas_cubic", True),
         generator=torch.Generator().manual_seed(seed))
     if name == "spvcnn_spformer":
         model = SPVCNN(cr=cfg.model.cr, in_channel=cfg.model.in_channel, **common)
@@ -124,8 +130,9 @@ def make_synthetic_loaders(cfg: Config, model: torch.nn.Module,
                            seed: int = 0) -> Tuple[Loader, Loader]:
     """Synthetic train and val loaders of the teacher: callables returning
     iterators over batches (``data/synthetic.make_batch``) on ``model``'s
-    device, each with its host plumbing and ``model``'s window geometry,
-    through the real loaders' pipeline (``data/loaders.py``: the plumbing on
+    device, each with its host plumbing and ``model``'s window geometry
+    (without them under ``host_plumbing: false``: the step builds them on
+    the device), through the real loaders' pipeline (``data/loaders.py``: the plumbing on
     ``workers`` threads, a prefetch thread that uploads). Val draws from
     ``seed + 1``; n_val = max(2, n_train // 4)."""
     _check_synthetic(cfg)

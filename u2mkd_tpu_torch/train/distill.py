@@ -89,8 +89,8 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
                             overflow_checks: bool = False) -> Callable:
     """Returns ``step_fn(batch) -> aux`` for ``batch = {"student",
     "teacher", "t2s"}`` as ``data/synthetic.make_multimodal_batch`` gives it
-    (numpy arrays; a ``plumbing`` entry in either part skips its host
-    build). The teacher runs first, in eval mode without gradients; then the
+    (numpy arrays or device tensors; a part without a ``plumbing`` entry is
+    built on the device, ``state.batch_reader``). The teacher runs first, in eval mode without gradients; then the
     student in training mode (batch-statistic BN updating its running
     statistics; dropout and drop path drawn from ``generator``, a seeded one
     on the model's device by default), the loss, the backward,
@@ -135,7 +135,7 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
         out = {"x_vox_t2s": _gather_t2s(t_out["x_vox"], t2s),
                "feat_t2s": _gather_t2s(t_out["pts_feats"], t2s)}
         if overflow_checks:
-            out["overflow"] = overflow.stats_for_model(tpl)
+            out["overflow"] = overflow.stats_for_model(model.model_t, tpl)
         return out
 
     def student_fn(batch: Dict, t_out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -159,7 +159,8 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
         if overflow_checks:
             # the two parts' counters apart, their violations summed (the
             # JAX step's keys)
-            for tag, stats in (("s", overflow.stats_for_model(spl)), ("t", t_out["overflow"])):
+            for tag, stats in (("s", overflow.stats_for_model(model.model_s, spl)),
+                               ("t", t_out["overflow"])):
                 aux.update({f"{k}_{tag}": v for k, v in stats.items()})
             aux["overflow/violations"] = (aux.pop("overflow/violations_s")
                                           + aux.pop("overflow/violations_t"))
@@ -178,13 +179,13 @@ def make_distill_eval_step(model: TSDFull, s_caps: Sequence[int], t_caps: Sequen
                            run_teacher: bool = False) -> Callable:
     """Returns ``eval_fn(batch)`` for ``batch = {"student": ..., "teacher":
     ...}`` as ``data/synthetic.make_multimodal_batch`` gives it (numpy
-    arrays; a ``plumbing`` entry in either skips its host build) ->
+    arrays; a part without a ``plumbing`` entry is built on the device) ->
     {"pred_vox", "pred_pix", "counts_vox", "counts_pix", "logits",
     "logits_pix"} and, with ``run_teacher``, "counts_teacher" and the
     teacher's "logits_teacher" (a key the JAX step does not return). The pixel
     head is scored on the points in a camera's field of view only; the
     teacher on its valid keyframe points. The student's plumbing carries the
-    point maps of every level and the window geometry of
+    point maps of every level and, from the host, the window geometry of
     ``wgeom_host.params_from_model(model.model_s)``; the teacher's those of
     ``model.model_t``."""
     _, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)

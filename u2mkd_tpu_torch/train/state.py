@@ -1,6 +1,7 @@
 """The teacher's train and eval steps (port of ``make_train_step`` and
 ``make_eval_step`` of ``u2mkd_tpu/train/state.py``): one training step or one
-inference request from a host batch.
+inference request from a batch, with its host plumbing or with plumbing
+built on the device (the JAX package's ``get_plumbing``).
 
 The JAX package's ``remat`` (a TPU memory workaround) has no counterpart
 here.
@@ -12,7 +13,6 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
 from u2mkd_tpu_torch.models import plumbing as P
 from u2mkd_tpu_torch.ops import losses
 from u2mkd_tpu_torch.train import metrics, overflow
@@ -25,20 +25,26 @@ def batch_reader(model: torch.nn.Module, capacities: Sequence[int]):
     ``labels``, and ``pcoords``/``xyz``) as ``data/synthetic.make_batch``
     gives them, or tensors, as the loaders upload them
     (``data/loaders.to_device``): a tensor already on ``model``'s device in
-    the dtype asked for is used as it is, with no second copy. With a
-    ``plumbing`` entry (``plumbing_host.batch_plumbing``) the host build is
-    skipped. The window geometry and the levels whose point maps the
-    plumbing carries are ``model``'s."""
+    the dtype asked for is used as it is, with no second copy.
+    ``plumbing_of`` follows the JAX package's ``get_plumbing``: a batch
+    with a ``plumbing`` entry (``plumbing_host.batch_plumbing``, with the
+    model's window geometry where it runs kernel K3) is assembled from it
+    (``models/plumbing.from_precomputed``); a batch without one is built on
+    ``model``'s device from its ``pcoords``, ``xyz`` and ``pmask``
+    (``models/plumbing.build_plumbing``), with no window geometry, so the
+    attention sorts its windows in the step. Either way the point maps are
+    those of the model's ``point_levels``."""
     device = next(model.parameters()).device
-    wparams = wgeom_host.params_from_model(model)
 
     def plumbing_of(batch: Dict) -> P.UNetPlumbing:
         arrays = batch.get("plumbing")
         if arrays is None:
-            arrays = plumbing_host.batch_plumbing(
-                batch["pcoords"], batch["xyz"], batch["pmask"], capacities,
-                wgeom_params=wparams)
-        return P.from_precomputed(arrays, batch["pmask"], device, model.point_levels)
+            return P.build_plumbing(tensor_of(batch, "pcoords", torch.float32),
+                                    tensor_of(batch, "xyz", torch.float32),
+                                    tensor_of(batch, "pmask", torch.bool), capacities,
+                                    model.point_levels)
+        return P.from_precomputed(arrays, batch["pmask"], device, model.point_levels,
+                                  vox_xyz=P.reads_vox_xyz(model, "wgeom" in arrays))
 
     def tensor_of(batch: Dict, key: str, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(batch[key]).to(device=device, dtype=dtype)
@@ -79,7 +85,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             scheduler.step()
         aux = {"loss": loss.detach()}
         if overflow_checks:
-            aux.update(overflow.stats_for_model(pl))
+            aux.update(overflow.stats_for_model(model, pl))
         return aux
 
     return step_fn
