@@ -109,6 +109,24 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      loss terms and launches per step, the teacher bitwise frozen, the peak
      device memory; then two more steps under ``torch.profiler``;
  13. student grad check: phase 7's two checks on one stage-2 train step;
+13b. bf16: the main paths under the bf16 compute policy, each model built
+     by ``train/builder.make_model`` with ``precision=bfloat16``: three
+     teacher requests at P (34 K1 and 8 K3 launches, counted by dtype, all
+     bf16), every launch of one held to its plain version at the bf16 TOL,
+     the logits against the f32 request of the same scan and weights by the
+     JAX package's criterion (mean |bf16 - f32| over mean |f32| < 0.1) and
+     their argmax agreement; three teacher train steps (34 / 33 / 34 / 8 /
+     8 / 8 bf16 launches) and phase 7's whole-step check in bf16, its
+     tolerance from plain bf16 steps nudged by one bf16 ulp; three student
+     requests and one profiled, the image branch's convolutions summed by
+     kernel; three stage-2 train steps (five finite loss terms, the teacher
+     bitwise frozen); the policy f32 again after the phase;
+13c. ablation: the distillation-efficacy ablation
+     (``u2mkd_tpu_torch/distill_ablation.py``) on a fresh
+     ``tools/make_nusc_mini.py`` set, with the protocol and the five
+     bounds of ``tests/test_distill_ablation.py``: in f32 (the teacher and
+     both arms) and in bf16 (both arms, from the f32 teacher's checkpoint),
+     with each run's wall seconds;
  14. cli: ``python -m u2mkd_tpu_torch.train_spformer`` on the tiny synthetic
      teacher config at cr=0.5, then ``python -m
      u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
@@ -141,7 +159,9 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      training run printed, the three views of each scan differ; wall s,
      requests, K1 and K3 launches per request, peak memory.
 
-Then the command's wall time, a ``{"kernels": [...]}`` line, the card's name
+Every phase but 13b runs in f32. Then the command's wall time, a
+``{"kernels": [...]}`` line (an f32 entry per kernel and a bf16 entry for
+each but K2), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero without that line. Long outputs (the compiler's register counts,
 the profiler's table) go to ``chiprun_out/``.
@@ -210,6 +230,29 @@ GRAD_RTOL = 1e-3
 GRAD_SPREADS = 4.0
 GRAD_FLOOR = 1e-3
 NUDGE_SEEDS = (7, 8, 9)
+# the nudge's size: one ulp (the dtype's epsilon) of the dtype the step
+# computes in
+NUDGE_ULP = {"f32": 2.0 ** -23, "bf16": 2.0 ** -7}
+# In bf16 the rule above passes anything: one bf16 ulp of rounding moves
+# the worst parameter's gradient (a BN weight's: a sum that cancels) by
+# 0.9-1.3 of its largest entry, so its tolerance passes a zeroed gradient.
+# The bf16 step holds each parameter to its own spread instead, measured as
+# the rest are: the kernel step's gradient within GRAD_SPREADS times the
+# median of the three nudged steps' differences for that parameter, in L2
+# over its entries relative to the plain step's (the largest entry is one
+# sample of thousands, L2 their sum); the planted fault must miss its
+# parameter's tolerance by FAULT_MARGIN
+BF16_GRAD_RULE = ("per parameter: ||g - g_plain|| / ||g_plain|| <= GRAD_SPREADS x the median "
+                  "of the parameter's own three one-bf16-ulp nudges (floor GRAD_RTOL)")
+# Even so, bf16 rounding moves a weight gradient more the further the
+# backward has run from the loss: a zeroed K1b launch misses its parameter's
+# tolerance by ~13x at launch 1 (the decoder's last level-0 conv), by less
+# than 2x from the level-1 convs on, and by 1.5x at launch 17, the f32
+# check's (PERF.md, section 6). The bf16 check plants its fault at launch 1 and
+# reports the margin at BF16_REPORTED_FAULTS, one launch of each level
+# (17 among them); the per-launch check is what holds every K1b launch
+BF16_FAULT_DW_CALL = 1
+BF16_REPORTED_FAULTS = (5, 9, 13, 17, 21, 25, 29, 33)
 FAULT_DW_CALL = 17
 FAULT_MARGIN = 2.0
 # the stage-2 student (configs/nuscenes/train/spformer_tsd_full_ours_star.yaml:
@@ -346,6 +389,36 @@ PLANTED_STUDENT_CAPS = (16384, 16384, 16384, 8192, 4096)
 # either stage runs one model (the teacher, or the student alone)
 EVAL_VOTES = 3
 EVAL_LAUNCHES = {"rulebook_conv": 34, "flash_rpe_fwd": 8}
+# the bf16 compute policy (ops/precision.py) on the main paths, set by
+# ``train/builder.make_model`` from ``precision=bfloat16`` on the paper's
+# configs: the teacher of spformer.yaml at the 0.1 m voxels of phase 3's
+# scans (phase 3's model) and the stage-2 model of
+# spformer_tsd_full_ours_star.yaml (phase 10's). Every launch of K1, dX,
+# K1b, K3, K4 and K5 takes bf16 inputs, counted by dtype; a bf16 request's
+# logits are held to the f32 request's on the same scan and weights by the
+# JAX package's criterion (tests/test_precision.py): mean |bf16 - f32|
+# over mean |f32| below BF16_LOGIT_RTOL
+BF16_TEACHER = ("configs/nuscenes/train/spformer.yaml", (f"dataset.voxel_size={VOXEL}",))
+BF16_STUDENT = ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", ())
+BF16_LOGIT_RTOL = 0.1
+BF16_PATHS = ("bf16_infer", "bf16_train", "bf16_student", "bf16_student_train")
+# the image branch's convolutions in a profile, summed: device kernels whose
+# names carry one of these marks (cuDNN's implicit-GEMM, FFT and Winograd
+# convolutions and their helpers), the port's kernels and BN aside
+IMAGE_CONV_MARKS = ("fprop", "dgrad", "wgrad", "fft", "winograd", "convolve", "implicit_gemm",
+                    "conv2d", "flip_filter", "cgemm")
+IMAGE_CONV_GROUP = "image convolutions (cuDNN kernels, summed)"
+# the distillation-efficacy ablation (u2mkd_tpu_torch/distill_ablation.py)
+# on a fresh tools/make_nusc_mini.py set, with the protocol and bounds of
+# tests/test_distill_ablation.py, in f32 (the teacher and both arms) and in
+# bf16 (both arms, from the f32 run's teacher checkpoint)
+ABLATION = {"drop": 0.0, "drop_classes": (4, 7, 10), "teacher_epochs": 12,
+            "student_epochs": 12}
+ABLATION_BOUNDS = {"teacher_miou >= 0.70": lambda r: r["teacher_miou"] >= 0.70,
+                   "held_iou_scratch <= 0.02": lambda r: r["held_iou_scratch"] <= 0.02,
+                   "held_iou_distilled >= 0.10": lambda r: r["held_iou_distilled"] >= 0.10,
+                   "held_gap >= 0.08": lambda r: r["held_gap"] >= 0.08,
+                   "gap > 0": lambda r: r["gap"] > 0.0}
 # K2's main-path shape: the teacher's level-1 voxels (N = 65536 capacity),
 # h=4, d=16; the level's cubic windows (6 voxels of 0.1 m) and sphere
 # windows on cart2sphere coordinates
@@ -1018,7 +1091,9 @@ def profile_by_kernel(fn, raw, reps, out_name):
     ``torch.profiler`` (the 15 largest groups, every group of
     PROFILE_GROUPS that ran, and the named ranges of
     PROFILE_ANNOTATIONS), the kernels' sum, and the profiled
-    host wall ms per call; the profiler's table goes to ``OUT_DIR``. A
+    host wall ms per call, and the image branch's convolutions summed
+    (IMAGE_CONV_GROUP, where any ran); the profiler's table goes to
+    ``OUT_DIR``. A
     busy share divides the device time by the median CUDA-event time of
     unprofiled calls, so that no host cost of the profiler can count as
     device idle time."""
@@ -1032,6 +1107,7 @@ def profile_by_kernel(fn, raw, reps, out_name):
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
     groups, annotated = {}, {}
+    convs = {"ms": 0.0, "calls": 0, "by_kernel": {}}
     for e in prof.key_averages():
         on_device = getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
         if e.key in PROFILE_ANNOTATIONS:
@@ -1047,6 +1123,13 @@ def profile_by_kernel(fn, raw, reps, out_name):
         g = groups.setdefault(name, {"ms": 0.0, "calls": 0})
         g["ms"] += e.self_device_time_total / 1e3 / reps
         g["calls"] += e.count // reps
+        low = e.key.lower()
+        if (name == e.key and any(m in low for m in IMAGE_CONV_MARKS)
+                and "bn_" not in low and "batch_norm" not in low):
+            ms, calls = e.self_device_time_total / 1e3 / reps, e.count // reps
+            convs["ms"] += ms
+            convs["calls"] += calls
+            convs["by_kernel"][e.key] = {"ms": ms, "calls": calls}
     busy_ms = sum(g["ms"] for g in groups.values())
     if busy_ms <= 0:
         raise AssertionError("torch.profiler recorded no device time")
@@ -1055,6 +1138,8 @@ def profile_by_kernel(fn, raw, reps, out_name):
     ranked = sorted(groups.items(), key=lambda kv: -kv[1]["ms"])
     named = set(PROFILE_GROUPS.values())
     shown = [kv for i, kv in enumerate(ranked) if i < 15 or kv[0] in named]
+    if convs["calls"]:
+        annotated[IMAGE_CONV_GROUP] = convs
     return dict(shown, **annotated), busy_ms, profiled_ms
 
 
@@ -1152,38 +1237,52 @@ def _plain_of_launch():
 
 
 @contextlib.contextmanager
-def each_launch_held_to_plain(worst):
-    """Inside, every call of the six counted wrappers also runs its plain
-    version on the same arguments; ``worst[name]`` collects the calls and
-    the largest error of any output relative to the plain output's largest
-    entry (:func:`_errors`)."""
+def each_launch_recorded(record, hold=False):
+    """Inside, every call of the six counted wrappers adds one to
+    ``record[name]["calls"]`` and, where it launched its kernel (the
+    wrapper's own count moved), one to ``record[name]["by_dtype"][dtype]``,
+    the dtype of its first input. With ``hold``, each call also runs its
+    plain version on the same arguments, and ``record[name]["max_rel_err"]``
+    collects the largest error of any output relative to the plain output's
+    largest entry (:func:`_errors`)."""
     import torch
 
     saved = []
     for name, (mod, plain) in _plain_of_launch().items():
         kernel = getattr(mod, name)
 
-        def checked(*args, _kernel=kernel, _plain=plain, _name=name):
+        def recorded(*args, _kernel=kernel, _plain=plain, _name=name, _mod=mod):
+            shim = getattr(_mod, _name)
+            before = shim.launches
             outs = _kernel(*args)
-            refs = _plain(*args)
-            if torch.is_tensor(outs):
-                outs, refs = (outs,), (refs,)
-            row = worst.setdefault(_name, {"calls": 0, "max_rel_err": 0.0})
+            row = record.setdefault(_name, {"calls": 0, "by_dtype": {}})
             row["calls"] += 1
-            row["max_rel_err"] = max(row["max_rel_err"], _errors(outs, refs)[1])
-            return outs[0] if len(outs) == 1 else outs
+            if shim.launches != before:
+                dtype = str(args[0].dtype).replace("torch.", "")
+                row["by_dtype"][dtype] = row["by_dtype"].get(dtype, 0) + 1
+            if hold:
+                refs = _plain(*args)
+                pair = (outs, refs) if not torch.is_tensor(outs) else ((outs,), (refs,))
+                row["max_rel_err"] = max(row.get("max_rel_err", 0.0), _errors(*pair)[1])
+            return outs
 
         # the wrapper counts its launches on the function its module's name
-        # holds, which is now ``checked``: carry the count there and back
-        checked.launches = kernel.launches
+        # holds, which is now ``recorded``: carry the count there and back
+        recorded.launches = kernel.launches
         saved.append((mod, name, kernel))
-        setattr(mod, name, checked)
+        setattr(mod, name, recorded)
     try:
-        yield worst
+        yield record
     finally:
         for mod, name, kernel in saved:
             kernel.launches = getattr(mod, name).launches
             setattr(mod, name, kernel)
+
+
+def each_launch_held_to_plain(worst):
+    """:func:`each_launch_recorded` with every launch held to its plain
+    version."""
+    return each_launch_recorded(worst, hold=True)
 
 
 @contextlib.contextmanager
@@ -1213,7 +1312,8 @@ def planted_fault(call=FAULT_DW_CALL):
         S.rulebook_conv_dw = kernel
 
 
-def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
+def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL, dtype="f32",
+              reported_faults=()):
     """The two checks of one train step on the card.
 
     ``setup()`` -> (a model with weights from one seed, its step function
@@ -1227,12 +1327,22 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
     same dropout masks) to GRAD_LOSS_RTOL, and each trained parameter's
     gradient within the rule of GRAD_SPREADS, which a step with
     :func:`planted_fault` (at K1b launch ``fault_call``) must miss by
-    FAULT_MARGIN."""
+    FAULT_MARGIN. ``dtype`` "bf16": the step computes in bf16 (the policy
+    set by ``setup``), every launch takes bf16 inputs and is held to the
+    bf16 TOL, and the nudges are one bf16 ulp (NUDGE_ULP), which rounds the
+    weights the step reads to another bf16 value where one f32 ulp would not;
+    the kernel step and the plain one round K1's output at other points, so
+    their losses are held by the rule of GRAD_SPREADS too, over the nudged
+    steps' losses (f32 keeps GRAD_LOSS_RTOL); and the gradients by
+    BF16_GRAD_RULE, the f32 rule's numbers kept in the row beside it.
+    ``reported_faults``: further K1b launches planted one at a time, whose
+    margins the row reports and nothing asserts."""
     import torch
 
     runs, per_launch = {}, {}
     nudged = [f"plain_nudged_{seed}" for seed in NUDGE_SEEDS]
-    for tag in ["kernels", "plain", *nudged, "kernels_fault"]:
+    faults = {"kernels_fault": fault_call, **{f"kernels_fault_{c}": c for c in reported_faults}}
+    for tag in ["kernels", "plain", *nudged, *faults]:
         model, step_fn, trained = setup()
         if tag.startswith("plain"):
             model.set_plain(True)
@@ -1240,12 +1350,13 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
             gen = torch.Generator(device=DEVICE).manual_seed(int(tag.rsplit("_", 1)[1]))
             with torch.no_grad():
                 for p in model.parameters():
-                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, device=DEVICE, generator=gen))
+                    p.mul_(1 + NUDGE_ULP[dtype] * torch.randn(p.shape, device=DEVICE,
+                                                              generator=gen))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with (each_launch_held_to_plain(per_launch) if tag == "kernels"
-              else planted_fault(fault_call) if tag == "kernels_fault"
+              else planted_fault(faults[tag]) if tag in faults
               else contextlib.nullcontext()):
             loss = step_fn(raw)["loss"].item()
         torch.cuda.synchronize()
@@ -1253,21 +1364,29 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
                      torch.cuda.max_memory_allocated())
         del model, step_fn
     for name, row in per_launch.items():
-        row["tol_rel"] = TOL[(name, "f32")]
+        row["tol_rel"] = TOL[(name, dtype)]
     emit({"phase": f"{phase}_per_launch", "points": points, "by_kernel": per_launch})
     bad = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
     counts = {n: r["calls"] for n, r in per_launch.items()}
-    if bad or counts != launches:
+    torch_dtype = {"f32": "float32", "bf16": "bfloat16"}[dtype]
+    if bad or counts != launches or any(r["by_dtype"] != {torch_dtype: r["calls"]}
+                                        for r in per_launch.values()):
         raise AssertionError(f"a kernel launch of the train step disagrees with its plain "
-                             f"version, or the launches are not {launches}: {per_launch}")
+                             f"version, or the launches are not {launches} of {dtype}: "
+                             f"{per_launch}")
     ref = runs["plain"][0]
     worst, worst_name = _grad_diff(runs["kernels"][0], ref)
     spreads = [_grad_diff(runs[tag][0], ref) for tag in nudged]
     tol = max(GRAD_RTOL, GRAD_SPREADS * float(np.median([sp for sp, _ in spreads])))
     fault, fault_name = _grad_diff(runs["kernels_fault"][0], ref)
     loss_k, loss_p = runs["kernels"][1], runs["plain"][1]
-    row = {"phase": phase, "points": points, "loss_kernels": loss_k, "loss_plain": loss_p,
+    loss_spreads = [abs(runs[tag][1] - loss_p) / abs(loss_p) for tag in nudged]
+    loss_tol = GRAD_LOSS_RTOL if dtype == "f32" else max(
+        GRAD_LOSS_RTOL, GRAD_SPREADS * float(np.median(loss_spreads)))
+    row = {"phase": phase, "points": points, "dtype": dtype, "nudge": NUDGE_ULP[dtype],
+           "loss_kernels": loss_k, "loss_plain": loss_p,
            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "ulp_nudge_loss_rel_diffs": loss_spreads, "loss_tol_rel": loss_tol,
            "max_grad_rel_diff": worst, "worst_param": worst_name,
            "ulp_nudge_grad_rel_diffs": [sp for sp, _ in spreads],
            "ulp_nudge_worst_params": [n for _, n in spreads], "grad_tol_rel": tol,
@@ -1276,12 +1395,47 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL):
            "planted_fault_margin": fault / tol, "params": len(ref),
            "step_wall_s": {k: v[2] for k, v in runs.items()},
            "max_memory_allocated_bytes": {k: v[3] for k, v in runs.items()}}
+    if dtype == "bf16":
+        # one bf16 ulp of rounding moves the worst parameter's gradient by
+        # about its largest entry (the global rule above, kept in the row,
+        # then passes anything): each parameter is held to its own spread
+        # instead, in L2 over its entries (BF16_GRAD_RULE)
+        spread = [_grad_rel_l2(runs[tag][0], ref) for tag in nudged]
+        tol_p = {n: max(GRAD_RTOL, GRAD_SPREADS * float(np.median([sp[n] for sp in spread])))
+                 for n in ref}
+        worst, worst_name = _worst_ratio(_grad_rel_l2(runs["kernels"][0], ref), tol_p)
+        margins = {c: _worst_ratio(_grad_rel_l2(runs[tag][0], ref), tol_p)
+                   for tag, c in faults.items()}
+        fault, fault_name = margins[fault_call]
+        tol = 1.0
+        row.update({"rule": BF16_GRAD_RULE, "max_grad_l2_over_own_tol": worst,
+                    "worst_param_l2": worst_name,
+                    "planted_fault_l2_over_own_tol": fault,
+                    "planted_fault_param_l2": fault_name,
+                    "planted_fault_own_tol": tol_p[fault_name],
+                    "reported_faults_l2_margin": {
+                        f"K1b launch {c} zeroed": {"param": n, "margin": m,
+                                                   "own_tol": tol_p[n]}
+                        for c, (m, n) in margins.items() if c != fault_call}})
     emit(row)
-    if not (row["loss_rel_diff"] <= GRAD_LOSS_RTOL and worst <= tol):
+    if not (row["loss_rel_diff"] <= loss_tol and worst <= tol):
         raise AssertionError(f"kernel gradients disagree with the plain path: {row}")
     if not fault >= FAULT_MARGIN * tol:
         raise AssertionError(f"the planted fault passes the gradient check, which so checks "
                              f"nothing: {row}")
+
+
+def _grad_rel_l2(grads, ref):
+    """{name: ||grads[name] - ref[name]|| / ||ref[name]||}, L2 over each
+    parameter's entries."""
+    return {n: ((g - ref[n]).norm() / ref[n].norm().clamp(min=1e-30)).item()
+            for n, g in grads.items()}
+
+
+def _worst_ratio(diffs, tols):
+    """(the largest diffs[name] / tols[name], its name)."""
+    name = max(diffs, key=lambda n: diffs[n] / tols[n])
+    return diffs[name] / tols[name], name
 
 
 def phase_grad_check():
@@ -3125,6 +3279,256 @@ def phase_evaluate(root, runs):
     return launches
 
 
+def _policy_model(path, overrides, precision, seed=0):
+    """The model of the config at ``path`` (with ``overrides``) built by
+    ``train/builder.make_model`` with ``precision=...``, which sets the
+    compute policy; weights from ``seed``, on the card."""
+    from u2mkd_tpu_torch.train import builder
+    from u2mkd_tpu_torch.utils import config
+
+    cfg = config.update_dotted(config.load(path), [*overrides, f"precision={precision}"])
+    return builder.make_model(cfg, DEVICE, seed)
+
+
+def _recorded(fn, batch):
+    """fn(batch) between CUDA events with its launches recorded ->
+    (output, device ms, wall ms, {wrapper: {dtype: launches}})."""
+    record = {}
+    with each_launch_recorded(record):
+        out, device_ms, wall_ms = _timed(fn, batch)
+    return out, device_ms, wall_ms, {n: r["by_dtype"] for n, r in record.items()}
+
+
+def _bf16_runs(phase, fn, batches, expected, check):
+    """``fn`` on each of ``batches`` ((seed, batch, host ms)), each run's
+    launches by dtype held to ``expected`` launches, all bf16, and
+    ``check(output)`` -> (a row of its own) true; each row emitted ->
+    (outputs, rows, the bf16 launches of all runs by wrapper)."""
+    outs, rows, total = [], [], {}
+    for seed, raw, host_ms in batches:
+        out, device_ms, wall_ms, by_dtype = _recorded(fn, raw)
+        row = {"phase": phase, "seed": seed, "host_ms": host_ms, "device_ms": device_ms,
+               "wall_ms": wall_ms, "launches_by_dtype": by_dtype, **check(out)}
+        emit(row)
+        if by_dtype != {n: {"bfloat16": c} for n, c in expected.items()} or not row["finite"]:
+            raise AssertionError(f"expected {expected} launches, all bf16, and finite "
+                                 f"outputs: {row}")
+        for n, c in by_dtype.items():
+            total[n] = total.get(n, 0) + c["bfloat16"]
+        outs.append(out)
+        rows.append(row)
+    return outs, rows, total
+
+
+def _bf16_held(phase, fn, batch, expected):
+    """One run of ``fn(batch)`` with every launch held to its plain version
+    at the bf16 TOL, all bf16."""
+    worst = {}
+    with each_launch_held_to_plain(worst):
+        fn(batch)
+    for name, r in worst.items():
+        r["tol_rel"] = TOL[(name, "bf16")]
+    emit({"phase": phase, "by_kernel": worst})
+    if {n: r["by_dtype"] for n, r in worst.items()} != {
+            n: {"bfloat16": c} for n, c in expected.items()} \
+            or any(not r["max_rel_err"] <= r["tol_rel"] for r in worst.values()):
+        raise AssertionError(f"a bf16 launch disagrees with its plain version, or the "
+                             f"launches are not {expected} of bf16: {worst}")
+
+
+def _warm(rows):
+    return float(np.median([r["device_ms"] for r in rows[1:]]))
+
+
+def phase_bf16():
+    """The main paths under the bf16 policy (BF16_TEACHER, BF16_STUDENT),
+    each model built by the builder with ``precision=bfloat16``: three
+    teacher requests at P (34 K1 and 8 K3 launches each, all bf16), every
+    launch of one held to its plain version at the bf16 TOL, the first
+    request's logits against the f32 request of the same scan and weights
+    (BF16_LOGIT_RTOL, argmax agreement); three teacher train steps (34 / 33
+    / 34 / 8 / 8 / 8 bf16 launches, finite losses, peak memory) and phase
+    7's whole-step check in bf16 (:func:`held_step` with ``dtype="bf16"``);
+    three student requests (6 cameras at 360x640, P=65536) and one
+    profiled, with the image branch's convolutions by kernel; three stage-2
+    train steps (3 cameras, the cr_t=2.0 teacher): five finite loss terms,
+    the teacher bitwise frozen, peak memory. The policy is f32 again after
+    the phase, however it ends. -> the bf16 launches of each path."""
+    import torch
+    from u2mkd_tpu_torch.ops import precision
+    from u2mkd_tpu_torch.train import distill, optim, state
+
+    launches = {}
+    try:
+        f32 = _policy_model(*BF16_TEACHER, "float32")
+        batches = [(seed, *host_batch(seed, f32)) for seed in SEEDS]
+        ref = state.make_eval_step(f32, CAPS, NUM_CLASSES)(batches[0][1])["logits"]
+        del f32
+        model = _policy_model(*BF16_TEACHER, "bfloat16")
+        if precision.compute_dtype() != torch.bfloat16:
+            raise AssertionError("precision=bfloat16 did not set the bf16 policy")
+        eval_fn = state.make_eval_step(model, CAPS, NUM_CLASSES)
+        torch.cuda.synchronize()
+
+        def logits_ok(out):
+            lg = out["logits"]
+            return {"finite": bool(torch.isfinite(lg).all()) and lg.dtype == torch.float32
+                    and list(lg.shape) == [1, P, NUM_CLASSES]}
+
+        outs, rows, launches["bf16_infer"] = _bf16_runs(
+            "bf16_request", eval_fn, batches, {"rulebook_conv": 34, "flash_rpe_fwd": 8},
+            logits_ok)
+        _bf16_held("bf16_request_per_launch", eval_fn, batches[0][1],
+                   {"rulebook_conv": 34, "flash_rpe_fwd": 8})
+        valid = torch.as_tensor(batches[0][1]["pmask"], device=DEVICE)
+        got, want = outs[0]["logits"][valid], ref[valid]
+        check = {"phase": "bf16_request_vs_f32", "seed": batches[0][0],
+                 "mean_abs_diff_over_mean_abs_f32": ((got - want).abs().mean()
+                                                     / want.abs().mean()).item(),
+                 "tol": BF16_LOGIT_RTOL,
+                 "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                 "max_logit_abs_diff": (got - want).abs().max().item(),
+                 "max_abs_logit_f32": want.abs().max().item(),
+                 "request_device_ms_warm": _warm(rows)}
+        emit(check)
+        if not check["mean_abs_diff_over_mean_abs_f32"] < BF16_LOGIT_RTOL:
+            raise AssertionError(f"the bf16 request is not close to the f32 one: {check}")
+        del model, eval_fn, outs, ref, batches
+
+        def train_setup(seed, generator_seed):
+            m = _policy_model(*BF16_TEACHER, "bfloat16", seed)
+            opt, _ = optim.make_optimizer(m.named_parameters(), "sgd_spformer", LR)
+            gen = torch.Generator(device=DEVICE).manual_seed(generator_seed)
+            return m, state.make_train_step(m, opt, CAPS, generator=gen)
+
+        model, step_fn = train_setup(0, 0)
+        batches = [(seed, *host_batch(seed, model)) for seed in TRAIN_SEEDS]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, rows, launches["bf16_train"] = _bf16_runs(
+            "bf16_train_step", step_fn, batches, TRAIN_LAUNCHES,
+            lambda out: {"loss": out["loss"].item(),
+                         "finite": math.isfinite(out["loss"].item())})
+        emit({"phase": "bf16_train", "steps": len(rows), "launches": launches["bf16_train"],
+              "device_ms": [r["device_ms"] for r in rows], "step_device_ms_warm": _warm(rows),
+              "loss": [r["loss"] for r in rows],
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        raw, _ = host_batch(31, model)
+        del model, step_fn, batches
+        held_step("bf16_grad_check",
+                  lambda: (*train_setup(1, 5), lambda m: m.named_parameters()),
+                  raw, TRAIN_LAUNCHES, P, fault_call=BF16_FAULT_DW_CALL, dtype="bf16",
+                  reported_faults=BF16_REPORTED_FAULTS)
+        del raw
+
+        student = _policy_model(*BF16_STUDENT, "bfloat16")
+        eval_fn = distill.make_distill_eval_step(student, STUDENT_CAPS, CAPS, NUM_CLASSES)
+        batches = [(seed, *student_batch(seed, student)) for seed in STUDENT_SEEDS]
+        torch.cuda.synchronize()
+
+        def student_ok(out):
+            return {"finite": all(bool(torch.isfinite(out[k]).all())
+                                  and out[k].dtype == torch.float32
+                                  for k in ("logits", "logits_pix"))}
+
+        _, rows, launches["bf16_student"] = _bf16_runs(
+            "bf16_student_request", eval_fn, batches, STUDENT_LAUNCHES, student_ok)
+        groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, batches[0][1], 1,
+                                                         "profile_bf16_student.txt")
+        emit({"phase": "bf16_student_profile", "requests": 1, "device_busy_ms": busy_ms,
+              "request_device_ms_warm": _warm(rows),
+              "image_convolutions": groups.get(IMAGE_CONV_GROUP), "by_kernel": groups})
+        del student, eval_fn, batches
+
+        student = _policy_model(*BF16_STUDENT, "bfloat16")
+        opt, _ = distill.make_frozen_teacher_optimizer(student, "sgd_spformer", LR)
+        step_fn = distill.make_distill_train_step(
+            student, opt, STUDENT_CAPS, CAPS,
+            generator=torch.Generator(device=DEVICE).manual_seed(0))
+        batches = [(seed, *student_batch(seed, student, with_teacher=True,
+                                         num_cams=STUDENT_TRAIN_CAMS))
+                   for seed in STUDENT_TRAIN_SEEDS]
+        teacher0 = {k: v.clone() for k, v in student.model_t.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, rows, launches["bf16_student_train"] = _bf16_runs(
+            "bf16_student_train_step", step_fn, batches, STUDENT_TRAIN_LAUNCHES,
+            lambda aux: dict({k: aux[k].item() for k in LOSS_TERMS},
+                             finite=all(math.isfinite(aux[k].item()) for k in LOSS_TERMS)))
+        frozen = all(torch.equal(v, teacher0[k])
+                     for k, v in student.model_t.state_dict().items())
+        emit({"phase": "bf16_student_train", "steps": len(rows),
+              "launches": launches["bf16_student_train"],
+              "device_ms": [r["device_ms"] for r in rows], "step_device_ms_warm": _warm(rows),
+              "loss": [r["loss"] for r in rows], "teacher_bitwise_frozen": frozen,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        if not frozen:
+            raise AssertionError("the frozen teacher moved in a bf16 stage-2 step")
+        del student, step_fn, opt, batches, teacher0
+    finally:
+        precision.set_compute_dtype("float32")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ablation():
+    """The distillation-efficacy ablation (``distill_ablation.run_ablation``,
+    ABLATION) on a fresh ``tools/make_nusc_mini.py`` set, in f32 and then in
+    bf16 from the f32 run's teacher checkpoint, each held to
+    ABLATION_BOUNDS, with its wall seconds. First it asserts that the
+    compute policy is f32 again after phase ``bf16``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from u2mkd_tpu_torch import distill_ablation
+    from u2mkd_tpu_torch.ops import precision
+
+    if precision.compute_dtype() != torch.float32:
+        raise AssertionError(f"the compute policy is {precision.compute_dtype()} after "
+                             f"phase bf16, not f32")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from make_nusc_mini import generate
+
+    work = tempfile.mkdtemp(prefix="distill_ablation_")
+    try:
+        generate(os.path.join(work, "set"))
+        results = {}
+        for prec in ("float32", "bfloat16"):
+            kw = {} if prec == "float32" else {
+                "teacher_ckpt": os.path.join(work, "float32", "teacher", "checkpoints",
+                                             "max-iou-val-vox.pt"),
+                "teacher_miou": results["float32"]["teacher_miou"]}
+            t0 = time.perf_counter()
+            r = distill_ablation.run_ablation(root=os.path.join(work, "set"),
+                                              workdir=os.path.join(work, prec),
+                                              precision=prec, **ABLATION, **kw)
+            wall_s = time.perf_counter() - t0
+            bounds = {name: bool(ok(r)) for name, ok in ABLATION_BOUNDS.items()}
+            results[prec] = r
+            # the runs' outputs go to OUT_DIR; each student arm's validation
+            # by epoch: the voxel head's mean IoU and its held classes'
+            by_epoch = {}
+            for run in ("teacher", "distilled", "scratch"):
+                log = os.path.join(work, prec, f"{run}.txt")
+                if not os.path.isfile(log):
+                    continue
+                shutil.copy(log, os.path.join(OUT_DIR, f"ablation_{prec}_{run}.txt"))
+                if run != "teacher":
+                    with open(log) as f:
+                        tables = distill_ablation._vox_tables(f.read())
+                    by_epoch[run] = [[t.get("Mean"), float(np.mean(
+                        [t.get(f"c{c}", 0.0) for c in ABLATION["drop_classes"]]))]
+                        for t in tables]
+            emit({"phase": "ablation", "precision": prec, "wall_s": wall_s, "result": r,
+                  "bounds": bounds, "mean_and_held_iou_by_epoch": by_epoch})
+            if not all(bounds.values()):
+                raise AssertionError(f"the {prec} ablation misses a bound: {bounds}, {r}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
@@ -3144,7 +3548,9 @@ def kernels_line(rows, launches):
     "device_student_train", each on plumbing built on the card; K1 counts
     its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
-    main-path-shape row in f32."""
+    main-path-shape row in f32. Then a bf16 entry for each kernel but K2:
+    its bf16 launches on phase bf16's paths (BF16_PATHS), the other numbers
+    from its slowest bf16 main-path row."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
     def paths(name, *which):
@@ -3201,6 +3607,22 @@ def kernels_line(rows, launches):
                     "library_ms": rep.get("library_ms"),
                     **({"library_flex_ms": rep["library_flex_ms"]}
                        if "library_flex_ms" in rep else {})})
+    # the bf16 rows: the slowest bf16 main-path row (K1, dX and K1b at
+    # V=131072, K3-K5 at level 1), the bf16 launches of phase bf16's paths
+    for kid, names, source, replaces in table:
+        if kid == "K2":  # no cast reaches K2 on a main path
+            continue
+        mine = [r for r in rows if r["kernel"] in names and r["dtype"] == "bf16"]
+        rep = max((r for r in mine if r["case"] == "main_path"), key=lambda r: r["ms"])
+        by = {f"{p}_dx" if n.endswith("_dx") else p: launches[p].get(n, 0)
+              for p in BF16_PATHS for n in names}
+        out.append({"name": f"{kid} {names[0]} bf16", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": sum(by.values()),
+                    "launches_by_path": by,
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                    "library_ms": None})
     emit({"kernels": out})
 
 
@@ -3253,6 +3675,8 @@ def main():
         del student
         launches["student_train"] = phase_student_train()
         phase_student_grad_check()
+        launches.update(phase_bf16())
+        phase_ablation()
         phase_cli()
         stats, gen_s = make_data_set(root)
         emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})

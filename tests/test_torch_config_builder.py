@@ -121,17 +121,33 @@ def test_make_model_matches_jax_tree(name):
 
 
 def test_make_model_rejects_what_the_port_lacks():
-    """A model name the JAX package's builder lacks too raises; a bf16
-    policy and multi-host loading raise, naming the ROADMAP item that brings
-    them; the synthetic loaders refuse a real dataset, which
+    """A model name the JAX package's builder lacks too raises; every model
+    name the builder serves builds under ``precision=bfloat16``, which sets
+    the bf16 policy, and an unknown precision raises ``KeyError`` as the JAX
+    builder's does; multi-host loading raises, naming the ROADMAP item that
+    brings it; the synthetic loaders refuse a real dataset, which
     ``make_loaders`` sends to ``data/loaders.py``."""
+    from u2mkd_tpu.ops import precision as jax_precision
+    from u2mkd_tpu_torch.ops import precision
+
     cfg = _synthetic("spformer_tiny.yaml", "model.name=spvcnn_swiftnet18")
     with pytest.raises(NotImplementedError, match="no such model"):
         builder.make_model(cfg, "cpu")
     with pytest.raises(NotImplementedError):
         jax_builder.make_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        builder.make_model(_synthetic("spformer_tiny.yaml", "precision=bfloat16"), "cpu")
+    try:
+        for name, opts in (("spformer_tiny.yaml", ["model.name=spvcnn"]),
+                           ("spformer_tiny.yaml", []), ("tsd_tiny.yaml", [])):
+            builder.make_model(_synthetic(name, "precision=bfloat16", *opts), "cpu")
+            assert precision.compute_dtype() == torch.bfloat16
+        bad = _synthetic("spformer_tiny.yaml", "precision=float16")
+        with pytest.raises(KeyError):
+            builder.make_model(bad, "cpu")
+        with pytest.raises(KeyError):
+            jax_builder.make_model(bad)
+    finally:
+        precision.set_compute_dtype("float32")
+        jax_precision.set_compute_dtype("float32")
     cfg = _synthetic("spformer_tiny.yaml", "dataset.name=semantic_nusc")
     with pytest.raises(ValueError, match="make_loaders"):
         builder.make_synthetic_loaders(cfg, None)

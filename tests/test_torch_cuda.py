@@ -1013,3 +1013,64 @@ def test_pointops_and_clfm_on_card_match_cpu(cuda_device, rng):
         got = clfm_gpu(*(torch.from_numpy(x).to(cuda_device) for x in (uv, fa, f3d, mask)))
     for g, c in zip(got, want):
         assert _rel_err(g.cpu(), c) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_request_through_kernels_matches_plain(cuda_device):
+    """Under the bf16 policy a teacher request (P=8192, cr=1.0) launches
+    34 K1 and 8 K3, all with bf16 inputs, each within the bf16 TOL of its
+    plain version on the same arguments; its logits stay f32 and within the
+    JAX criterion (mean |bf16 - f32| over mean |f32| < 0.1) of the f32
+    request's on the same scan and weights."""
+    from u2mkd_tpu_torch.ops import precision
+
+    raw = synthetic.make_batch(np.random.RandomState(6), 1, 8192, voxel_size=0.1)
+    caps = (8192, 4096, 2048, 1024, 512)
+    model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.1, head_dim=16, seed=3,
+                          device=cuda_device)
+    raw["plumbing"] = plumbing_host.batch_plumbing(
+        raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+        wgeom_params=wgeom_host.params_from_model(model))
+    eval_fn = state.make_eval_step(model, caps, 17)
+    ref = eval_fn(raw)["logits"]
+    worst = {}
+    try:
+        precision.set_compute_dtype("bfloat16")
+        with chip_smoke.each_launch_held_to_plain(worst):
+            out = eval_fn(raw)["logits"]
+    finally:
+        precision.set_compute_dtype("float32")
+    torch.cuda.synchronize()
+    assert {n: r["by_dtype"] for n, r in worst.items()} == {
+        "rulebook_conv": {"bfloat16": 34}, "flash_rpe_fwd": {"bfloat16": 8}}
+    for name, r in worst.items():
+        assert r["max_rel_err"] <= chip_smoke.TOL[(name, "bf16")], (name, r)
+    valid = torch.from_numpy(raw["pmask"]).to(cuda_device)
+    got, want = out[valid], ref[valid]
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert 0 < ((got - want).abs().mean() / want.abs().mean()).item() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_distill_ablation_bounds_on_card(cuda_device, tmp_path):
+    """The distillation-efficacy ablation on the card with the protocol of
+    ``tests/test_distill_ablation.py`` (no random drop, classes 4, 7 and 10
+    held out, 12 teacher and 12 student epochs) on a ``make_nusc_mini``
+    set: its five bounds in f32, and again for bf16 arms from the f32
+    run's teacher."""
+    from u2mkd_tpu_torch import distill_ablation
+
+    sys.path.insert(0, os.path.join(distill_ablation.REPO, "tools"))
+    from make_nusc_mini import generate
+
+    generate(str(tmp_path / "set"))
+    r32 = distill_ablation.run_ablation(root=str(tmp_path / "set"),
+                                        workdir=str(tmp_path / "f32"), **chip_smoke.ABLATION)
+    r16 = distill_ablation.run_ablation(
+        root=str(tmp_path / "set"), workdir=str(tmp_path / "bf16"), precision="bfloat16",
+        teacher_ckpt=str(tmp_path / "f32" / "teacher" / "checkpoints" / "max-iou-val-vox.pt"),
+        teacher_miou=r32["teacher_miou"], **chip_smoke.ABLATION)
+    for r in (r32, r16):
+        for name, ok in chip_smoke.ABLATION_BOUNDS.items():
+            assert ok(r), (name, r)

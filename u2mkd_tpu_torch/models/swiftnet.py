@@ -11,8 +11,10 @@ lets the fusion student interleave its LiDAR stages.
 The JAX package keeps images NHWC; the port keeps them NCHW, PyTorch's
 layout, and the fusion layers permute at the point boundaries. The
 convolutions are ``torch.nn.functional.conv2d`` (cuDNN on the card), as they
-were XLA convolutions outside any Pallas kernel. Attribute names mirror the
-flax module names, so ``models/convert_weights.py`` is a rename.
+were XLA convolutions outside any Pallas kernel; those the JAX package builds
+through ``swiftnet.conv`` run in the compute dtype (``ops/precision.py``).
+Attribute names mirror the flax module names, so
+``models/convert_weights.py`` is a rename.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from u2mkd_tpu_torch.ops.precision import cast_compute
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -41,10 +45,22 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
         return nn.init.trunc_normal_(w, std=s, a=-2 * s, b=2 * s, generator=generator)
 
 
+class ComputeConv2d(nn.Conv2d):
+    """``nn.Conv2d`` under the compute-precision policy, as flax's
+    ``nn.Conv(dtype=compute_dtype())``: the input and the (f32) weight in
+    the compute dtype, the output, in that dtype, handed on as f32, where
+    the JAX package's BN and sums promote it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = cast_compute(x, self.weight)
+        return self._conv_forward(x, w, self.bias).float()
+
+
 def conv(in_ch: int, out_ch: int, k: int, stride: int = 1, generator=None) -> nn.Conv2d:
-    """k x k conv with symmetric padding k // 2 and no bias, initialized
-    variance_scaling(2, fan_out, truncated normal) as the JAX package's."""
-    c = nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
+    """k x k conv with symmetric padding k // 2 and no bias, in the compute
+    dtype (:class:`ComputeConv2d`), initialized variance_scaling(2, fan_out,
+    truncated normal) as the JAX package's."""
+    c = ComputeConv2d(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
     _trunc_normal_(c.weight, (2.0 / (k * k * out_ch)) ** 0.5, generator)
     return c
 

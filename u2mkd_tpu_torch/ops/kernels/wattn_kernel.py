@@ -450,10 +450,10 @@ def flash_rpe_sorted(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                      table_k: torch.Tensor, table_v: torch.Tensor,
                      grid_len: int, a: float) -> torch.Tensor:
     """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), the geometry's
-    arrays, tables [L2, 3, h, d] -> f32 [N, h, d], differentiable: the
-    projections, then :class:`FlashRPE`."""
-    qT = wattn.table_projections(qs, table_q)
-    kT = wattn.table_projections(ks, table_k)
+    arrays, tables [L2, 3, h, d] -> f32 [N, h, d], differentiable: q, k, v
+    in the compute dtype and their projections (``wattn.rpe_inputs``), then
+    :class:`FlashRPE`."""
+    qs, ks, vs, qT, kT = wattn.rpe_inputs(qs, ks, vs, table_q, table_k)
     return FlashRPE.apply(qs, ks, vs, qT, kT, table_v, rank, quant, r, grid_len, a)
 
 

@@ -1,16 +1,31 @@
 """Compute-precision policy (port of ``u2mkd_tpu/ops/precision.py``).
 
-The FLOP-heavy ops (sparse convs) cast their inputs to the compute dtype and
-accumulate in f32; numerics-sensitive math (BN, softmax, losses) stays f32.
-The dtype is float32, the default of ``configs/default.yaml``; the bf16
-policy arrives with the config system.
+bf16 compute with f32 parameters and accumulation, no loss scaling (bf16
+keeps the f32 exponent range). The policy is a process-global static, read
+when a model runs by the FLOP-heavy ops (sparse convs, window attention,
+the image branch's convs), which cast their inputs to the compute dtype;
+numerics-sensitive math (BN statistics, softmax, losses) stays f32.
+
+Usage: ``set_compute_dtype("bfloat16")`` before running the model (or
+``precision: bfloat16`` in the config, which ``train/builder.make_model``
+sets in both directions).
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 _COMPUTE_DTYPE = torch.float32
+_BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def set_compute_dtype(dtype: Union[str, torch.dtype]) -> None:
+    """Set the compute dtype: ``"float32"``, ``"bfloat16"`` or a torch dtype;
+    any other string raises ``KeyError``, as the JAX package's does."""
+    global _COMPUTE_DTYPE
+    _COMPUTE_DTYPE = _BY_NAME[dtype] if isinstance(dtype, str) else dtype
 
 
 def compute_dtype() -> torch.dtype:
@@ -18,5 +33,14 @@ def compute_dtype() -> torch.dtype:
 
 
 def cast_compute(*tensors):
-    out = tuple(t.to(_COMPUTE_DTYPE) for t in tensors)
+    """Each tensor in the compute dtype (those already in it as they are)."""
+    dt = _COMPUTE_DTYPE
+    out = tuple(t if t.dtype == dt else t.to(dt) for t in tensors)
     return out if len(out) > 1 else out[0]
+
+
+def round_compute(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the compute dtype and held in f32: the values a
+    compute-dtype product of JAX's with ``preferred_element_type=float32``
+    reads, for sums that stay in f32."""
+    return cast_compute(t).float()

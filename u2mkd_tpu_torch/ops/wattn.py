@@ -30,6 +30,11 @@ here): the route of a branch whose ``pallas_attention`` (or
 ``pallas_cubic``) flag is off. It drops the pairs of a window that lie
 further apart in the sorted order than its band of key tiles reaches, the
 same pairs the JAX function drops.
+
+Under the bf16 compute policy (``ops/precision.py``) both routes cast where
+the JAX package casts: K3's q, k, v and its table projections
+(:func:`rpe_inputs`), and the banded attention's products (its softmax and
+sums stay f32).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 import torch.utils.checkpoint
 
 from u2mkd_tpu_torch.ops import hashing
+from u2mkd_tpu_torch.ops.precision import cast_compute, compute_dtype, round_compute
 
 # pairs per chunk, times heads: bounds the plain versions' transient memory
 _PAIR_BUDGET = 1 << 22
@@ -166,6 +172,25 @@ def table_projections(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nhd,lahd->nhal", x.float(), table.float()).contiguous()
 
 
+def compute_projections(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """:func:`table_projections` under the compute-precision policy, held in
+    f32: x and the table in the compute dtype, the projection rounded to it,
+    as the JAX package's compute-dtype products (no f32 accumulation type)
+    round them. Under f32 it is :func:`table_projections`. Gradients reach x
+    and the table through the casts."""
+    x, table = cast_compute(x, table)
+    return table_projections(x, table).to(compute_dtype()).float()
+
+
+def rpe_inputs(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, table_q: torch.Tensor,
+               table_k: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(qs, ks, vs) in the compute dtype and their projections qT, kT
+    (:func:`compute_projections`): what K3 and its plain version take, as
+    the JAX package's ``_build_cats`` casts them."""
+    qs, ks, vs = cast_compute(qs, ks, vs)
+    return qs, ks, vs, compute_projections(qs, table_q), compute_projections(ks, table_k)
+
+
 def _pair_chunks(rank: torch.Tensor, h: int) -> Iterator[Tuple[int, int, torch.Tensor,
                                                                torch.Tensor]]:
     """Every (query, key) pair of every window, in chunks of whole query
@@ -274,9 +299,9 @@ def window_attention_rpe(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                          table_k: torch.Tensor, table_v: torch.Tensor,
                          grid_len: int, a: float) -> torch.Tensor:
     """Window-sorted qs/ks/vs [N, h, d] (q pre-scaled), rank [N], quant
-    [N, 3], r [N] or None, tables [L2, 3, h, d] -> f32 [N, h, d]."""
-    qT = table_projections(qs, table_q)
-    kT = table_projections(ks, table_k)
+    [N, 3], r [N] or None, tables [L2, 3, h, d] -> f32 [N, h, d]; the
+    inputs cast as :func:`rpe_inputs` casts them."""
+    qs, ks, vs, qT, kT = rpe_inputs(qs, ks, vs, table_q, table_k)
     return window_attention_rpe_fwd(qs, ks, vs, qT, kT, table_v, rank, quant, r,
                                     grid_len, a)[0]
 
@@ -378,14 +403,15 @@ def _banded_chunk(q, k, v, key, qT, kT, tv, uq, cq, r, t0: int, t1: int, tile: i
     attn = attn - mx
     attn = torch.where(torch.isfinite(attn), attn, -math.inf)
     e = torch.exp(attn)
-    p = e / e.sum(dim=2, keepdim=True).clamp(min=1e-20)                    # [nt, tile, W, h]
+    # the f32 softmax's p in the compute dtype for the value products
+    p = round_compute(e / e.sum(dim=2, keepdim=True).clamp(min=1e-20))    # [nt, tile, W, h]
     out = torch.einsum("ntwh,nwhd->nthd", p, v[kflat].view(n_t, width, h, -1))
     for ax, b in enumerate(vbins):
         # m[i, h, l] = sum_j p_ij [bin_ij = l], bins outside the table dropped
         ok = (b >= 0) & (b < l2)
         idx = torch.where(ok, b, l2)[..., None].expand(-1, -1, -1, h)
         m = p.new_zeros(n_t, tile, l2 + 1, h).scatter_add_(2, idx, p)[:, :, :l2]
-        out = out + torch.einsum("ntlh,lhd->nthd", m, tv[:, ax])
+        out = out + torch.einsum("ntlh,lhd->nthd", round_compute(m), tv[:, ax])
     return out.reshape(n_t * tile, h, -1)
 
 
@@ -437,13 +463,13 @@ def sparse_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
 
     key = pad(key_s, hashing.PACKED_INVALID)
-    qp, kp, vp = (pad(x[order].float()) for x in (q, k, v))
+    qp, kp, vp = (pad(round_compute(x[order])) for x in (q, k, v))
     uq = pad(rpe.quant[order].long())
     cq = uq.clamp(0, g - 1)
     r = pad(rpe.r[order].float()) if radial else None
-    qT = table_projections(qp, rpe.table_q)
-    kT = table_projections(kp, rpe.table_k)
-    tv = rpe.table_v.float()
+    qT = compute_projections(qp, rpe.table_q)
+    kT = compute_projections(kp, rpe.table_k)
+    tv = round_compute(rpe.table_v)
     width = (2 * band + 1) * tile
     n_tiles = pad_to // tile
     per_tile = tile * width * h

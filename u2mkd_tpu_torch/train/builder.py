@@ -11,7 +11,8 @@ attention; ``model.pallas_cubic``, default on), and the loaders: the
 synthetic dataset's here, the real datasets' in ``data/loaders.py``; each
 batch comes with its host plumbing and window geometry (under
 ``host_plumbing``, on by default), or without, and the steps build it on the
-device.
+device. ``precision`` (``float32`` or ``bfloat16``) sets the compute policy
+(``ops/precision.py``) whenever a model is built.
 """
 
 from __future__ import annotations
@@ -49,11 +50,11 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
     ``seed``, on ``device`` (CUDA unless asked otherwise)."""
     from u2mkd_tpu_torch.models.spvcnn import SPVCNN
     from u2mkd_tpu_torch.models.tsd import TSDFull
+    from u2mkd_tpu_torch.ops.precision import set_compute_dtype
 
-    prec = cfg.get_path("precision", "float32")
-    if prec != "float32":
-        raise NotImplementedError(f"precision {prec}: the port runs f32 end to end; the bf16 "
-                                  f"policy is ROADMAP section 1, item 5")
+    # both directions, unlike the JAX builder (which sets it only away from
+    # float32): a float32 build after a bfloat16 one in a process runs f32
+    set_compute_dtype(cfg.get_path("precision", "float32"))
     dev = resolve_device(device)
     name = cfg.model.name
     if name == "spvcnn":
