@@ -3471,12 +3471,49 @@ def phase_bf16():
     return launches
 
 
+def untrained_student_held(root):
+    """What the stage-2 student predicts before its first step, the model
+    both student arms of the ablation start from
+    (``configs/nuscenes/mini/tsd_mini.yaml`` at its seed, built on the card
+    as the stage-2 CLI builds it), on the valid points of the set's
+    validation batches. -> {held class: [share of the points predicted as
+    it, share of its own points predicted as it]}. Where the untrained
+    student already predicts a held class on its own points, the scratch
+    arm reads an IoU for that class until training moves those points, with
+    no label of it (PERF.md section 7)."""
+    import torch
+    from u2mkd_tpu_torch.train import builder, distill
+    from u2mkd_tpu_torch.utils import config as config_lib
+
+    cfg = config_lib.load("configs/nuscenes/mini/tsd_mini.yaml")
+    config_lib.update_dotted(cfg, [f"dataset.root={root}"])
+    model = builder.make_model(cfg, DEVICE, cfg.train.seed % (2 ** 31))
+    _, val = builder.make_distill_loaders(cfg, model)
+    eval_fn = distill.make_distill_eval_step(
+        model, tuple(cfg.get_path("student_capacities")),
+        tuple(cfg.get_path("teacher_capacities")), cfg.data.num_classes,
+        cfg.criterion.ignore_index)
+    preds, labels = [], []
+    for batch in val():
+        preds.append(eval_fn(batch)["pred_vox"].reshape(-1).cpu().numpy())
+        labels.append(np.asarray(torch.as_tensor(batch["student"]["labels"]).reshape(-1).cpu()))
+    pred, lab = np.concatenate(preds), np.concatenate(labels)
+    keep = lab != cfg.criterion.ignore_index
+    pred, lab = pred[keep], lab[keep]
+    del model, eval_fn
+    return {int(c): [float(np.mean(pred == c)),
+                     float(np.mean(pred[lab == c] == c)) if np.any(lab == c) else None]
+            for c in ABLATION["drop_classes"]}
+
+
 def phase_ablation():
     """The distillation-efficacy ablation (``distill_ablation.run_ablation``,
     ABLATION) on a fresh ``tools/make_nusc_mini.py`` set, in f32 and then in
     bf16 from the f32 run's teacher checkpoint, each held to
-    ABLATION_BOUNDS, with its wall seconds. First it asserts that the
-    compute policy is f32 again after phase ``bf16``."""
+    ABLATION_BOUNDS, with its wall seconds, each student arm's validation by
+    epoch and its best epoch, and what the untrained student predicts
+    (:func:`untrained_student_held`). First it asserts that the compute
+    policy is f32 again after phase ``bf16``."""
     import shutil
     import tempfile
 
@@ -3493,6 +3530,9 @@ def phase_ablation():
     work = tempfile.mkdtemp(prefix="distill_ablation_")
     try:
         generate(os.path.join(work, "set"))
+        emit({"phase": "ablation_untrained_student", "torch": torch.__version__,
+              "held_predicted_share_and_recall": untrained_student_held(
+                  os.path.join(work, "set"))})
         results = {}
         for prec in ("float32", "bfloat16"):
             kw = {} if prec == "float32" else {
@@ -3507,8 +3547,9 @@ def phase_ablation():
             bounds = {name: bool(ok(r)) for name, ok in ABLATION_BOUNDS.items()}
             results[prec] = r
             # the runs' outputs go to OUT_DIR; each student arm's validation
-            # by epoch: the voxel head's mean IoU and its held classes'
-            by_epoch = {}
+            # by epoch: the voxel head's mean IoU, its held classes' mean and
+            # each held class's IoU; and the epoch _held_iou reads
+            by_epoch, best_epoch = {}, {}
             for run in ("teacher", "distilled", "scratch"):
                 log = os.path.join(work, prec, f"{run}.txt")
                 if not os.path.isfile(log):
@@ -3517,11 +3558,15 @@ def phase_ablation():
                 if run != "teacher":
                     with open(log) as f:
                         tables = distill_ablation._vox_tables(f.read())
-                    by_epoch[run] = [[t.get("Mean"), float(np.mean(
-                        [t.get(f"c{c}", 0.0) for c in ABLATION["drop_classes"]]))]
-                        for t in tables]
+                    held = [[t.get(f"c{c}", 0.0) for c in ABLATION["drop_classes"]]
+                            for t in tables]
+                    by_epoch[run] = [[t.get("Mean"), float(np.mean(h)), h]
+                                     for t, h in zip(tables, held)]
+                    best_epoch[run] = 1 + max(range(len(tables)),
+                                              key=lambda i: tables[i].get("Mean", 0.0))
             emit({"phase": "ablation", "precision": prec, "wall_s": wall_s, "result": r,
-                  "bounds": bounds, "mean_and_held_iou_by_epoch": by_epoch})
+                  "bounds": bounds, "best_epoch": best_epoch,
+                  "mean_held_and_each_held_iou_by_epoch": by_epoch})
             if not all(bounds.values()):
                 raise AssertionError(f"the {prec} ablation misses a bound: {bounds}, {r}")
     finally:
