@@ -121,7 +121,23 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      requests and one profiled, the image branch's convolutions summed by
      kernel; three stage-2 train steps (five finite loss terms, the teacher
      bitwise frozen); the policy f32 again after the phase;
-13c. ablation: the distillation-efficacy ablation
+13c. data_parallel: two ranks (processes of this script, gloo over CUDA
+     tensors on the one card) each run the teacher's train step
+     (``spformer.yaml``, P=131072) and the stage-2 step
+     (``spformer_tsd_full_ours_star.yaml``, P=65536, 3 cameras, the
+     cr_t=2.0 teacher) on a scan of their own, their BN synced and gradients
+     averaged; each held to the card's single-process step on both scans
+     whose objective is the mean of the two scans' losses: logits, BN
+     statistics and the update by the whole-step rule, a planted fault (rank
+     1 drops the backward sum of its BN statistics) missing it, both ranks
+     bitwise equal, the eval counters the sums of the ranks' own, every
+     launch of rank 0 held to its plain version; warm ms, the collectives'
+     ms and the peak per rank; one NCCL rank of world 1 against the
+     single-device step; the stage-1 CLI in two processes (``--multihost``)
+     on a fresh mini set: rank 0 alone writes, both end equal. Run alone
+     with ``python3 chip_smoke.py --phases data_parallel``;
+13d. ablation: the digest of the student both arms start from, held to
+     STUDENT_INIT_SHA256; the distillation-efficacy ablation
      (``u2mkd_tpu_torch/distill_ablation.py``) on a fresh
      ``tools/make_nusc_mini.py`` set, with the protocol and the five
      bounds of ``tests/test_distill_ablation.py``: in f32 (the teacher and
@@ -414,6 +430,9 @@ IMAGE_CONV_GROUP = "image convolutions (cuDNN kernels, summed)"
 # bf16 (both arms, from the f32 run's teacher checkpoint)
 ABLATION = {"drop": 0.0, "drop_classes": (4, 7, 10), "teacher_epochs": 12,
             "student_epochs": 12}
+# the mini stage-2 student's init from its config's seed, as every machine
+# draws it (models/blocks.trunc_normal_; tests/test_torch_init.py pins it)
+STUDENT_INIT_SHA256 = "87c6ebfd2f11c53eabdc3efd0fc54009857ba7d57e13d9db5236129858bdc228"
 ABLATION_BOUNDS = {"teacher_miou >= 0.70": lambda r: r["teacher_miou"] >= 0.70,
                    "held_iou_scratch <= 0.02": lambda r: r["held_iou_scratch"] <= 0.02,
                    "held_iou_distilled >= 0.10": lambda r: r["held_iou_distilled"] >= 0.10,
@@ -430,6 +449,31 @@ F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 # TFLOP/s dense) per f32 product
 F32_3XTF32_PEAK = 495e12 / 3
 BF16_PEAK = 989e12    # H100 SXM dense bf16 FLOP/s
+# phase data_parallel: two ranks (processes of this script) on the one card,
+# gloo over CUDA tensors, each with one scan of the teacher's train step
+# (spformer.yaml at phase 3's voxels, P points) and of the stage-2 step
+# (STUDENT_P points, STUDENT_TRAIN_CAMS cameras, the cr_t=CR_T teacher), held
+# to the card's single-process step on the batch of both scans; the training
+# CLI in two processes on a fresh tools/make_nusc_mini.py set
+DP_WORLD = 2
+DP_TEACHER = ("configs/nuscenes/train/spformer.yaml", (f"dataset.voxel_size={VOXEL}",))
+DP_STUDENT = ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", ())
+DP_MODEL_SEED = 3
+DP_TEACHER_SCANS = (71, 72)
+DP_STUDENT_SCANS = (73, 74)
+DP_LOGIT_RTOL = 1e-4
+# BN running statistics: within GRAD_SPREADS times the median of the nudged
+# steps' distances, and at least DP_BN_RTOL: the ranks' partial sums round
+# otherwise than one sum, and s2 / n - mean^2 amplifies that where a
+# channel's mean is large against its spread (the stage-2 student's stem)
+DP_BN_RTOL = 1e-6
+# NCCL at world 1 against the single-device step: the whole-step rule, at
+# least DP_NCCL_RTOL (the card's scatter-adds do not repeat bitwise)
+DP_NCCL_RTOL = 1e-6
+DP_WARM_STEPS = 2
+DP_RANK_TIMEOUT_S = 420
+DP_CLI = ("u2mkd_tpu_torch.train_spformer", "configs/nuscenes/mini/spformer_mini.yaml")
+DP_CLI_TIMEOUT_S = 300
 HBM_BYTES_S = 3.35e12
 # max |kernel - plain| <= TOL * max|plain|: f32 sums in another order (K1
 # over 27*Cin terms, K3 over a window's keys); bf16 K1 also rounds its
@@ -459,7 +503,14 @@ OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a row of a phase also gets its seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -3471,6 +3522,19 @@ def phase_bf16():
     return launches
 
 
+def student_init_digest(device="cpu"):
+    """``parallel/mesh.state_digest`` of the stage-2 student both arms of
+    the ablation start from (``configs/nuscenes/mini/tsd_mini.yaml`` at its
+    seed, as the stage-2 CLI builds it): one function of the seed on every
+    machine and torch version, pinned as STUDENT_INIT_SHA256."""
+    from u2mkd_tpu_torch.parallel import mesh
+    from u2mkd_tpu_torch.train import builder
+    from u2mkd_tpu_torch.utils import config as config_lib
+
+    cfg = config_lib.load("configs/nuscenes/mini/tsd_mini.yaml")
+    return mesh.state_digest(builder.make_model(cfg, device, cfg.train.seed % (2 ** 31)).model_s)
+
+
 def untrained_student_held(root):
     """What the stage-2 student predicts before its first step, the model
     both student arms of the ablation start from
@@ -3530,9 +3594,15 @@ def phase_ablation():
     work = tempfile.mkdtemp(prefix="distill_ablation_")
     try:
         generate(os.path.join(work, "set"))
+        digest = student_init_digest()
         emit({"phase": "ablation_untrained_student", "torch": torch.__version__,
+              "student_init_sha256": digest,
+              "student_init_as_pinned": digest == STUDENT_INIT_SHA256,
               "held_predicted_share_and_recall": untrained_student_held(
                   os.path.join(work, "set"))})
+        if digest != STUDENT_INIT_SHA256:
+            raise AssertionError(f"the ablation's student starts from another init than "
+                                 f"{STUDENT_INIT_SHA256}: {digest}")
         results = {}
         for prec in ("float32", "bfloat16"):
             kw = {} if prec == "float32" else {
@@ -3574,6 +3644,693 @@ def phase_ablation():
     return results
 
 
+# ---- phase data_parallel: the teacher and stage-2 train steps on two ranks
+
+
+@contextlib.contextmanager
+def dropped_bn_backward_sum():
+    """Inside, the synced BN layers' backward reduction
+    (``parallel/mesh._AllReduceSum``) hands back this rank's own cotangent:
+    the collective still runs, so that the ranks stay in step, but its sum
+    is dropped. A wiring fault that the data-parallel whole-step check must
+    catch."""
+    import torch.distributed as dist
+    from u2mkd_tpu_torch.parallel import mesh
+
+    fn = mesh._AllReduceSum
+    saved = fn.__dict__["backward"]
+
+    def local(ctx, g):
+        dist.all_reduce(g.clone(), group=ctx.group)
+        return g, None
+
+    fn.backward = staticmethod(local)
+    try:
+        yield
+    finally:
+        fn.backward = saved
+
+
+def concat_scans(scans):
+    """Scans of one batch each (nested dicts and lists of arrays, as the
+    synthetic makers and the host plumbing give them) -> one batch of all
+    of them, in order."""
+    first = scans[0]
+    if isinstance(first, dict):
+        return {k: concat_scans([s[k] for s in scans]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(concat_scans([s[i] for s in scans]) for i in range(len(first)))
+    return np.concatenate(scans, axis=0)
+
+
+@contextlib.contextmanager
+def per_scan_mse(n_scans, record):
+    """Inside, ``losses.masked_mse`` (the student's learner losses) returns
+    the mean over the batch's ``n_scans`` scans of each scan's own masked
+    MSE, and appends the scans' values to ``record``: the per-scan terms of
+    the objective a data-parallel run averages."""
+    import torch
+    from u2mkd_tpu_torch.ops import losses
+
+    plain = losses.masked_mse
+
+    def per_scan(a, b, valid):
+        vals = [plain(x, y, v) for x, y, v in zip(a.chunk(n_scans), b.chunk(n_scans),
+                                                  valid.chunk(n_scans))]
+        record.append(vals)
+        return torch.stack(vals).mean()
+
+    losses.masked_mse = per_scan
+    try:
+        yield record
+    finally:
+        losses.masked_mse = plain
+
+
+def mean_of_scans_teacher_step(model, optimizer, caps, ignore_label=0):
+    """The single-process reference of a data-parallel teacher step: one
+    forward over the whole batch (its BN statistics those of every scan, as
+    the synced BN gives each rank), the objective the mean over scans of
+    each scan's Lovász + CE (the mean of the ranks' losses), its backward
+    and ``optimizer.step()``. Dropout and drop path must be off: a rank
+    draws its masks for its own scan. -> step(batch) -> {"loss",
+    "logits"}."""
+    import torch
+    from u2mkd_tpu_torch.ops import losses
+    from u2mkd_tpu_torch.train import state
+
+    _, plumbing_of, tensor_of = state.batch_reader(model, caps)
+
+    def step(batch):
+        pl = plumbing_of(batch)
+        labels = tensor_of(batch, "labels", torch.int64)
+        valid = pl.pmask & tensor_of(batch, "keyframe_mask", torch.bool) & (labels != ignore_label)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(tensor_of(batch, "feats", torch.float32), pl)["x_vox"]
+        loss = torch.stack([losses.lovasz_ce(lg, lb, v)
+                            for lg, lb, v in zip(logits, labels, valid)]).mean()
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "logits": logits.detach()}
+
+    return step
+
+
+def mean_of_scans_distill_step(model, optimizer, s_caps, t_caps, w_kl=1.0, w_feat=1.0,
+                               ignore_label=0, mse_norm_feat=False):
+    """:func:`mean_of_scans_teacher_step` of the stage-2 step: the frozen
+    teacher (``distill.make_distill_split_steps``' teacher half), one
+    student forward over the batch, the objective the mean over scans of
+    each scan's five-term loss (its learner MSEs by :func:`per_scan_mse`),
+    its backward and ``optimizer.step()``."""
+    import torch
+    from u2mkd_tpu_torch.train import distill, state
+
+    teacher_fn = distill.make_distill_split_steps(model, optimizer, s_caps, t_caps).teacher_fn
+    _, student_plumbing, tensor_of = state.batch_reader(model.model_s, s_caps)
+
+    def step(batch):
+        t_out = teacher_fn(batch)
+        sb = batch["student"]
+        spl = student_plumbing(sb)
+        s_in = {k: tensor_of(sb, k, dt) for k, dt in distill.STUDENT_KEYS.items()}
+        labels = tensor_of(sb, "labels", torch.int64)
+        pmask = spl.pmask
+        fov = s_in["fov_mask"] & pmask
+        label_valid = pmask & (labels != ignore_label)
+        t2s_valid = pmask & (tensor_of(batch, "t2s", torch.int64) >= 0)
+        n = labels.shape[0]
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with per_scan_mse(n, []) as mse:
+            stu = model(s_in, spl, run_teacher=False)["stu"]
+        per = []
+        for b in range(n):
+            one = slice(b, b + 1)
+            stu_b = {k: stu[k][one] for k in ("x_vox", "x_pix", "pts_feats")}
+            stu_b["mse_loss"] = [vals[b] for vals in mse]
+            per.append(distill._distill_losses(
+                stu_b, t_out["x_vox_t2s"][one], t_out["feat_t2s"][one], labels[one],
+                fov[one], label_valid[one], t2s_valid[one], w_kl, w_feat, mse_norm_feat)[0])
+        loss = torch.stack(per).mean()
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "logits": stu["x_vox"].detach()}
+
+    return step
+
+
+def dp_model(part, group=None, device=None):
+    """The model of DP_TEACHER or DP_STUDENT (``part`` "teacher" or
+    "student") built by ``train/builder.make_model`` from DP_MODEL_SEED, its
+    BN synced over ``group``, with dropout and drop path off (a rank draws
+    its masks for its own scan, so no single-process run can repeat them),
+    its optimizer (``sgd_spformer`` at LR; the stage-2 model's over its
+    student) and the trained (name, parameter) pairs -> (model, optimizer,
+    trained)."""
+    from u2mkd_tpu_torch.models import blocks
+    from u2mkd_tpu_torch.train import builder
+    from u2mkd_tpu_torch.utils import config
+
+    path, overrides = DP_TEACHER if part == "teacher" else DP_STUDENT
+    cfg = config.update_dotted(config.load(path), list(overrides))
+    model = builder.make_model(cfg, device or DEVICE, DP_MODEL_SEED, process_group=group)
+    for m in model.modules():
+        if isinstance(m, (blocks.Dropout, blocks.DropPath)):
+            m.rate = 0.0
+    return (model, *dp_optimizer(part, model))
+
+
+def dp_optimizer(part, model):
+    """A fresh optimizer of :func:`dp_model`'s model -> (optimizer, trained
+    (name, parameter) pairs)."""
+    from u2mkd_tpu_torch.train import distill, optim
+
+    if part == "teacher":
+        opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
+        return opt, list(model.named_parameters())
+    opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", LR)
+    return opt, list(model.model_s.named_parameters())
+
+
+def _nudge(model, seed):
+    """Every parameter of ``model`` times (1 + NUDGE_ULP f32 N(0, 1)), about
+    one f32 ulp, drawn from ``seed`` on the card."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + NUDGE_ULP["f32"] * torch.randn(p.shape, device=DEVICE, generator=gen))
+
+
+def dp_scans(part, model, rank=None):
+    """Rank ``rank``'s scan of DP_TEACHER_SCANS or DP_STUDENT_SCANS with its
+    host plumbing, or, without a rank, the batch of all of them with its own
+    (the single-process reference's)."""
+    from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
+
+    if part == "teacher":
+        raws = [synthetic.make_batch(np.random.RandomState(s), 1, P, voxel_size=VOXEL)
+                for s in DP_TEACHER_SCANS]
+        feeds = [(None, CAPS, model)]
+    else:
+        raws = [synthetic.make_multimodal_batch(
+            np.random.RandomState(s), 1, STUDENT_P, P, voxel_size=STUDENT_VOXEL,
+            num_cams=STUDENT_TRAIN_CAMS, im_hw=IM_HW) for s in DP_STUDENT_SCANS]
+        feeds = [("student", STUDENT_CAPS, model.model_s), ("teacher", CAPS, model.model_t)]
+    batch = concat_scans(raws if rank is None else raws[rank:rank + 1])
+    for part_key, caps, sub in feeds:
+        b = batch if part_key is None else batch[part_key]
+        b["plumbing"] = plumbing_host.batch_plumbing(
+            b["pcoords"], b["xyz"], b["pmask"], caps,
+            wgeom_params=wgeom_host.params_from_model(sub))
+    return batch
+
+
+def _dp_steps(part, model, opt, group):
+    """The train step (data parallel over ``group``, or single-process
+    without one) and the eval step of ``part``'s model, and a function
+    giving a forward's train-mode logits -> (step, eval, local eval,
+    logits hook's list)."""
+    from u2mkd_tpu_torch.parallel import mesh
+    from u2mkd_tpu_torch.train import distill, state
+
+    caught = []
+    if part == "teacher":
+        step = state.make_train_step(model, opt, CAPS, process_group=group)
+        ev = state.make_eval_step(model, CAPS, NUM_CLASSES, process_group=group)
+        local = state.make_eval_step(model, CAPS, NUM_CLASSES)
+        hooked = model
+    else:
+        step = distill.make_distill_train_step(model, opt, STUDENT_CAPS, CAPS,
+                                               process_group=group)
+        ev = distill.make_distill_eval_step(model, STUDENT_CAPS, CAPS, NUM_CLASSES,
+                                            process_group=group)
+        local = distill.make_distill_eval_step(model, STUDENT_CAPS, CAPS, NUM_CLASSES)
+        hooked = model.model_s
+    hooked.register_forward_hook(
+        lambda m, args, out: caught.append(out["x_vox"].detach()) if m.training else None)
+    return mesh.data_parallel_step(step, model, group), ev, local, caught
+
+
+def _dp_counts(out):
+    keys = ("counts",) if "counts" in out else ("counts_vox", "counts_pix")
+    return {k: {n: v.cpu().tolist() for n, v in out[k].items()} for k in keys}
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Inside, each ``all_reduce`` and ``broadcast`` of ``torch.distributed``
+    runs in a profiler range of its own (``collective``) between two device
+    synchronizations, and its wall ms is added to the yielded row ({"calls",
+    "ms", "bytes"}): the collectives' own cost, host staging and waiting for
+    the other ranks included, with nothing of the step's compute in it (the
+    synchronizations serialize the step, so its time is not the step's)."""
+    import torch
+    import torch.distributed as dist
+
+    row = {"calls": 0, "ms": 0.0, "bytes": 0}
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def timed(fn):
+        def run(tensor, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("collective"):
+                out = fn(tensor, *args, **kw)
+            torch.cuda.synchronize()
+            row["ms"] += (time.perf_counter() - t0) * 1e3
+            row["calls"] += 1
+            row["bytes"] += tensor.numel() * tensor.element_size()
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield row
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def dp_rank_part(part, rank, group, work):
+    """One rank's share of phase data_parallel for ``part``: on a model
+    from DP_MODEL_SEED, one data-parallel step on its scan, counted and
+    timed (its updated trained parameters, BN statistics, train-mode logits
+    and loss saved to ``work``), the data-parallel eval step and the
+    single-process one on its scan (counters); DP_WARM_STEPS warm steps
+    timed; a step with its collectives timed (:func:`timed_collectives`);
+    one with, on rank 0, every kernel launch held to its plain version;
+    then, on a fresh model, the
+    step with :func:`dropped_bn_backward_sum` on rank 1 (its updated
+    parameters saved). -> the rank's row."""
+    import torch
+    from u2mkd_tpu_torch.parallel import mesh
+
+    counters = _counters()
+    model, opt, trained = dp_model(part, group)
+    batch = dp_scans(part, model, rank)
+    init = mesh.state_digest(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    step, ev, local, caught = _dp_steps(part, model, opt, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    out, device_ms, wall_ms = _timed(step, batch)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    # copies on the host (the later steps move the model on)
+    saved = {"params": {n: p.detach().cpu().clone() for n, p in trained},
+             "buffers": {k: v.cpu().clone() for k, v in model.state_dict().items()
+                         if "running_" in k},
+             "logits": caught[-1].cpu().clone(), "loss": out["loss"].item()}
+    digest = mesh.state_digest(model)
+    counts_dp = _dp_counts(ev(batch))
+    counts_local = _dp_counts(local(batch))
+    warm_ms = [_timed(step, batch)[1] for _ in range(DP_WARM_STEPS)]
+    with timed_collectives() as collectives:
+        step(batch)
+    # every rank runs the next step (its collectives pair with rank 0's);
+    # rank 0 holds each of its launches to the plain version
+    per_launch = {}
+    with each_launch_held_to_plain(per_launch) if rank == 0 else contextlib.nullcontext():
+        step(batch)
+    for name, row in per_launch.items():
+        row["tol_rel"] = TOL[(name, "f32")]
+    del step, ev, local, caught
+    # the fault's step from the same weights, its optimizer anew
+    model.load_state_dict(start)
+    opt, trained = dp_optimizer(part, model)
+    step = _dp_steps(part, model, opt, group)[0]
+    with dropped_bn_backward_sum() if rank == 1 else contextlib.nullcontext():
+        step(batch)
+    saved["fault_params"] = {n: p.detach().cpu().clone() for n, p in trained}
+    fault_digest = mesh.state_digest(model)
+    del model, opt, trained, step, start
+    torch.cuda.empty_cache()
+    torch.save(saved, os.path.join(work, f"{part}_rank{rank}.pt"))
+    return {"rank": rank, "init_digest": init, "digest": digest, "fault_digest": fault_digest,
+            "device_ms": device_ms, "wall_ms": wall_ms, "warm_device_ms": warm_ms,
+            "collectives": collectives,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "per_launch": per_launch, "counts_dp": counts_dp, "counts_local": counts_local,
+            "loss": saved["loss"]}
+
+
+def dp_nccl_one(group):
+    """NCCL with world size 1: one teacher step through the data-parallel
+    step (BN synced and gradients averaged over the one rank) against the
+    single-device step, both from DP_MODEL_SEED on the first scan, with the
+    single-device step once more (the card's scatter-adds do not repeat
+    bitwise) and from three one-ulp-nudged copies of the weights -> the
+    updates' differences from the single-device step's (:func:`_grad_diff`),
+    the rule's tolerance (GRAD_SPREADS times the nudges' median, at least
+    DP_NCCL_RTOL) and whether the two steps were bitwise equal."""
+    import torch
+
+    nudged = [f"nudged_{s}" for s in NUDGE_SEEDS]
+    delta, models = {}, {}
+    for tag in ("single", "dp", "repeat", *nudged):
+        g = group if tag == "dp" else None
+        if g not in models:
+            models[g] = dp_model("teacher", g)[0]
+            if g is None:
+                start = {k: v.clone() for k, v in models[g].state_dict().items()}
+                batch = dp_scans("teacher", models[g], 0)
+        model = models[g]
+        model.load_state_dict(start)
+        opt, trained = dp_optimizer("teacher", model)
+        if tag in nudged:
+            _nudge(model, int(tag.rsplit("_", 1)[1]))
+        p0 = {n: p.detach().clone() for n, p in trained}
+        _dp_steps("teacher", model, opt, g)[0](batch)
+        delta[tag] = {n: p.detach() - p0[n] for n, p in trained}
+        del opt, trained, p0
+    del models, start
+    torch.cuda.empty_cache()
+    ref = delta["single"]
+    spreads = [_grad_diff(delta[t], ref)[0] for t in nudged]
+    worst, name = _grad_diff(delta["dp"], ref)
+    return {"max_update_rel_diff": worst, "param": name,
+            "repeat_update_rel_diff": _grad_diff(delta["repeat"], ref)[0],
+            "ulp_nudge_update_rel_diffs": spreads,
+            "update_tol_rel": max(DP_NCCL_RTOL, GRAD_SPREADS * float(np.median(spreads))),
+            "bitwise_equal": all(torch.equal(delta["dp"][n], v) for n, v in ref.items())}
+
+
+def dp_rank_main(argv):
+    """A rank of phase data_parallel, as :func:`phase_data_parallel`
+    starts it: ``chip_smoke.py --dp-rank RANK WORLD PORT BACKEND WORK``.
+    World 2 (gloo, both ranks on the one card): :func:`dp_rank_part` for
+    the teacher and the stage-2 step; world 1 (NCCL): :func:`dp_nccl_one`.
+    Its row goes to ``WORK/rank{RANK}.json``."""
+    import torch
+    from u2mkd_tpu_torch.parallel import mesh
+
+    rank, world, port, backend, work = argv
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        if world == 1:
+            row = {"nccl_world_1": dp_nccl_one(mesh.data_group())}
+        else:
+            row = {part: dp_rank_part(part, rank, mesh.data_group(), work)
+                   for part in ("teacher", "student")}
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    emit(row)
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(cmds, logs, timeout):
+    """Start one process per command (standard output and errors to its log
+    under OUT_DIR), wait for all with ``timeout``, kill any left -> their
+    exit codes; raises if any failed, naming its log."""
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            f = open(os.path.join(OUT_DIR, log), "w")
+            procs.append((subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT), f, log))
+        deadline = time.perf_counter() + timeout
+        rcs = []
+        for p, f, log in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p, f, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    bad = [log for (_, _, log), rc in zip(procs, rcs) if rc != 0]
+    if bad:
+        raise AssertionError(f"a process of phase data_parallel failed or timed out "
+                             f"(exit codes {rcs}); its output is in {OUT_DIR}/{bad[0]}")
+    return rcs
+
+
+def _bn_diff(got, ref):
+    """(largest difference of a BN running statistic from ``ref``'s in its
+    channel's own scale: a running mean's over the square root of the
+    channel's running variance, a running variance's over itself; the
+    buffer's name)."""
+    worst, name = 0.0, None
+    for k, v in ref.items():
+        if not k.endswith("running_mean"):
+            continue
+        var = ref[k.replace("running_mean", "running_var")]
+        for key, diff in ((k, (got[k].to(v.device) - v).abs() / var.sqrt()),
+                          (k.replace("running_mean", "running_var"),
+                           (got[k.replace("running_mean", "running_var")].to(v.device)
+                            - var).abs() / var)):
+            err = diff.max().item()
+            if not err <= worst:
+                worst, name = err, key
+    return worst, name
+
+
+def _param_rel_diff(params, p0, ref_delta):
+    """_grad_diff of the update ``params - p0`` against ``ref_delta``."""
+    return _grad_diff({n: params[n].to(ref_delta[n].device) - p0[n] for n in ref_delta},
+                      ref_delta)
+
+
+def dp_reference(part, ranks, work):
+    """The card's single-process reference of ``part`` (the same model and
+    weights on the batch of both ranks' scans, :func:`mean_of_scans_teacher_step`
+    or :func:`mean_of_scans_distill_step`) and three steps from one-ulp
+    nudged weights; each rank's step held to it: its train-mode logits
+    (DP_LOGIT_RTOL of the reference rows' largest entry), BN running
+    statistics (:func:`_bn_diff`) and updated parameters (on the update) by
+    the standing whole-step rule, GRAD_SPREADS times the median of the
+    nudged steps' distances (at least DP_BN_RTOL and GRAD_RTOL), the planted
+    :func:`dropped_bn_backward_sum` missing that rule by FAULT_MARGIN, both
+    ranks' states bitwise equal, the eval counters the sums of the ranks'
+    single-process ones. -> the phase's row of ``part``."""
+    import torch
+    from u2mkd_tpu_torch.parallel import mesh
+
+    got = [torch.load(os.path.join(work, f"{part}_rank{r}.pt")) for r in range(DP_WORLD)]
+    runs = {}
+    nudged = [f"nudged_{s}" for s in NUDGE_SEEDS]
+    for tag in ["reference", *nudged]:
+        if tag == "reference":
+            model, opt, trained = dp_model(part)
+            init = mesh.state_digest(model)
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            batch = dp_scans(part, model)
+        else:
+            # the same model from the same weights, nudged, its optimizer anew
+            model.load_state_dict(start)
+            opt, trained = dp_optimizer(part, model)
+            _nudge(model, int(tag.rsplit("_", 1)[1]))
+        p0 = {n: p.detach().clone() for n, p in trained}
+        step = (mean_of_scans_teacher_step(model, opt, CAPS) if part == "teacher" else
+                mean_of_scans_distill_step(model, opt, STUDENT_CAPS, CAPS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, device_ms, _ = _timed(step, batch)
+        runs[tag] = {"delta": {n: p.detach() - p0[n] for n, p in trained}, "p0": p0,
+                     "device_ms": device_ms, "peak": torch.cuda.max_memory_allocated(),
+                     "loss": out["loss"].item(), "buffers": {
+                         k: v.clone() for k, v in model.state_dict().items()
+                         if "running_" in k}}
+        if tag == "reference":
+            runs[tag]["logits"] = out["logits"]
+            # warm steps after the checked one: its time without first-call costs
+            runs[tag]["warm_device_ms"] = [_timed(step, batch)[1]
+                                           for _ in range(DP_WARM_STEPS)]
+        del step, out
+    del model, opt, trained, start
+    torch.cuda.empty_cache()
+    ref = runs["reference"]
+    spreads = [_grad_diff(runs[t]["delta"], ref["delta"])[0] for t in nudged]
+    tol = max(GRAD_RTOL, GRAD_SPREADS * float(np.median(spreads)))
+    worst, worst_name = _param_rel_diff(got[0]["params"], ref["p0"], ref["delta"])
+    fault, fault_name = _param_rel_diff(got[0]["fault_params"], ref["p0"], ref["delta"])
+    logit_err = []
+    for r in range(DP_WORLD):
+        rows = ref["logits"][r:r + 1]
+        logit_err.append(((got[r]["logits"].to(rows.device) - rows).abs().max()
+                          / rows.abs().max()).item())
+    bn_err, bn_name = _bn_diff(got[0]["buffers"], ref["buffers"])
+    bn_spreads = [_bn_diff(runs[t]["buffers"], ref["buffers"])[0] for t in nudged]
+    bn_tol = max(DP_BN_RTOL, GRAD_SPREADS * float(np.median(bn_spreads)))
+    row = {"phase": "data_parallel", "part": part, "world": DP_WORLD, "backend": "gloo",
+           "gpu": gpu_line(), "init_digest_equal": all(
+               ranks[r][part]["init_digest"] == init for r in range(DP_WORLD)),
+           "loss_dp": ranks[0][part]["loss"], "loss_reference": ref["loss"],
+           "loss_rel_diff": abs(ranks[0][part]["loss"] - ref["loss"]) / abs(ref["loss"]),
+           "logits_rel_err_by_rank": logit_err, "logit_tol_rel": DP_LOGIT_RTOL,
+           "bn_stat_rel_err": bn_err, "bn_stat": bn_name,
+           "ulp_nudge_bn_stat_rel_errs": bn_spreads, "bn_tol_rel": bn_tol,
+           "max_update_rel_diff": worst, "worst_param": worst_name,
+           "ulp_nudge_update_rel_diffs": spreads, "update_tol_rel": tol,
+           "planted_fault": "rank 1 drops the backward sum of its BN statistics",
+           "planted_fault_update_rel_diff": fault, "planted_fault_param": fault_name,
+           "planted_fault_margin": fault / tol,
+           "ranks_bitwise_equal": len({ranks[r][part]["digest"]
+                                       for r in range(DP_WORLD)}) == 1,
+           "fault_ranks_bitwise_equal": len({ranks[r][part]["fault_digest"]
+                                             for r in range(DP_WORLD)}) == 1,
+           "device_ms_by_rank": [ranks[r][part]["device_ms"] for r in range(DP_WORLD)],
+           "warm_device_ms_by_rank": [ranks[r][part]["warm_device_ms"] for r in range(DP_WORLD)],
+           "collectives_by_rank": [ranks[r][part]["collectives"] for r in range(DP_WORLD)],
+           "max_memory_allocated_bytes_by_rank": [
+               ranks[r][part]["max_memory_allocated_bytes"] for r in range(DP_WORLD)],
+           "single_process_device_ms": ref["device_ms"],
+           "single_process_warm_device_ms": ref["warm_device_ms"],
+           "single_process_max_memory_allocated_bytes": ref["peak"],
+           "launches_rank0": ranks[0][part]["launches"]}
+    counts_dp = ranks[0][part]["counts_dp"]
+    summed = {k: {n: sum(np.asarray(ranks[r][part]["counts_local"][k][n], np.int64)
+                         for r in range(DP_WORLD)) for n in counts_dp[k]} for k in counts_dp}
+    row["eval_counts_equal"] = all(
+        np.array_equal(np.asarray(ranks[r][part]["counts_dp"][k][n]), summed[k][n])
+        for r in range(DP_WORLD) for k in counts_dp for n in counts_dp[k])
+    per_launch = ranks[0][part]["per_launch"]
+    row["per_launch_rank0"] = per_launch
+    emit(row)
+    expected = TRAIN_LAUNCHES if part == "teacher" else STUDENT_TRAIN_LAUNCHES
+    bad_launch = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
+    if bad_launch or {n: r["calls"] for n, r in per_launch.items()} != expected \
+            or row["launches_rank0"] != expected:
+        raise AssertionError(f"a {part} launch of rank 0 disagrees with its plain version, or "
+                             f"the launches are not {expected}: {per_launch}")
+    if not (row["init_digest_equal"] and row["ranks_bitwise_equal"]
+            and row["fault_ranks_bitwise_equal"] and row["eval_counts_equal"]
+            and max(logit_err) <= DP_LOGIT_RTOL and bn_err <= bn_tol and worst <= tol):
+        raise AssertionError(f"the {part} data-parallel step disagrees with the card's "
+                             f"single-process reference: {row}")
+    if not fault >= FAULT_MARGIN * tol:
+        raise AssertionError(f"the planted BN fault passes the {part} data-parallel check, "
+                             f"which so checks nothing: {row}")
+    return row
+
+
+def dp_cli(work):
+    """DP_CLI in DP_WORLD processes (``--multihost``, gloo, both on the one
+    card) for one epoch on a fresh ``tools/make_nusc_mini.py`` set with
+    DATA_STAGE1_OVERRIDES and batch 2 a rank, each rank with a run
+    directory of its own: both exit 0, rank 0's alone is written, both end
+    with one state digest, and both print the mIoU rank 0 logs."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from make_nusc_mini import generate
+
+    root = os.path.join(work, "set")
+    # 4 keyframes a scene: 8 train and 4 val scans, so that each rank's
+    # share of the val split fills a batch of 2
+    generate(root, keyframes_per_scene=4)
+    port = _free_port()
+    run_dirs = [os.path.join(work, f"cli_rank{r}") for r in range(DP_WORLD)]
+    cmds = [[sys.executable, "-m", DP_CLI[0], DP_CLI[1], "--run-dir", run_dirs[r],
+             "--multihost", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", str(DP_WORLD), "--process-id", str(r), "--backend", "gloo",
+             f"dataset.root={root}", *DATA_OVERRIDES, *DATA_STAGE1_OVERRIDES, "batch_size=2",
+             "num_epochs=1"] for r in range(DP_WORLD)]
+    logs = [f"data_parallel_cli_rank{r}.txt" for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    _run_ranks(cmds, logs, DP_CLI_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    digests, mious = [], []
+    for log in logs:
+        with open(os.path.join(OUT_DIR, log)) as f:
+            text = f.read()
+        digests += [ln.rsplit(" ", 1)[1] for ln in text.splitlines() if "state sha256" in ln]
+        mious += [float(ln.split("miou=")[1].split()[0]) for ln in text.splitlines()
+                  if ln.startswith("epoch 1/1:")]
+    with open(os.path.join(run_dirs[0], "metrics.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f]
+    val = [m["value"] for m in logged if m["name"] == "val/counts"]
+    row = {"phase": "data_parallel_cli", "world": DP_WORLD, "wall_s": wall_s,
+           "digests": digests, "mious": mious, "logged_val_miou": val,
+           "rank0_checkpoints": sorted(os.listdir(os.path.join(run_dirs[0], "checkpoints"))),
+           "rank1_wrote": os.path.exists(run_dirs[1])}
+    emit(row)
+    if not (len(digests) == DP_WORLD and len(set(digests)) == 1 and len(mious) == DP_WORLD
+            and len(set(mious)) == 1 and len(val) == 1
+            and abs(val[0] * 100 - mious[0]) < 0.006 and not row["rank1_wrote"]
+            and {"latest.pt", "max-iou-val-vox.pt"} <= set(row["rank0_checkpoints"])):
+        raise AssertionError(f"the two-process CLI run disagrees across its ranks: {row}")
+    return row
+
+
+def phase_data_parallel():
+    """Data parallelism on the one card: DP_WORLD ranks (processes of this
+    script, :func:`dp_rank_main`, gloo over CUDA tensors: NCCL refuses two
+    ranks on one device) each run the teacher train step (DP_TEACHER at
+    P) and the stage-2 step (DP_STUDENT at STUDENT_P, STUDENT_TRAIN_CAMS
+    cameras, the cr_t=CR_T teacher) on a scan of their own; each held to
+    the card's single-process reference by :func:`dp_reference`; one NCCL
+    rank of world 1 against the single-device step (:func:`dp_nccl_one`);
+    the training CLI in DP_WORLD processes (:func:`dp_cli`). A rank that
+    fails or outlasts DP_RANK_TIMEOUT_S fails the phase; the ranks' outputs
+    are kept under OUT_DIR; every check emits its row before the first
+    failure is raised. -> rank 0's launches {"dp_train",
+    "dp_student_train"}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="data_parallel_")
+    script = os.path.abspath(__file__)
+    try:
+        port = _free_port()
+        _run_ranks([[sys.executable, script, "--dp-rank", str(r), str(DP_WORLD), str(port),
+                     "gloo", work] for r in range(DP_WORLD)],
+                   [f"data_parallel_rank{r}.txt" for r in range(DP_WORLD)], DP_RANK_TIMEOUT_S)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        os.makedirs(os.path.join(work, "nccl"))
+        _run_ranks([[sys.executable, script, "--dp-rank", "0", "1", str(_free_port()), "nccl",
+                     os.path.join(work, "nccl")]], ["data_parallel_nccl.txt"], DP_RANK_TIMEOUT_S)
+        with open(os.path.join(work, "nccl", "rank0.json")) as f:
+            nccl = json.load(f)["nccl_world_1"]
+        emit({"phase": "data_parallel_nccl", "world": 1, "backend": "nccl",
+              "gpu": gpu_line(), **nccl})
+        # every check runs and emits its row; the first failure is raised
+        failures = []
+        if not nccl["max_update_rel_diff"] <= nccl["update_tol_rel"]:
+            failures.append(AssertionError(f"the world-1 NCCL step differs from the "
+                                           f"single-device step: {nccl}"))
+        for check, args in [(dp_reference, ("teacher", ranks, work)),
+                            (dp_reference, ("student", ranks, work)), (dp_cli, (work,))]:
+            try:
+                check(*args)
+            except AssertionError as e:
+                failures.append(e)
+        if failures:
+            raise failures[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"dp_train": ranks[0]["teacher"]["launches"],
+            "dp_student_train": ranks[0]["student"]["launches"]}
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
@@ -3587,10 +4344,12 @@ def kernels_line(rows, launches):
     "conv_only_train", the evaluation entry point's runs on the stage-1
     and stage-2 checkpoints "evaluate_teacher" and "evaluate_student", the
     SphereFormer U-Net's three requests "unet" and three train steps
-    "unet_train", ``WindowMultiheadSA``'s call "window_msa", and the
+    "unet_train", ``WindowMultiheadSA``'s call "window_msa", the
     in-program path's three requests with K3 "device_infer" and without
     "device_banded", three train steps "device_train" and stage-2 step
-    "device_student_train", each on plumbing built on the card; K1 counts
+    "device_student_train", each on plumbing built on the card, and rank
+    0's data-parallel teacher step "dp_train" and stage-2 step
+    "dp_student_train"; K1 counts
     its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32. Then a bf16 entry for each kernel but K2:
@@ -3606,8 +4365,11 @@ def kernels_line(rows, launches):
                          "student_train", "data_train", "data_student_train", "import",
                          "conv_only", "conv_only_train", "evaluate_teacher",
                          "evaluate_student", "unet", "unet_train", "device_infer",
-                         "device_banded", "device_train", "device_student_train"),
+                         "device_banded", "device_train", "device_student_train", "dp_train",
+                         "dp_student_train"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
+                   dp_train_dx=launches["dp_train"]["rulebook_conv_dx"],
+                   dp_student_train_dx=launches["dp_student_train"]["rulebook_conv_dx"],
                    device_train_dx=launches["device_train"]["rulebook_conv_dx"],
                    device_student_train_dx=launches["device_student_train"][
                        "rulebook_conv_dx"],
@@ -3618,19 +4380,19 @@ def kernels_line(rows, launches):
                    unet_train_dx=launches["unet_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
                      "data_student_train", "conv_only_train", "unet_train", "device_train",
-                     "device_student_train"),
+                     "device_student_train", "dp_train", "dp_student_train"),
         "K2": paths("flash_window_sorted", "entry", "window_msa"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
                     "student_train", "data_train", "data_student_train", "import",
                     "conv_only", "evaluate_teacher", "evaluate_student", "unet",
                     "unet_train", "device_infer", "device_banded", "device_train",
-                    "device_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -3686,12 +4448,20 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank_main(sys.argv[2:])
     # the reference runs in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     phase_env()
+    if sys.argv[1:2] == ["--phases"]:
+        # a check of single phases, which prints no result line
+        for name in sys.argv[2].split(","):
+            {"data_parallel": phase_data_parallel, "ablation": phase_ablation}[name]()
+        print(gpu_line(), flush=True)
+        return 0
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
                           head_dim=16, seed=0, device=DEVICE)
     rows, raw = phase_kernels(model)
@@ -3721,6 +4491,7 @@ def main():
         launches["student_train"] = phase_student_train()
         phase_student_grad_check()
         launches.update(phase_bf16())
+        launches.update(phase_data_parallel())
         phase_ablation()
         phase_cli()
         stats, gen_s = make_data_set(root)

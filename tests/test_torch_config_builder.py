@@ -120,13 +120,13 @@ def test_make_model_matches_jax_tree(name):
     assert sub.window_size == ws and sub.quant_size_sphere == qss
 
 
-def test_make_model_rejects_what_the_port_lacks():
+def test_make_model_rejects_what_the_port_lacks(monkeypatch):
     """A model name the JAX package's builder lacks too raises; every model
     name the builder serves builds under ``precision=bfloat16``, which sets
     the bf16 policy, and an unknown precision raises ``KeyError`` as the JAX
-    builder's does; multi-host loading raises, naming the ROADMAP item that
-    brings it; the synthetic loaders refuse a real dataset, which
-    ``make_loaders`` sends to ``data/loaders.py``."""
+    builder's does; multi-process loading that is not data parallel (batch 3
+    at two processes) raises; the synthetic loaders refuse a real dataset,
+    which ``make_loaders`` sends to ``data/loaders.py``."""
     from u2mkd_tpu.ops import precision as jax_precision
     from u2mkd_tpu_torch.ops import precision
 
@@ -151,8 +151,11 @@ def test_make_model_rejects_what_the_port_lacks():
     cfg = _synthetic("spformer_tiny.yaml", "dataset.name=semantic_nusc")
     with pytest.raises(ValueError, match="make_loaders"):
         builder.make_synthetic_loaders(cfg, None)
-    cfg = _synthetic("spformer_tiny.yaml", "train.multihost=true")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    from u2mkd_tpu_torch.parallel import mesh
+
+    cfg = _synthetic("spformer_tiny.yaml", "train.multihost=true", "batch_size=3")
+    monkeypatch.setattr(mesh, "world_size", lambda group=None: 2)
+    with pytest.raises(ValueError, match="not data parallel"):
         builder.make_loaders(cfg, builder.make_model(cfg, "cpu"))
 
 

@@ -1074,3 +1074,89 @@ def test_distill_ablation_bounds_on_card(cuda_device, tmp_path):
     for r in (r32, r16):
         for name, ok in chip_smoke.ABLATION_BOUNDS.items():
             assert ok(r), (name, r)
+
+
+def _card_dp_setup(tmp_path, world):
+    """The small teacher of the data-parallel card tests (cr 0.5, K1-K5,
+    dropout and drop path off), its weights, one scan a rank and the batch
+    of all of them, each with its host plumbing."""
+    import torch_dp_worker
+
+    spec = dict(num_classes=5, cr=0.5, voxel_size=0.3, head_dim=8, seed=3, dropout_rate=0.0,
+                drop_path_rate=0.0)
+    caps = (4096, 2048, 1024, 512, 256)
+    model = teacher_model(device="cuda", **spec)
+    start = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    raws = [synthetic.make_batch(np.random.RandomState(s), 1, 4096, voxel_size=0.3)
+            for s in range(world)]
+
+    def with_plumbing(raw):
+        return dict(raw, plumbing=plumbing_host.batch_plumbing(
+            raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+            wgeom_params=wgeom_host.params_from_model(model)))
+
+    spec.pop("seed")
+    got = torch_dp_worker.spawn(
+        "card_teacher", {"model": spec, "state": start, "lr": 0.02, "caps": caps,
+                         "batches": [with_plumbing(r) for r in raws]},
+        tmp_path, world, backend="gloo" if world > 1 else "nccl", timeout=300)
+    return spec, caps, start, with_plumbing(chip_smoke.concat_scans(raws)), got
+
+
+def _card_ref_state(spec, caps, start, batch, nudge=None, mean_of_scans=True):
+    model = teacher_model(device="cuda", **spec)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in start.items()})
+    if nudge is not None:
+        gen = torch.Generator(device="cuda").manual_seed(nudge)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, device="cuda", generator=gen))
+    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", 0.02)
+    step = (chip_smoke.mean_of_scans_teacher_step(model, opt, caps) if mean_of_scans
+            else state.make_train_step(model, opt, caps))
+    step(batch)
+    return {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def _card_update_diff(got, ref, start):
+    def one(n):
+        change = float(np.abs(ref[n] - start[n]).max())
+        return float(np.abs(got[n] - ref[n]).max()) / (
+            change + 2 * float(np.spacing(np.abs(ref[n]).max().astype(np.float32))))
+
+    return max((one(n), n) for n in ref if "running_" not in n and "num_batches" not in n)
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_step_on_card_is_the_mean_of_scans_step(cuda_device, tmp_path):
+    """Two gloo ranks on the one card, a scan each (BN synced, gradients
+    averaged), against the single-process step on both scans whose
+    objective is the mean of the two scans' losses: every parameter's update
+    within GRAD_SPREADS (4) times the median of three one-ulp-nudged
+    reference steps' distances (and at least 1e-2 of its change); both
+    ranks bitwise equal."""
+    spec, caps, start, batch, got = _card_dp_setup(tmp_path, 2)
+    ref = _card_ref_state(spec, caps, start, batch)
+    spreads = [_card_update_diff(_card_ref_state(spec, caps, start, batch, nudge=s), ref,
+                                 start)[0] for s in (7, 8, 9)]
+    tol = max(1e-2, 4.0 * float(np.median(spreads)))
+    worst, name = _card_update_diff(got[0]["state"], ref, start)
+    assert worst <= tol, (name, worst, tol)
+    for k, v in got[0]["state"].items():
+        np.testing.assert_array_equal(got[1]["state"][k], v, k)
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_step_equals_single_device_step(cuda_device, tmp_path):
+    """One NCCL rank: the data-parallel step (a BN sum and a gradient mean
+    over one rank) against the single-device step, held as the two-rank
+    step is (the card's scatter-adds do not repeat bitwise, so 0 is not
+    what two runs of one step give)."""
+    spec, caps, start, batch, got = _card_dp_setup(tmp_path, 1)
+    ref = _card_ref_state(spec, caps, start, batch, mean_of_scans=False)
+    spreads = [_card_update_diff(_card_ref_state(spec, caps, start, batch, nudge=s,
+                                                 mean_of_scans=False), ref, start)[0]
+               for s in (7, 8, 9)]
+    tol = max(1e-2, 4.0 * float(np.median(spreads)))
+    worst, name = _card_update_diff(got[0]["state"], ref, start)
+    assert worst <= tol, (name, worst, tol)

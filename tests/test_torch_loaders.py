@@ -205,10 +205,18 @@ def test_device_batches_are_not_copied_again():
     assert torch.equal(ref.levels[1].nbr27, pl.levels[1].nbr27)
 
 
-def test_loaders_refuse_what_waits_for_item_6(mini_root):
-    cfg, _ = _cfgs(STAGE1, mini_root, "train.multihost=true")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loaders.make_loaders(cfg, builder.make_model(cfg, "cpu"))
+def test_loaders_refuse_what_waits_for_item_6(mini_root, monkeypatch):
+    """Item 6, data parallelism, is ported: ``train.multihost`` shards the
+    loaders by rank, and what they refuse is a multi-process run that is not
+    data parallel (batch 3 at two processes); Waymo's instance augmentation
+    still has no parameters."""
+    from u2mkd_tpu_torch.parallel import mesh
+
+    cfg, _ = _cfgs(STAGE1, mini_root, "train.multihost=true", "batch_size=3")
+    with monkeypatch.context() as m:
+        m.setattr(mesh, "world_size", lambda group=None: 2)
+        with pytest.raises(ValueError, match="not data parallel"):
+            loaders.make_loaders(cfg, builder.make_model(cfg, "cpu"))
     cfg, _ = _cfgs(STAGE1, mini_root, "dataset.name=semantic_waymo", "dataset.inst_aug=true")
     with pytest.raises(NotImplementedError, match="Waymo"):
         loaders.make_loaders(cfg, builder.make_model(cfg, "cpu"))

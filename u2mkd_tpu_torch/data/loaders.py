@@ -9,9 +9,10 @@ thread pool (``prefetch.maybe_pipelined``; spawned processes with
 the model's device (:func:`device_loader`). The window geometry is the
 model's (``wgeom_host.params_from_model``), so the factories take the model.
 
-One host, one device: the JAX package's multi-host sharding
-(``process_shard``, ``train.multihost``) and data-parallel shard layout
-(``dp_shard_count``) are ROADMAP section 1, item 6.
+Under ``train.multihost`` (data parallelism, ``parallel/mesh.py``) every
+rank draws the same shuffled order and keeps its own slice of it
+(:func:`process_shard`), and feeds its own device: one shard a process
+(:func:`dp_shard_count`).
 
 torch is imported only inside the upload, so that a spawned plumbing worker,
 which imports this module to unpickle :class:`PlumbingStage`, loads no torch.
@@ -109,14 +110,19 @@ class PlumbingStage:
 
 
 def _epoch_iter(ds, batch_size, collate_fn, shuffle, rng, stage=None, workers=0,
-                worker_processes=False) -> Iterator[Dict]:
-    """One epoch of host batches: the order (shuffled from ``rng``), each
+                worker_processes=False, shard=False) -> Iterator[Dict]:
+    """One epoch of host batches: the order (shuffled from ``rng``), with
+    ``shard`` this rank's slice of it (``mesh.local_batch_indices``), each
     batch fetched and collated serially (the datasets' augmentation shares
     one RandomState per dataset), then ``stage`` (the plumbing) on the
     loaders' pipeline."""
     order = np.arange(len(ds))
     if shuffle:
         rng.shuffle(order)
+    if shard:
+        from u2mkd_tpu_torch.parallel import mesh
+
+        order = mesh.local_batch_indices(len(order), order)
     n_batches = len(order) // batch_size
 
     def raw_batches():
@@ -244,11 +250,36 @@ def _model_device(model):
     return next(model.parameters()).device
 
 
+def dp_shard_count(cfg) -> int:
+    """The data-parallel shards one process's batch is split into: 1, since
+    each rank feeds its own device, so the window geometry's leading shard
+    dimension is the rank's own (in JAX one process may feed several local
+    devices). A multi-process run that is not data parallel
+    (``mesh.use_data_parallel`` false: the batch does not divide by the
+    world size) raises: JAX runs it through GSPMD, which has no counterpart
+    here, and the port does not run it unsynced."""
+    from u2mkd_tpu_torch.parallel import mesh
+
+    n = mesh.world_size()
+    if n > 1 and not mesh.use_data_parallel(cfg):
+        raise ValueError(f"{n} processes, batch_size {cfg.batch_size}: not data parallel "
+                         f"(the batch must divide by the world size); set batch_size to a "
+                         f"multiple of {n} or run one process")
+    return 1
+
+
+def process_shard(cfg) -> bool:
+    """Whether each rank keeps its own slice of every epoch
+    (``train.multihost``, which the CLIs' ``--multihost`` sets), after
+    checking that the run is data parallel (:func:`dp_shard_count`)."""
+    if not cfg.get_path("train.multihost", False):
+        return False
+    dp_shard_count(cfg)
+    return True
+
+
 def pipeline_options(cfg):
     """(workers, worker_processes, prefetch depth) of ``cfg``."""
-    if cfg.get_path("train.multihost", False):
-        raise NotImplementedError("train.multihost: the port's loaders serve one host and one "
-                                  "device; data parallelism is ROADMAP section 1, item 6")
     return (int(cfg.get_path("workers", 4)), bool(cfg.get_path("worker_processes", False)),
             int(cfg.get_path("prefetch_depth", 2)))
 
@@ -340,13 +371,14 @@ def make_loaders(cfg, model, seed: int = 0, tta_val: bool = False):
     from u2mkd_tpu_torch.data.semantic_nusc import collate
 
     workers, wproc, depth = pipeline_options(cfg)
+    shard = process_shard(cfg)
     train_ds, val_ds = build("train"), build("val")
     rng = np.random.RandomState(seed)
     train_stage, val_stage = plumbing_stages(cfg, model)
 
     def loader(ds, shuffle, stage):
         return lambda: _epoch_iter(ds, cfg.batch_size, collate, shuffle, rng, stage, workers,
-                                   wproc)
+                                   wproc, shard)
 
     device = _model_device(model)
     return (device_loader(loader(train_ds, True, train_stage), device, depth),
@@ -381,13 +413,14 @@ def make_distill_loaders(cfg, model, seed: int = 0, tta_val: bool = False):
         )
 
     workers, wproc, depth = pipeline_options(cfg)
+    shard = process_shard(cfg)
     train_ds, val_ds = build("train"), build("val")
     rng = np.random.RandomState(seed)
     train_stage, val_stage = plumbing_stages(cfg, model)
 
     def loader(ds, shuffle, stage):
         return lambda: _epoch_iter(ds, cfg.batch_size, collate_tsd, shuffle, rng, stage,
-                                   workers, wproc)
+                                   workers, wproc, shard)
 
     device = _model_device(model)
     return (device_loader(loader(train_ds, True, train_stage), device, depth),

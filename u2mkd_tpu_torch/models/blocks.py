@@ -20,6 +20,7 @@ caller (the train step); they never draw from the global generator.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,6 +30,7 @@ from u2mkd_tpu_torch.core.structures import LevelContext
 from u2mkd_tpu_torch.ops import spconv
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel
 from u2mkd_tpu_torch.ops.precision import cast_compute
+from u2mkd_tpu_torch.parallel import mesh
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator) -> torch.Tensor:
@@ -36,14 +38,33 @@ def _uniform_(t: torch.Tensor, bound: float, generator) -> torch.Tensor:
         return t.uniform_(-bound, bound, generator=generator)
 
 
+def trunc_normal_(t: torch.Tensor, std: float, a: float, b: float, generator) -> torch.Tensor:
+    """``t`` filled from N(0, std) truncated to [a, b] by the inverse CDF of
+    one ``uniform_`` draw: a function of ``generator``'s seed alone. torch's
+    ``nn.init.trunc_normal_`` draws so up to 2.12 and by rejection since
+    2.13, so the same seed gave two inits on two machines."""
+    def cdf(x: float) -> float:
+        return (1.0 + math.erf(x / std / math.sqrt(2.0))) / 2.0
+
+    with torch.no_grad():
+        t.uniform_(2 * cdf(a) - 1, 2 * cdf(b) - 1, generator=generator)
+        t.erfinv_().mul_(std * math.sqrt(2.0))
+        return t.clamp_(min=a, max=b)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of [B, V, C]: momentum 0.1, eps 1e-5,
     biased batch variance to normalize, unbiased for the running estimate.
-    Masked rows come out zero."""
+    Masked rows come out zero. With a ``process_group`` the count and both
+    moments are summed over its ranks before the count is clamped (JAX's
+    ``axis_name``): the statistics of the global batch, whose gradient
+    reaches every rank (``parallel/mesh.all_reduce_sum``)."""
 
-    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 process_group=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -52,9 +73,12 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask[..., None].to(x.dtype)
-            cnt = m.sum().clamp(min=1.0)
-            mean = (x * m).sum((0, 1)) / cnt
-            var = ((x * x * m).sum((0, 1)) / cnt - mean * mean).clamp(min=0.0)
+            cnt, s1, s2 = m.sum(), (x * m).sum((0, 1)), (x * x * m).sum((0, 1))
+            if self.process_group is not None:
+                cnt, s1, s2 = mesh.all_reduce_sum((cnt, s1, s2), self.process_group)
+            cnt = cnt.clamp(min=1.0)
+            mean = s1 / cnt
+            var = (s2 / cnt - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
@@ -122,14 +146,14 @@ class SparseConvBlock(nn.Module):
     """conv-BN-ReLU; stride 2 uses the down rulebook of the next level."""
 
     def __init__(self, in_ch: int, out_ch: int, ks: int = 3, stride: int = 1,
-                 generator=None):
+                 generator=None, process_group=None):
         super().__init__()
         self.stride = stride
         if stride == 1:
             self.conv0 = SparseConv(in_ch, out_ch, ks, generator)
         else:
             self.conv0 = SparseDownConv(in_ch, out_ch, generator)
-        self.bn0 = MaskedBatchNorm(out_ch)
+        self.bn0 = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, feats, level: LevelContext, down_nbr8=None, out_mask=None):
         if self.stride == 1:
@@ -142,10 +166,10 @@ class SparseConvBlock(nn.Module):
 class SparseDeconvBlock(nn.Module):
     """deconv-BN-ReLU."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None, process_group=None):
         super().__init__()
         self.conv0 = SparseDeconv(in_ch, out_ch, generator)
-        self.bn0 = MaskedBatchNorm(out_ch)
+        self.bn0 = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, feats, up_parent, up_koff, out_mask):
         return torch.relu(self.bn0(self.conv0(feats, up_parent, up_koff), out_mask))
@@ -156,15 +180,16 @@ class SparseResBlock(nn.Module):
     identity when the widths agree, else a 1x1 conv-BN (``conv2``/``bn2``,
     the third conv and norm in flax's numbering)."""
 
-    def __init__(self, in_ch: int, out_ch: int, ks: int = 3, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, ks: int = 3, generator=None,
+                 process_group=None):
         super().__init__()
         self.conv0 = SparseConv(in_ch, out_ch, ks, generator)
-        self.bn0 = MaskedBatchNorm(out_ch)
+        self.bn0 = MaskedBatchNorm(out_ch, process_group=process_group)
         self.conv1 = SparseConv(out_ch, out_ch, ks, generator)
-        self.bn1 = MaskedBatchNorm(out_ch)
+        self.bn1 = MaskedBatchNorm(out_ch, process_group=process_group)
         if in_ch != out_ch:
             self.conv2 = SparseConv(in_ch, out_ch, 1, generator)
-            self.bn2 = MaskedBatchNorm(out_ch)
+            self.bn2 = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, feats, level: LevelContext):
         mask = level.grid.mask
@@ -180,8 +205,7 @@ def dense(in_ch: int, out_ch: int, generator=None, bias: bool = True) -> nn.Line
     lin = nn.Linear(in_ch, out_ch, bias=bias)
     with torch.no_grad():
         std = (1.0 / in_ch) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        trunc_normal_(lin.weight, std, -2 * std, 2 * std, generator)
         if bias:
             lin.bias.zero_()
     return lin
@@ -190,10 +214,10 @@ def dense(in_ch: int, out_ch: int, generator=None, bias: bool = True) -> nn.Line
 class PointMLP(nn.Module):
     """Linear-BN-ReLU on per-point features."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None, process_group=None):
         super().__init__()
         self.fc0 = dense(in_ch, out_ch, generator)
-        self.bn0 = MaskedBatchNorm(out_ch)
+        self.bn0 = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, feats, mask):
         return torch.relu(self.bn0(self.fc0(feats), mask))

@@ -78,17 +78,18 @@ class AttenFusionConv(nn.Module):
     """Camera -> LiDAR gated attention fusion on per-point features [B, P,
     C] (``IA_Layer`` + ``Atten_Fusion_Conv``); BatchNorms over valid points."""
 
-    def __init__(self, point_ch: int, img_ch: int, out_ch: int, generator=None):
+    def __init__(self, point_ch: int, img_ch: int, out_ch: int, generator=None,
+                 process_group=None):
         super().__init__()
         rc = point_ch // 4
-        self.ia_fc1_bn = MaskedBatchNorm(img_ch)
+        self.ia_fc1_bn = MaskedBatchNorm(img_ch, process_group=process_group)
         self.ia_fc1 = dense(img_ch, rc, generator)
         self.ia_fc2 = dense(point_ch, rc, generator)
         self.ia_fc3 = dense(rc, 1, generator)
         self.ia_conv1 = dense(img_ch, point_ch, generator)
-        self.ia_conv1_bn = MaskedBatchNorm(point_ch)
+        self.ia_conv1_bn = MaskedBatchNorm(point_ch, process_group=process_group)
         self.fuse_conv = dense(2 * point_ch, out_ch, generator)
-        self.fuse_bn = MaskedBatchNorm(out_ch)
+        self.fuse_bn = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, point_feats: torch.Tensor, img_feats: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -105,16 +106,17 @@ class L2CFusion(nn.Module):
     ``L2CFusion``). Returns (relu(fused), fused): the reference feeds the
     ReLU forward and keeps the pre-activation as the stage skip."""
 
-    def __init__(self, point_ch: int, img_ch: int, out_ch: int, generator=None):
+    def __init__(self, point_ch: int, img_ch: int, out_ch: int, generator=None,
+                 process_group=None):
         super().__init__()
         rc = img_ch // 4
         self.ai_fc1 = conv1x1(img_ch, rc, generator)
         self.ai_fc2 = conv1x1(point_ch, rc, generator)
         self.ai_fc3 = conv1x1(rc, 1, generator)
         self.ai_conv1 = conv1x1(point_ch, img_ch, generator)
-        self.ai_conv1_bn = BatchNorm2d(img_ch)
+        self.ai_conv1_bn = BatchNorm2d(img_ch, process_group=process_group)
         self.fuse_conv = conv1x1(2 * img_ch, out_ch, generator)
-        self.fuse_bn = BatchNorm2d(out_ch)
+        self.fuse_bn = BatchNorm2d(out_ch, process_group=process_group)
 
     def forward(self, point_grid: torch.Tensor, img_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,12 +131,13 @@ class L2CFusion(nn.Module):
 class LearnerMLP(nn.Module):
     """Pseudo-image-feature learner: Linear-BN-ReLU-Linear-BN."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None,
+                 process_group=None):
         super().__init__()
         self.fc1 = dense(in_ch, out_ch, generator)
-        self.bn1 = MaskedBatchNorm(out_ch)
+        self.bn1 = MaskedBatchNorm(out_ch, process_group=process_group)
         self.fc2 = dense(out_ch, out_ch, generator)
-        self.bn2 = MaskedBatchNorm(out_ch)
+        self.bn2 = MaskedBatchNorm(out_ch, process_group=process_group)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.fc1(x), mask))

@@ -50,7 +50,8 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
                  window_size_scale=(2.0, 2.0), drop_path_rate: float = 0.3,
                  sphere_a: float = 0.0125, head_dim: int = 16,
                  adapt_out_ch: Optional[int] = None, run_pix_decoder: bool = True,
-                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None,
+                 process_group=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
         self.pallas_attention, self.pallas_cubic = pallas_attention, pallas_cubic
@@ -61,11 +62,12 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
         self.adapt_out_ch, self.run_pix_decoder = adapt_out_ch, run_pix_decoder
         cs = [int(cr * x) for x in base_channels]
         gen = generator
+        kw = dict(generator=gen, process_group=process_group)  # the blocks with a BN
 
-        self.pix_branch = SwiftNetResNet(generator=gen)
+        self.pix_branch = SwiftNetResNet(**kw)
         img_cs = self.pix_branch.img_cs
-        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, generator=gen)
-        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, generator=gen)
+        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, **kw)
+        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, **kw)
         dpr = [float(x) for x in np.linspace(0, drop_path_rate, 7)]
         ws, qs = list(window_size), list(quant_size)
         wss, qss = list(window_size_sphere), list(quant_size_sphere)
@@ -73,9 +75,9 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
         for idx in range(4):
             c = cs[idx + 1]
             setattr(self, f"down{idx}_conv",
-                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, generator=gen))
-            setattr(self, f"down{idx}_res0", blocks.SparseResBlock(cs[idx], c, generator=gen))
-            setattr(self, f"down{idx}_res1", blocks.SparseResBlock(c, c, generator=gen))
+                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, **kw))
+            setattr(self, f"down{idx}_res0", blocks.SparseResBlock(cs[idx], c, **kw))
+            setattr(self, f"down{idx}_res1", blocks.SparseResBlock(c, c, **kw))
             setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
                 dim=c, num_heads=c // head_dim, window_size=tuple(ws),
                 window_size_sphere=tuple(wss), quant_size=tuple(qs),
@@ -86,29 +88,29 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
             wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
             qss = [qss[0] * wss_scale, qss[1] * wss_scale, qss[2]]
             setattr(self, f"l2c{idx}",
-                    fusion.L2CFusion(c, img_cs[idx + 1], img_cs[idx + 1], generator=gen))
-            setattr(self, f"learner{idx}", fusion.LearnerMLP(c, img_cs[idx + 1], generator=gen))
+                    fusion.L2CFusion(c, img_cs[idx + 1], img_cs[idx + 1], **kw))
+            setattr(self, f"learner{idx}", fusion.LearnerMLP(c, img_cs[idx + 1], **kw))
             setattr(self, f"c2l{idx}",
-                    fusion.AttenFusionConv(c, img_cs[idx + 1], c, generator=gen))
+                    fusion.AttenFusionConv(c, img_cs[idx + 1], c, **kw))
         if adapt_out_ch is not None:
             self.adapt_fc = blocks.dense(cs[4], adapt_out_ch, gen)
-            self.adapt_bn = blocks.MaskedBatchNorm(adapt_out_ch)
+            self.adapt_bn = blocks.MaskedBatchNorm(adapt_out_ch, process_group=process_group)
 
-        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], generator=gen)
-        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], generator=gen)
-        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], generator=gen)
+        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], **kw)
+        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], **kw)
+        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], **kw)
         skips = (cs[3], cs[2], cs[1], cs[0])
         for i in range(4):
             cin, cout = cs[4 + i], cs[5 + i]
-            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, generator=gen))
+            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, **kw))
             setattr(self, f"up{i}_res0",
-                    blocks.SparseResBlock(cout + skips[i], cout, generator=gen))
-            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, generator=gen))
+                    blocks.SparseResBlock(cout + skips[i], cout, **kw))
+            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, **kw))
         self.dropout = blocks.Dropout(dropout_rate)
         self.classifier_vox = blocks.dense(cs[8], num_classes, gen)
         if run_pix_decoder:
             self.classifier_pix = BNReluConv(self.pix_branch.img_cs[4], num_classes, k=1,
-                                             generator=gen)
+                                             **kw)
 
     def set_plain(self, plain: bool) -> None:
         """Run the kernels' plain versions (True) or the kernels (False) on

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from u2mkd_tpu_torch.core.structures import WindowGeom
-from u2mkd_tpu_torch.models.blocks import DropPath, dense
+from u2mkd_tpu_torch.models.blocks import DropPath, dense, trunc_normal_
 from u2mkd_tpu_torch.ops import wattn
 from u2mkd_tpu_torch.ops.kernels.wattn_kernel import (flash_pregeom_batched,
                                                       sparse_window_attention_flash_batched)
@@ -35,7 +35,7 @@ from u2mkd_tpu_torch.ops.kernels.wattn_kernel import (flash_pregeom_batched,
 
 def _table(shape, generator) -> nn.Parameter:
     t = torch.empty(shape)
-    nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+    trunc_normal_(t, 0.02, -0.04, 0.04, generator)
     return nn.Parameter(t)
 
 

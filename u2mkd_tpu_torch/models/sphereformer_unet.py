@@ -45,11 +45,11 @@ class PreActResBlock(nn.Module):
     """norm-relu-conv3-norm-relu-conv3 plus the input, through a 1x1 conv
     (``i_branch``) where the widths differ."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None, process_group=None):
         super().__init__()
-        self.bn1 = blocks.MaskedBatchNorm(in_ch)
+        self.bn1 = blocks.MaskedBatchNorm(in_ch, process_group=process_group)
         self.conv1 = blocks.SparseConv(in_ch, out_ch, 3, generator)
-        self.bn2 = blocks.MaskedBatchNorm(out_ch)
+        self.bn2 = blocks.MaskedBatchNorm(out_ch, process_group=process_group)
         self.conv2 = blocks.SparseConv(out_ch, out_ch, 3, generator)
         if in_ch != out_ch:
             self.i_branch = blocks.SparseConv(in_ch, out_ch, 1, generator)
@@ -65,9 +65,9 @@ class PreActResBlock(nn.Module):
 class VGGBlock(nn.Module):
     """norm-relu-conv3, no residual (the reference's ``VGGBlock``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None, process_group=None):
         super().__init__()
-        self.bn1 = blocks.MaskedBatchNorm(in_ch)
+        self.bn1 = blocks.MaskedBatchNorm(in_ch, process_group=process_group)
         self.conv1 = blocks.SparseConv(in_ch, out_ch, 3, generator)
 
     def forward(self, feats: torch.Tensor, level) -> torch.Tensor:
@@ -88,7 +88,7 @@ class UBlock(nn.Module):
                  window_size_scale: Tuple[float, float] = (2.0, 2.0),
                  block_reps: int = 2, head_dim: int = 16, drop_path: float = 0.0,
                  sphere_layers: Sequence[int] = (1, 2, 3, 4, 5), a: float = 0.0125,
-                 block_type: str = "residual", generator=None):
+                 block_type: str = "residual", generator=None, process_group=None):
         super().__init__()
         gen = generator
         self.level_idx = level_idx
@@ -96,7 +96,7 @@ class UBlock(nn.Module):
         block_cls = _BLOCK_TYPES[block_type]
         c0 = n_planes[0]
         for i in range(block_reps):
-            setattr(self, f"block{i}", block_cls(c0, c0, gen))
+            setattr(self, f"block{i}", block_cls(c0, c0, gen, process_group))
         self.has_attention = level_idx + 1 in tuple(sphere_layers)
         if self.has_attention:
             self.transformer_block = SphereFormerBlock(
@@ -108,7 +108,7 @@ class UBlock(nn.Module):
         if self.has_child:
             c1 = n_planes[1]
             wsc, wss = window_size_scale
-            self.down_bn = blocks.MaskedBatchNorm(c0)
+            self.down_bn = blocks.MaskedBatchNorm(c0, process_group=process_group)
             self.down_conv = blocks.SparseDownConv(c0, c1, gen)
             self.u = UBlock(
                 n_planes=tuple(n_planes[1:]), level_idx=level_idx + 1,
@@ -120,11 +120,12 @@ class UBlock(nn.Module):
                                    quant_size_sphere[1] * wss, quant_size_sphere[2]),
                 window_size_scale=window_size_scale, block_reps=block_reps,
                 head_dim=head_dim, drop_path=drop_path, sphere_layers=sphere_layers,
-                a=a, block_type=block_type, generator=gen)
-            self.up_bn = blocks.MaskedBatchNorm(c1)
+                a=a, block_type=block_type, generator=gen, process_group=process_group)
+            self.up_bn = blocks.MaskedBatchNorm(c1, process_group=process_group)
             self.up_conv = blocks.SparseDeconv(c1, c0, gen)
             for i in range(block_reps):
-                setattr(self, f"tail{i}", block_cls(2 * c0 if i == 0 else c0, c0, gen))
+                setattr(self, f"tail{i}", block_cls(2 * c0 if i == 0 else c0, c0, gen,
+                                                    process_group))
 
     def forward(self, feats: torch.Tensor, plumbing: UNetPlumbing,
                 generator: Optional[torch.Generator] = None,
@@ -168,7 +169,7 @@ class SphereFormerSemantic(nn.Module):
                  window_size_scale=(2.0, 2.0), head_dim: int = 16,
                  drop_path_rate: float = 0.3, sphere_layers: Sequence[int] = (1, 2, 3, 4, 5),
                  a: float = 0.0125, block_type: str = "residual", block_reps: int = 2,
-                 generator=None):
+                 generator=None, process_group=None):
         super().__init__()
         self.n_planes, self.head_dim = tuple(n_planes), head_dim
         self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
@@ -181,8 +182,9 @@ class SphereFormerSemantic(nn.Module):
             window_size_sphere=self.window_size_sphere, quant_size=self.quant_size,
             quant_size_sphere=self.quant_size_sphere, window_size_scale=self.window_size_scale,
             block_reps=block_reps, head_dim=head_dim, drop_path=drop_path_rate,
-            sphere_layers=sphere_layers, a=a, block_type=block_type, generator=gen)
-        self.output_bn = blocks.MaskedBatchNorm(n_planes[0])
+            sphere_layers=sphere_layers, a=a, block_type=block_type, generator=gen,
+            process_group=process_group)
+        self.output_bn = blocks.MaskedBatchNorm(n_planes[0], process_group=process_group)
         self.classifier = blocks.dense(n_planes[0], num_classes, gen)
 
     def set_plain(self, plain: bool) -> None:

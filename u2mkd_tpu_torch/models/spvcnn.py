@@ -41,7 +41,8 @@ class SPVCNN(nn.Module):
                  window_size_scale=(2.0, 1.5), drop_path_rate: float = 0.3,
                  sphere_a: float = 0.0125, head_dim: int = 16,
                  return_point_feats: bool = False, sphereformer: bool = True,
-                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None,
+                 process_group=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
         self.pallas_attention, self.pallas_cubic = pallas_attention, pallas_cubic
@@ -52,20 +53,21 @@ class SPVCNN(nn.Module):
         self.return_point_feats = return_point_feats
         cs = [int(cr * x) for x in base_channels]
         gen = generator
+        kw = dict(generator=gen, process_group=process_group)  # the blocks with a BN
 
-        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, generator=gen)
-        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, generator=gen)
+        self.stem0 = blocks.SparseConvBlock(in_channel, cs[0], ks=3, **kw)
+        self.stem1 = blocks.SparseConvBlock(cs[0], cs[0], ks=3, **kw)
         dpr = [float(x) for x in np.linspace(0, drop_path_rate, 7)]
         ws, qs = list(window_size), list(quant_size)
         wss, qss = list(window_size_sphere), list(quant_size_sphere)
         wsc, wss_scale = window_size_scale
         for idx in range(4):
             setattr(self, f"down{idx}_conv",
-                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, generator=gen))
+                    blocks.SparseConvBlock(cs[idx], cs[idx], stride=2, **kw))
             setattr(self, f"down{idx}_res0",
-                    blocks.SparseResBlock(cs[idx], cs[idx + 1], generator=gen))
+                    blocks.SparseResBlock(cs[idx], cs[idx + 1], **kw))
             setattr(self, f"down{idx}_res1",
-                    blocks.SparseResBlock(cs[idx + 1], cs[idx + 1], generator=gen))
+                    blocks.SparseResBlock(cs[idx + 1], cs[idx + 1], **kw))
             if sphereformer:
                 setattr(self, f"sphereformer{idx + 1}", SphereFormerBlock(
                     dim=cs[idx + 1], num_heads=cs[idx + 1] // head_dim,
@@ -78,16 +80,16 @@ class SPVCNN(nn.Module):
             wss = [wss[0] * wss_scale, wss[1] * wss_scale, wss[2]]
             qss = [qss[0] * wss_scale, qss[1] * wss_scale, qss[2]]
 
-        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], generator=gen)
-        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], generator=gen)
-        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], generator=gen)
+        self.point_transform0 = blocks.PointMLP(cs[0], cs[4], **kw)
+        self.point_transform1 = blocks.PointMLP(cs[4], cs[6], **kw)
+        self.point_transform2 = blocks.PointMLP(cs[6], cs[8], **kw)
         skips = (cs[3], cs[2], cs[1], cs[0])
         for i in range(4):
             cin, cout = cs[4 + i], cs[5 + i]
-            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, generator=gen))
+            setattr(self, f"up{i}_deconv", blocks.SparseDeconvBlock(cin, cout, **kw))
             setattr(self, f"up{i}_res0",
-                    blocks.SparseResBlock(cout + skips[i], cout, generator=gen))
-            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, generator=gen))
+                    blocks.SparseResBlock(cout + skips[i], cout, **kw))
+            setattr(self, f"up{i}_res1", blocks.SparseResBlock(cout, cout, **kw))
         self.dropout = blocks.Dropout(dropout_rate)
         self.classifier_vox = blocks.dense(cs[8], num_classes, gen)
 
@@ -165,7 +167,7 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
                   device: Optional[Union[str, torch.device]] = None,
                   return_point_feats: bool = False, dropout_rate: float = 0.3,
                   drop_path_rate: float = 0.3, pallas_attention: bool = True,
-                  pallas_cubic: bool = True) -> SPVCNN:
+                  pallas_cubic: bool = True, process_group=None) -> SPVCNN:
     """The flagship teacher (``__graft_entry__._teacher_model``): windows of
     6 voxels quantized in 24 steps, sphere windows [2 deg, 2 deg, 120 m],
     both doubling per level; dropout 0.3 and drop path up to 0.3 in
@@ -173,7 +175,7 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
     ``pallas_attention`` is off, as ``configs/nuscenes/train/spformer.yaml``
     sets it (the flax module's default is off: the banded attention).
     Random weights from ``seed``, in eval mode, on ``device`` (CUDA unless
-    asked otherwise)."""
+    asked otherwise); BN synced over ``process_group`` where one is given."""
     dev = resolve_device(device)
     ws = voxel_size * 6
     gen = torch.Generator().manual_seed(seed)
@@ -183,5 +185,6 @@ def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.
         quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
         dropout_rate=dropout_rate, drop_path_rate=drop_path_rate, sphere_a=0.0125,
         head_dim=head_dim, return_point_feats=return_point_feats,
-        pallas_attention=pallas_attention, pallas_cubic=pallas_cubic, generator=gen)
+        pallas_attention=pallas_attention, pallas_cubic=pallas_cubic, generator=gen,
+        process_group=process_group)
     return model.to(dev).eval()

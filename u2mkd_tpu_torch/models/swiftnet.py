@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from u2mkd_tpu_torch.models.blocks import trunc_normal_
 from u2mkd_tpu_torch.ops.precision import cast_compute
+from u2mkd_tpu_torch.parallel import mesh
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -41,8 +43,7 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
     """Truncated normal at +-2 std, scaled so that its std is ``std`` (flax's
     ``variance_scaling(..., "truncated_normal")``)."""
     s = std / 0.87962566103423978
-    with torch.no_grad():
-        return nn.init.trunc_normal_(w, std=s, a=-2 * s, b=2 * s, generator=generator)
+    return trunc_normal_(w, s, -2 * s, 2 * s, generator)
 
 
 class ComputeConv2d(nn.Conv2d):
@@ -78,19 +79,40 @@ def conv1x1(in_ch: int, out_ch: int, generator=None) -> nn.Conv2d:
 class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW maps with torch semantics: batch statistics in
     training (biased variance to normalize, unbiased for the running
-    estimate), running statistics in eval."""
+    estimate), running statistics in eval. With a ``process_group`` the
+    training statistics are those of every rank's maps (JAX's ``axis_name``,
+    ``swiftnet.py:67-100``), in two passes as one process takes them: the
+    count and the sum of x over the group give the mean, then the sum of
+    squares about it over the group the variance (each sum
+    ``parallel/mesh.all_reduce_sum``, whose backward sums the cotangents)."""
 
-    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 process_group=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            self.training, self.momentum, self.eps)
+        if not self.training or self.process_group is None:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, self.training, self.momentum, self.eps)
+        xf = x.float()
+        cnt = xf.new_tensor(float(x.numel() // x.shape[1]))
+        cnt, s1 = mesh.all_reduce_sum((cnt, xf.sum((0, 2, 3))), self.process_group)
+        mean = s1 / cnt
+        (m2,) = mesh.all_reduce_sum((((xf - mean[:, None, None]) ** 2).sum((0, 2, 3)),),
+                                    self.process_group)
+        var = m2 / cnt
+        with torch.no_grad():
+            unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -98,15 +120,16 @@ class BasicBlock(nn.Module):
     post-ReLU tensor: the reference's in-place ReLU mutates the sum before
     the pair is returned, and the JAX package follows what it executes."""
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1, generator=None):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, generator=None,
+                 process_group=None):
         super().__init__()
         self.conv1 = conv(in_ch, planes, 3, stride, generator)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes, process_group=process_group)
         self.conv2 = conv(planes, planes, 3, 1, generator)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes, process_group=process_group)
         if stride != 1 or in_ch != planes:
             self.down_conv = conv(in_ch, planes, 1, stride, generator)
-            self.down_bn = BatchNorm2d(planes)
+            self.down_bn = BatchNorm2d(planes, process_group=process_group)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -120,9 +143,9 @@ class BNReluConv(nn.Module):
     """BN -> ReLU -> conv (reference ``_BNReluConv``)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3, bn_momentum: float = 0.1,
-                 generator=None):
+                 generator=None, process_group=None):
         super().__init__()
-        self.norm = BatchNorm2d(in_ch, momentum=bn_momentum)
+        self.norm = BatchNorm2d(in_ch, momentum=bn_momentum, process_group=process_group)
         self.conv = conv(in_ch, out_ch, k, 1, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,14 +159,15 @@ class SpatialPyramidPooling(nn.Module):
 
     def __init__(self, in_ch: int, bt_size: int = 128, level_size: int = 42,
                  out_size: int = 128, grids: Sequence[int] = (8, 4, 2, 1),
-                 num_levels: int = 3, generator=None):
+                 num_levels: int = 3, generator=None, process_group=None):
         super().__init__()
         self.grids, self.num_levels = tuple(grids), num_levels
-        self.spp_bn = BNReluConv(in_ch, bt_size, 1, 0.012, generator)
+        self.spp_bn = BNReluConv(in_ch, bt_size, 1, 0.012, generator, process_group)
         for i in range(num_levels):
-            setattr(self, f"spp{i}", BNReluConv(bt_size, level_size, 1, 0.012, generator))
+            setattr(self, f"spp{i}", BNReluConv(bt_size, level_size, 1, 0.012, generator,
+                                                process_group))
         self.spp_fuse = BNReluConv(bt_size + num_levels * level_size, out_size, 1, 0.012,
-                                   generator)
+                                   generator, process_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
@@ -163,10 +187,13 @@ class Upsample(nn.Module):
     """Skip bottleneck + align-corners upsample + blend (reference
     ``_Upsample``)."""
 
-    def __init__(self, skip_ch: int, num_maps_in: int, num_maps_out: int, generator=None):
+    def __init__(self, skip_ch: int, num_maps_in: int, num_maps_out: int, generator=None,
+                 process_group=None):
         super().__init__()
-        self.bottleneck = BNReluConv(skip_ch, num_maps_in, 1, generator=generator)
-        self.blend_conv = BNReluConv(num_maps_in, num_maps_out, 3, generator=generator)
+        self.bottleneck = BNReluConv(skip_ch, num_maps_in, 1, generator=generator,
+                                     process_group=process_group)
+        self.blend_conv = BNReluConv(num_maps_in, num_maps_out, 3, generator=generator,
+                                     process_group=process_group)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         skip = self.bottleneck(skip)
@@ -181,7 +208,8 @@ class SwiftNetResNet(nn.Module):
     PLANES = (64, 128, 256, 512)
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
-                 num_features: Sequence[int] = (128, 128, 128), generator=None):
+                 num_features: Sequence[int] = (128, 128, 128), generator=None,
+                 process_group=None):
         super().__init__()
         self.layers = tuple(layers)
         nf = num_features[0]
@@ -191,14 +219,14 @@ class SwiftNetResNet(nn.Module):
             for bi in range(n):
                 stride = 2 if (li > 0 and bi == 0) else 1
                 setattr(self, f"layer{li + 1}_{bi}",
-                        BasicBlock(in_ch, self.PLANES[li], stride, generator))
+                        BasicBlock(in_ch, self.PLANES[li], stride, generator, process_group))
                 in_ch = self.PLANES[li]
         self.conv1 = conv(3, 64, 7, 1, generator)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, process_group=process_group)
         self.spp = SpatialPyramidPooling(in_ch, bt_size=nf, level_size=nf // 3, out_size=nf,
-                                         generator=generator)
+                                         generator=generator, process_group=process_group)
         for i, skip_ch in enumerate((256, 128, 64)):
-            setattr(self, f"up{i}", Upsample(skip_ch, nf, nf, generator))
+            setattr(self, f"up{i}", Upsample(skip_ch, nf, nf, generator, process_group))
 
     def forward_stem(self, image: torch.Tensor) -> torch.Tensor:
         """7x7/s1 conv + BN + ReLU + 3x3/s2 max-pool (padded with -inf);

@@ -4,7 +4,9 @@ Port of ``u2mkd_tpu/models/tsd.py``: ``model_s`` is the MSP2IFM student,
 with an adapt layer mapping its stage-4 point features to the teacher's
 width; ``model_t`` is the SPVCNN + SphereFormer teacher at ``cr_t`` on the
 multisweep cloud. The teacher always runs in eval mode, without gradients,
-and its outputs are detached.
+and its outputs are detached. A ``process_group`` syncs the student's BN
+statistics across data-parallel ranks; the frozen teacher, in eval mode,
+takes none (as in JAX).
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ class TSDFull(nn.Module):
                  window_size_scale=(2.0, 2.0), dropout_rate: float = 0.3,
                  drop_path_rate: float = 0.3, sphere_a: float = 0.0125,
                  head_dim: int = 16, run_pix_decoder: bool = True,
-                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None):
+                 pallas_attention: bool = False, pallas_cubic: bool = True, generator=None,
+                 process_group=None):
         super().__init__()
         self.cr, self.cr_t = cr, cr_t
+        self.process_group = process_group
         self.in_channel, self.in_channel_t = in_channel, in_channel_t
         self.run_pix_decoder = run_pix_decoder
         self._common = dict(
@@ -45,10 +49,12 @@ class TSDFull(nn.Module):
 
     def make_student(self, generator=None) -> SPVCNNSwiftNetMSP2IFM:
         """The student of this configuration: ``cr``, with its stage-4
-        features adapted to the teacher's width, int(cr_t * 256)."""
+        features adapted to the teacher's width, int(cr_t * 256), its BN
+        synced over ``process_group``."""
         return SPVCNNSwiftNetMSP2IFM(
             cr=self.cr, in_channel=self.in_channel, adapt_out_ch=int(self.cr_t * 256),
-            run_pix_decoder=self.run_pix_decoder, generator=generator, **self._common)
+            run_pix_decoder=self.run_pix_decoder, generator=generator,
+            process_group=self.process_group, **self._common)
 
     def make_teacher(self, generator=None) -> SPVCNN:
         """The teacher of this configuration: SPVCNN + SphereFormer at

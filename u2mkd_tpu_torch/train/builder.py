@@ -45,9 +45,11 @@ def window_geometry(cfg: Config):
 
 
 def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
-               seed: int = 0) -> torch.nn.Module:
+               seed: int = 0, process_group=None) -> torch.nn.Module:
     """The model ``cfg.model.name`` names, with random weights from
-    ``seed``, on ``device`` (CUDA unless asked otherwise)."""
+    ``seed``, on ``device`` (CUDA unless asked otherwise); with
+    ``process_group`` its BN statistics (a TSD model's student's) are synced
+    over the group's ranks (``parallel/mesh.py``)."""
     from u2mkd_tpu_torch.models.spvcnn import SPVCNN
     from u2mkd_tpu_torch.models.tsd import TSDFull
     from u2mkd_tpu_torch.ops.precision import set_compute_dtype
@@ -61,7 +63,8 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         # the conv-only U-Net takes no window options (JAX builder.py:51-56)
         return SPVCNN(num_classes=cfg.data.num_classes, cr=cfg.model.cr,
                       in_channel=cfg.model.in_channel, sphereformer=False,
-                      generator=torch.Generator().manual_seed(seed)).to(dev)
+                      generator=torch.Generator().manual_seed(seed),
+                      process_group=process_group).to(dev)
     ws, wss, qs, qss = window_geometry(cfg)
     common = dict(
         num_classes=cfg.data.num_classes, window_size=ws, window_size_sphere=wss,
@@ -71,7 +74,7 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         head_dim=cfg.model.get("head_dim", 16),
         pallas_attention=cfg.model.get("pallas_attention", False),
         pallas_cubic=cfg.model.get("pallas_cubic", True),
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed), process_group=process_group)
     if name == "spvcnn_spformer":
         model = SPVCNN(cr=cfg.model.cr, in_channel=cfg.model.in_channel, **common)
     elif name == "spvcnn_swiftnet18_spformer_tsd_full":
@@ -86,7 +89,11 @@ def make_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
 
 def optimizer_spec(cfg: Config, world_size: int = 1) -> Tuple[str, Callable[[int], float], Dict]:
     """-> (optimizer name, lr(step) = cfg.optimizer.lr times the schedule's
-    factor, keyword arguments of :func:`optim.make_optimizer`)."""
+    factor, keyword arguments of :func:`optim.make_optimizer`).
+    ``world_size`` is the data-parallel world size (1 without data
+    parallelism): the cosine schedule's warm-up and iterations per epoch
+    follow the global batch, ``batch_size * world_size`` (JAX
+    ``builder.py:78-83``)."""
     o = cfg.optimizer
     name = cfg.scheduler.name
     if name == "cosine_warmup":
@@ -127,6 +134,20 @@ def _check_synthetic(cfg: Config) -> None:
                          f"dispatch on dataset.name")
 
 
+def _rank_batches(cfg: Config) -> Callable[[int, int], bool]:
+    """-> keep(i, n): whether this rank takes batch ``i`` of a synthetic
+    stream of ``n``. Every rank draws the whole stream from the same seed;
+    under ``train.multihost`` rank r keeps batches r, r + world, ..., n //
+    world of them (the real loaders' ``order[rank::world]`` in whole
+    batches), else every batch."""
+    if not loaders.process_shard(cfg):
+        return lambda i, n: True
+    from u2mkd_tpu_torch.parallel import mesh
+
+    rank, world = mesh.process_index(), mesh.world_size()
+    return lambda i, n: i % world == rank and i < n - n % world
+
+
 def make_synthetic_loaders(cfg: Config, model: torch.nn.Module,
                            seed: int = 0) -> Tuple[Loader, Loader]:
     """Synthetic train and val loaders of the teacher: callables returning
@@ -135,19 +156,24 @@ def make_synthetic_loaders(cfg: Config, model: torch.nn.Module,
     (without them under ``host_plumbing: false``: the step builds them on
     the device), through the real loaders' pipeline (``data/loaders.py``: the plumbing on
     ``workers`` threads, a prefetch thread that uploads). Val draws from
-    ``seed + 1``; n_val = max(2, n_train // 4)."""
+    ``seed + 1``; n_val = max(2, n_train // 4). Under ``train.multihost``
+    each rank keeps every world-th batch of both streams
+    (:func:`_rank_batches`)."""
     _check_synthetic(cfg)
     b, p = cfg.batch_size, cfg.dataset.num_points
     n_train = cfg.data.training_size // b
     n_val = max(2, n_train // 4)
     workers, wproc, depth = loaders.pipeline_options(cfg)
     stage, _ = loaders.plumbing_stages(cfg, model)
+    keep = _rank_batches(cfg)
 
     def loader(rng_seed: int, n: int) -> Loader:
         def raw() -> Iterator[Dict]:
             rng = np.random.RandomState(rng_seed)
-            for _ in range(n):
-                yield synthetic.make_batch(rng, b, p, cfg.dataset.voxel_size)
+            for i in range(n):
+                batch = synthetic.make_batch(rng, b, p, cfg.dataset.voxel_size)
+                if keep(i, n):
+                    yield batch
 
         return lambda: loaders.host_pipeline(stage, raw(), workers, wproc)
 
@@ -162,7 +188,8 @@ def make_synthetic_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple
     ``cfg.train.seed``, through the real loaders' pipeline as
     :func:`make_synthetic_loaders`, with ``model``'s plumbing stages
     (``data/loaders.plumbing_stages``: both parts in train, the student's
-    in val unless ``debug.debug_val``)."""
+    in val unless ``debug.debug_val``), each rank's batches as
+    :func:`_rank_batches` keeps them."""
     _check_synthetic(cfg)
     b, p, tp = cfg.batch_size, cfg.dataset.num_points, cfg.dataset.teacher_points
     n_train = cfg.data.training_size // b
@@ -170,14 +197,17 @@ def make_synthetic_distill_loaders(cfg: Config, model: torch.nn.Module) -> Tuple
     seed = cfg.train.seed % (2 ** 31)
     workers, wproc, depth = loaders.pipeline_options(cfg)
     train_stage, val_stage = loaders.plumbing_stages(cfg, model)
+    keep = _rank_batches(cfg)
 
     def loader(seed_off: int, n: int, stage) -> Loader:
         def raw() -> Iterator[Dict]:
             rng = np.random.RandomState(seed + seed_off)
-            for _ in range(n):
-                yield synthetic.make_multimodal_batch(
+            for i in range(n):
+                batch = synthetic.make_multimodal_batch(
                     rng, b, p, tp, cfg.dataset.voxel_size, num_cams=cfg.dataset.num_cams,
                     im_hw=tuple(cfg.dataset.image_size))
+                if keep(i, n):
+                    yield batch
 
         return lambda: loaders.host_pipeline(stage, raw(), workers, wproc)
 

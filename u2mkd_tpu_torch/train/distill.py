@@ -13,8 +13,12 @@ teacher row of each student point, -1 where none), which the data pipeline
 builds. The eval step scores the student's voxel and pixel heads, and
 optionally the teacher on its own multisweep cloud.
 
-The JAX steps' ``remat`` (a TPU memory workaround) has no counterpart;
-``axis_name`` waits for data parallelism (ROADMAP section 1, item 6).
+With a ``process_group`` (data parallelism, ``parallel/mesh.py``) the train
+step averages the student's gradients and the loss terms over the ranks in
+one coalesced ``all_reduce`` and takes the max of the capacity counters (JAX
+``distill.py:185-199``); the eval step sums ``counts_vox``, ``counts_pix``
+and ``counts_teacher``. The split step takes no group, as in JAX. The JAX
+steps' ``remat`` (a TPU memory workaround) has no counterpart.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 
 from u2mkd_tpu_torch.models.tsd import TSDFull
 from u2mkd_tpu_torch.ops import losses
+from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import metrics, optim, overflow
-from u2mkd_tpu_torch.train.state import batch_reader
+from u2mkd_tpu_torch.train.state import batch_reader, gradients
 
 STUDENT_KEYS = {"feats": torch.float32, "images": torch.float32,
                 "pix_coords": torch.float32, "cam_masks": torch.bool,
@@ -86,7 +91,7 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
                             mse_norm_feat: bool = False,
                             scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                             generator: Optional[torch.Generator] = None,
-                            overflow_checks: bool = False) -> Callable:
+                            overflow_checks: bool = False, process_group=None) -> Callable:
     """Returns ``step_fn(batch) -> aux`` for ``batch = {"student",
     "teacher", "t2s"}`` as ``data/synthetic.make_multimodal_batch`` gives it
     (numpy arrays or device tensors; a part without a ``plumbing`` entry is
@@ -101,10 +106,11 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
     parts' plumbing (``overflow.stats_for_model``), suffixed ``_s`` and
     ``_t``, and ``overflow/violations``, the sum of both parts'. It is
     :func:`make_distill_split_steps`'s step: in torch the fused step and the
-    split one are the same computation."""
-    return make_distill_split_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat,
-                                    ignore_label, mse_norm_feat, scheduler, generator,
-                                    overflow_checks)
+    split one are the same computation. With ``process_group`` the
+    gradients and LOSS_TERMS are the ranks' means, the counters their max
+    (module docstring)."""
+    return _train_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat, ignore_label,
+                        mse_norm_feat, scheduler, generator, overflow_checks, process_group)
 
 
 def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
@@ -122,6 +128,14 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
     runs the student's forward, the loss, the backward and the update.
     ``step(batch)`` is the two in turn; no gradient crosses between
     them."""
+    return _train_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat, ignore_label,
+                        mse_norm_feat, scheduler, generator, overflow_checks, None)
+
+
+def _train_steps(model: TSDFull, optimizer: torch.optim.Optimizer, s_caps: Sequence[int],
+                 t_caps: Sequence[int], w_kl: float, w_feat: float, ignore_label: int,
+                 mse_norm_feat: bool, scheduler, generator: Optional[torch.Generator],
+                 overflow_checks: bool, process_group) -> Callable:
     device, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)
     _, teacher_plumbing, _ = batch_reader(model.model_t, t_caps)
     if generator is None:
@@ -153,6 +167,9 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
         loss, aux = _distill_losses(stu, t_out["x_vox_t2s"], t_out["feat_t2s"], labels, fov,
                                     label_valid, t2s_valid, w_kl, w_feat, mse_norm_feat)
         loss.backward()
+        if process_group is not None:
+            mesh.all_reduce_coalesced(gradients(model) + list(aux.values()), process_group,
+                                      "mean")
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -161,6 +178,8 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
             # JAX step's keys)
             for tag, stats in (("s", overflow.stats_for_model(model.model_s, spl)),
                                ("t", t_out["overflow"])):
+                if process_group is not None:
+                    mesh.all_reduce_coalesced(stats.values(), process_group, "max")
                 aux.update({f"{k}_{tag}": v for k, v in stats.items()})
             aux["overflow/violations"] = (aux.pop("overflow/violations_s")
                                           + aux.pop("overflow/violations_t"))
@@ -176,7 +195,7 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
 
 def make_distill_eval_step(model: TSDFull, s_caps: Sequence[int], t_caps: Sequence[int],
                            num_classes: int, ignore_label: int = 0,
-                           run_teacher: bool = False) -> Callable:
+                           run_teacher: bool = False, process_group=None) -> Callable:
     """Returns ``eval_fn(batch)`` for ``batch = {"student": ..., "teacher":
     ...}`` as ``data/synthetic.make_multimodal_batch`` gives it (numpy
     arrays; a part without a ``plumbing`` entry is built on the device) ->
@@ -187,7 +206,8 @@ def make_distill_eval_step(model: TSDFull, s_caps: Sequence[int], t_caps: Sequen
     teacher on its valid keyframe points. The student's plumbing carries the
     point maps of every level and, from the host, the window geometry of
     ``wgeom_host.params_from_model(model.model_s)``; the teacher's those of
-    ``model.model_t``."""
+    ``model.model_t``. With ``process_group`` the counters are summed over
+    its ranks; the per-point outputs stay the rank's own."""
     _, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)
     _, teacher_plumbing, _ = batch_reader(model.model_t, t_caps)
 
@@ -219,6 +239,10 @@ def make_distill_eval_step(model: TSDFull, s_caps: Sequence[int], t_caps: Sequen
                 pred_t.reshape(-1), tensor_of(tb, "labels", torch.int64).reshape(-1),
                 t_valid.reshape(-1), num_classes, ignore_label)
             res["logits_teacher"] = out["t"]["x_vox"]
+        if process_group is not None:
+            mesh.all_reduce_coalesced(
+                [v for k in ("counts_vox", "counts_pix", "counts_teacher") if k in res
+                 for v in res[k].values()], process_group)
         return res
 
     return eval_fn

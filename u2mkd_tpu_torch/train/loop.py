@@ -9,7 +9,11 @@ the mean eval time with the reference's warm-up trim (``InferTime``).
 Validation scores every raw point of a real dataset's scans, devoxelized
 through the inverse maps its batches carry (:class:`RawSpec`), and the
 padded points of batches that carry none (the synthetic ones), as the JAX
-loop does. Data parallelism is ROADMAP section 1, item 6.
+loop does. Under data parallelism (``parallel/mesh.py``) every rank runs
+the loop on its own shard, and only rank 0 writes the run directory (its
+metrics, TensorBoard events and checkpoints); the steps' collectives run on
+every rank, and the raw-point counters, which each rank scores on its own
+scans, are summed over the ranks at the end of each evaluation.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import evaluator as E
 from u2mkd_tpu_torch.train import metrics as M
 from u2mkd_tpu_torch.train import overflow
@@ -72,6 +77,16 @@ def format_iou_table(per_class: np.ndarray, miou: float,
     return "\n".join(lines)
 
 
+class _NullSummary:
+    """The summary writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, name: str, value: float, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class RawSpec(NamedTuple):
     """One raw-point scoring rule for ``Trainer.evaluate``.
 
@@ -117,8 +132,11 @@ class Trainer:
                  epoch_to_save: int = 0, log_every: int = 10, start_step: int = 0,
                  eval_raw_points: bool = True, raw_specs: Optional[List[RawSpec]] = None,
                  strict_capacity: bool = False):
+        # data parallelism: rank 0 alone writes the run directory
+        self.is_master = mesh.process_index() == 0
         self.run_dir = os.path.abspath(run_dir)
-        os.makedirs(self.run_dir, exist_ok=True)
+        if self.is_master:
+            os.makedirs(self.run_dir, exist_ok=True)
         self.model, self.optimizer = model, optimizer
         self.scheduler, self.generator = scheduler, generator
         self.train_step, self.eval_step = train_step, eval_step
@@ -129,8 +147,9 @@ class Trainer:
         self.class_names = class_names
         self.eval_counts_key = eval_counts_key
         self.extra_count_keys = tuple(extra_count_keys)
-        self.summary = SummaryWriter(self.run_dir)
-        self.ckpt = CheckpointManager(self.run_dir, epoch_to_save=epoch_to_save)
+        self.summary = SummaryWriter(self.run_dir) if self.is_master else _NullSummary()
+        self.ckpt = (CheckpointManager(self.run_dir, epoch_to_save=epoch_to_save)
+                     if self.is_master else None)
         self.log_every = log_every
         self.global_step = start_step
         self.eval_raw_points = eval_raw_points
@@ -194,6 +213,15 @@ class Trainer:
                     counts[spec.counts_key] = self._raw_point_counts(out, batch, spec)
             for k in keys:
                 totals[k] = {n: totals[k][n] + counts[k][n] for n in totals[k]}
+        group = mesh.data_group()
+        if raw_keys and group is not None:
+            # each rank scored its own scans' raw points; the eval step
+            # already summed the device counters
+            device = next(self.model.parameters()).device
+            for k in sorted(raw_keys):
+                ts = {n: torch.as_tensor(v, device=device) for n, v in totals[k].items()}
+                mesh.all_reduce_coalesced(ts.values(), group)
+                totals[k] = {n: t.cpu().numpy() for n, t in ts.items()}
         if raw_keys:
             print(f"[val] scored on raw points: {', '.join(sorted(raw_keys))}")
         results = {}
@@ -224,9 +252,11 @@ class Trainer:
             for k, v in results.items():
                 self.summary.add_scalar(f"val/{k}", v, self.global_step)
             miou = results[self.eval_counts_key]
-            state = self.state()
-            self.ckpt.save_latest(state, epoch)
-            improved = self.ckpt.save_best(state, miou)
+            improved = False
+            if self.is_master:
+                state = self.state()
+                self.ckpt.save_latest(state, epoch)
+                improved = self.ckpt.save_best(state, miou)
             loss = f" loss={float(aux['loss']):.4f}" if "loss" in aux else ""
             print(f"epoch {epoch}/{self.num_epochs}: steps={n_steps}{loss} "
                   f"miou={miou * 100:.2f}{' (best)' if improved else ''} "

@@ -3,18 +3,26 @@
 inference request from a batch, with its host plumbing or with plumbing
 built on the device (the JAX package's ``get_plumbing``).
 
+With a ``process_group`` (data parallelism, ``parallel/mesh.py``) each rank
+runs the step on its own shard, with a model built on the same group (its
+BN statistics synced): after the backward the gradients and the loss are
+averaged over the ranks in one coalesced ``all_reduce``, as JAX's
+``pmean`` (``state.py:127-145``), the capacity counters take their max, and
+the eval step's counters are summed.
+
 The JAX package's ``remat`` (a TPU memory workaround) has no counterpart
 here.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from u2mkd_tpu_torch.models import plumbing as P
 from u2mkd_tpu_torch.ops import losses
+from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import metrics, overflow
 
 
@@ -56,7 +64,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     capacities: Sequence[int], ignore_label: int = 0,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     generator: Optional[torch.Generator] = None,
-                    overflow_checks: bool = False) -> Callable:
+                    overflow_checks: bool = False, process_group=None) -> Callable:
     """Returns ``step_fn(batch) -> {"loss"}``: Lovász + CE on the points
     that are valid, in a keyframe and not ``ignore_label``; the forward in
     train mode (batch-stat BN, whose running stats update in place as flax's
@@ -65,7 +73,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     backward, ``optimizer.step()`` and ``scheduler.step()``. The loss comes
     back as a device tensor, so the step does not wait for the device.
     ``overflow_checks`` adds the batch's capacity counters
-    (``overflow.stats_for_model``), device tensors too."""
+    (``overflow.stats_for_model``), device tensors too. With
+    ``process_group`` the loss and gradients are the ranks' means and the
+    counters their max (module docstring)."""
     device, plumbing_of, tensor_of = batch_reader(model, capacities)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -80,22 +90,34 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         loss = losses.lovasz_ce(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                                 valid.reshape(-1))
         loss.backward()
+        aux = {"loss": loss.detach()}
+        if process_group is not None:
+            mesh.all_reduce_coalesced(gradients(model) + [aux["loss"]], process_group, "mean")
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        aux = {"loss": loss.detach()}
         if overflow_checks:
-            aux.update(overflow.stats_for_model(model, pl))
+            stats = overflow.stats_for_model(model, pl)
+            if process_group is not None:
+                mesh.all_reduce_coalesced(stats.values(), process_group, "max")
+            aux.update(stats)
         return aux
 
     return step_fn
 
 
+def gradients(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The gradients the backward gave ``model``'s parameters, in their
+    order (a frozen or unused parameter has none)."""
+    return [p.grad for p in model.parameters() if p.grad is not None]
+
+
 def make_eval_step(model: torch.nn.Module, capacities: Sequence[int],
-                   num_classes: int, ignore_label: int = 0) -> Callable:
+                   num_classes: int, ignore_label: int = 0, process_group=None) -> Callable:
     """Returns ``eval_fn(batch) -> {"pred", "counts", "logits"}`` (argmax
     predictions, IoU counters and logits). Everything runs on the model's
-    device."""
+    device. With ``process_group`` the counters are summed over its ranks;
+    ``pred`` and ``logits`` stay the rank's own."""
     _, plumbing_of, tensor_of = batch_reader(model, capacities)
 
     def eval_fn(batch: Dict) -> Dict:
@@ -108,6 +130,8 @@ def make_eval_step(model: torch.nn.Module, capacities: Sequence[int],
         counts = metrics.iou_counts(pred.reshape(-1),
                                     tensor_of(batch, "labels", torch.int64).reshape(-1),
                                     valid.reshape(-1), num_classes, ignore_label)
+        if process_group is not None:
+            mesh.all_reduce_coalesced(counts.values(), process_group)
         return {"pred": pred, "counts": counts, "logits": logits}
 
     return eval_fn

@@ -1,6 +1,6 @@
 """Stage-2 training CLI of the port: the camera+LiDAR student distilled
 from the frozen teacher (TSD; counterpart of the root
-``train_lc_nusc_tsd_full.py``, without its multihost flags).
+``train_lc_nusc_tsd_full.py``).
 
 Paired student/teacher batches (``dataset.name``: the synthetic dataset, or
 ``lc_semantic_nusc_tsd_full`` on nuScenes files under ``dataset.root``), the
@@ -17,7 +17,9 @@ logs both parts' capacity counters every ``log_every`` steps;
 ``train.strict_capacity`` (off by default) fails the run when a voxel grid
 saturates. ``train.split_step`` and ``train.remat`` have no effect: in
 torch the split step is the fused step's computation, and remat is a TPU
-workaround. Runs on the card unless ``--cpu`` is given.
+workaround. Runs on the card unless ``--cpu`` is given. ``--multihost
+--coordinator --num-processes --process-id`` run one process of a
+data-parallel run, as the stage-1 CLI.
 
 Usage:
   python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full configs/synthetic/train/tsd_tiny.yaml \\
@@ -34,8 +36,8 @@ import argparse
 
 import torch
 
-from u2mkd_tpu_torch.core.device import resolve_device
 from u2mkd_tpu_torch.models import convert_weights
+from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import builder, checkpoints, distill, loop
 from u2mkd_tpu_torch.utils import config as config_lib
 
@@ -47,17 +49,19 @@ def main(argv=None):
     parser.add_argument("--weight-path", default=None,
                         help="a checkpoint of the port to resume from")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
+    mesh.add_multihost_args(parser)
     parser.add_argument("opts", nargs="*", help="dotted config overrides")
     args = parser.parse_intermixed_args(argv)
 
     cfg = config_lib.load(args.config)
     config_lib.update_dotted(cfg, args.opts)
-    device = resolve_device("cpu" if args.cpu else None)
+    group, world = mesh.setup_multihost(args, cfg)
+    device = mesh.local_device("cpu" if args.cpu else None)
     seed = cfg.train.seed % (2 ** 31)
     print(f"device: {device}")
 
-    model = builder.make_model(cfg, device, seed)
-    name, lr, kw = builder.optimizer_spec(cfg)
+    model = builder.make_model(cfg, device, seed, process_group=group)
+    name, lr, kw = builder.optimizer_spec(cfg, world)
     optimizer, scheduler = distill.make_frozen_teacher_optimizer(model, name, lr, **kw)
     generator = torch.Generator(device=device).manual_seed(seed)
     s_caps = tuple(cfg.get_path("student_capacities") or cfg.capacities)
@@ -92,9 +96,12 @@ def main(argv=None):
         model, optimizer, s_caps, t_caps, w_kl=cfg.criterion.get("w_kl", 1.0),
         w_feat=cfg.criterion.get("w_feat", 1.0), ignore_label=ignore,
         mse_norm_feat=cfg.criterion.get("mse_norm_feat", False), scheduler=scheduler,
-        generator=generator, overflow_checks=bool(cfg.get_path("train.overflow_checks", True)))
+        generator=generator, overflow_checks=bool(cfg.get_path("train.overflow_checks", True)),
+        process_group=group)
     ev = distill.make_distill_eval_step(model, s_caps, t_caps, ncls, ignore,
-                                        run_teacher=debug_val)
+                                        run_teacher=debug_val, process_group=group)
+    step = mesh.data_parallel_step(step, model, group)
+    ev = mesh.data_parallel_distill_eval(ev, model, group)
     loop.Trainer(
         run_dir=args.run_dir, model=model, optimizer=optimizer, scheduler=scheduler,
         generator=generator, train_step=step, eval_step=ev, train_loader=train_loader,
@@ -111,6 +118,7 @@ def main(argv=None):
                    loop.RawSpec("counts_pix", "logits_pix", "student", "fov_full")],
         strict_capacity=bool(cfg.get_path("train.strict_capacity", False)),
     ).train()
+    mesh.finish_multihost(args, model)
 
 
 if __name__ == "__main__":
