@@ -136,7 +136,25 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      single-device step; the stage-1 CLI in two processes (``--multihost``)
      on a fresh mini set: rank 0 alone writes, both end equal. Run alone
      with ``python3 chip_smoke.py --phases data_parallel``;
-13d. ablation: the digest of the student both arms start from, held to
+13d. published_batch: the paper's five training configs (PUBLISHED: the
+     nuScenes, SemanticKITTI and Waymo teachers, stage 2 and its variant
+     B), each built by ``train/builder.make_model`` at its own width,
+     classes, points, capacities and cameras on synthetic scans, with
+     ``remat`` (``models/blocks.Remat``). At B=1: three steps without remat
+     and three with from one copy of the weights and one generator seed,
+     the remat step held to the other by the whole-step rule (loss,
+     updates, BN statistics; three one-ulp-nudged steps), a planted remat
+     fault of each kind (the generator not rewound, BN updated twice)
+     missing it by FAULT_MARGIN, every launch of the first remat step held
+     to its plain version. At the config's published batch (3, 3, 3, 4,
+     3): four remat steps, the first and the largest launch of each
+     kernel held to its plain version in the first two; three steps
+     without remat where they fit (an out-of-memory of that run alone is
+     recorded) and the rule again; per config and mode the warm device ms
+     and peak memory (the last two steps), the valid voxels and longest
+     window per level and the launches. Run
+     alone with ``python3 chip_smoke.py --phases published_batch``;
+13e. ablation: the digest of the student both arms start from, held to
      STUDENT_INIT_SHA256; the distillation-efficacy ablation
      (``u2mkd_tpu_torch/distill_ablation.py``) on a fresh
      ``tools/make_nusc_mini.py`` set, with the protocol and the five
@@ -175,7 +193,10 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      training run printed, the three views of each scan differ; wall s,
      requests, K1 and K3 launches per request, peak memory.
 
-Every phase but 13b runs in f32. Then the command's wall time, a
+Phases 14, 16 and 17 run their entry points in subprocesses, in turn, on
+a set of their own, in a thread beside phase 13e (the ablation, whose work
+is subprocesses too); phase 15 runs after both, alone, since it times its
+loop. Every phase but 13b runs in f32. Then the command's wall time, a
 ``{"kernels": [...]}`` line (an f32 entry per kernel and a bf16 entry for
 each but K2), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -183,12 +204,14 @@ failure raises and exits non-zero without that line. Long outputs (the compiler'
 the profiler's table) go to ``chiprun_out/``.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -474,6 +497,21 @@ DP_WARM_STEPS = 2
 DP_RANK_TIMEOUT_S = 420
 DP_CLI = ("u2mkd_tpu_torch.train_spformer", "configs/nuscenes/mini/spformer_mini.yaml")
 DP_CLI_TIMEOUT_S = 300
+# phase published_batch: the paper's training configs at their published
+# batch (stage 1 on nuScenes, SemanticKITTI and Waymo; stage 2 and its
+# variant B), their own points, capacities, classes and cameras, synthetic
+# scans; f32, dropout and drop path at the configs' rates, the configs'
+# optimizers at LR
+PUBLISHED = (("configs/nuscenes/train/spformer.yaml", 3),
+             ("configs/semantickitti/train/spformer.yaml", 3),
+             ("configs/waymo/train/spformer.yaml", 3),
+             ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", 4),
+             ("configs/nuscenes/train/spformer_tsd_full_ours_star_B.yaml", 3))
+PUBLISHED_SEED = 81
+PUBLISHED_MODEL_SEED = 5
+PUBLISHED_GEN_SEED = 9
+PUBLISHED_STEPS = 3
+REMAT_FAULTS = ("generator", "bn_twice")
 HBM_BYTES_S = 3.35e12
 # max |kernel - plain| <= TOL * max|plain|: f32 sums in another order (K1
 # over 27*Cin terms, K3 over a window's keys); bf16 K1 also rounds its
@@ -504,14 +542,16 @@ DEVICE = "cuda"
 
 
 _T0 = time.perf_counter()
+_EMIT_LOCK = threading.Lock()
 
 
 def emit(obj):
-    """One JSON line; a row of a phase also gets its seconds since the
-    script started (``t_s``)."""
+    """One JSON line, whole even when two threads emit; a row of a phase
+    also gets its seconds since the script started (``t_s``)."""
     if "phase" in obj:
         obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        print(json.dumps(obj), flush=True)
 
 
 def gpu_line():
@@ -2740,6 +2780,14 @@ def phase_cli():
         shutil.rmtree(CLI_DIR, ignore_errors=True)
 
 
+def phase_entry_points(root, weights):
+    """Phases cli, data_cli (on the set at ``root``, the teacher and ResNet
+    files of ``weights``) and evaluate, in turn -> :func:`phase_evaluate`'s
+    launches."""
+    phase_cli()
+    return phase_evaluate(root, phase_data_cli(root, weights))
+
+
 CLI_RUNNER = """
 import json, runpy, sys
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel, wattn_kernel
@@ -4331,6 +4379,383 @@ def phase_data_parallel():
             "dp_student_train": ranks[0]["student"]["launches"]}
 
 
+@contextlib.contextmanager
+def planted_remat_fault(fault):
+    """Inside, the remat helper (``models/blocks.Remat``) fails in one way:
+    ``generator``, a segment's recompute draws from the generator where the
+    forward left it (no rewind, no restore); ``bn_twice``, the recompute
+    updates the BN running statistics a second time."""
+    from u2mkd_tpu_torch.models import blocks
+
+    saved = blocks._rewound, blocks.recomputing
+    if fault == "generator":
+        blocks._rewound = lambda generator, state: contextlib.nullcontext()
+    elif fault == "bn_twice":
+        blocks.recomputing = lambda: False
+    else:
+        raise ValueError(f"no such remat fault: {fault}")
+    try:
+        yield
+    finally:
+        blocks._rewound, blocks.recomputing = saved
+
+
+@contextlib.contextmanager
+def launches_held(picks, record):
+    """Inside, call i of each of the six counted wrappers (counting from 0
+    per wrapper) also runs its plain version where i is in ``picks[name]``,
+    its largest error relative to the plain output's largest entry going
+    to ``record[name]["max_rel_err"]`` and its size to
+    ``record[name]["held"]``; every call's size (its first input's
+    elements) goes to ``record[name]["sizes"]``."""
+    saved = []
+    calls = {}
+    for name, (mod, plain) in _plain_of_launch().items():
+        kernel = getattr(mod, name)
+
+        def held(*args, _kernel=kernel, _plain=plain, _name=name):
+            import torch
+
+            i = calls[_name] = calls.get(_name, -1) + 1
+            outs = _kernel(*args)
+            row = record.setdefault(_name, {"sizes": [], "held": []})
+            row["sizes"].append(args[0].numel())
+            if i in picks.get(_name, ()):
+                refs = _plain(*args)
+                pair = (outs, refs) if not torch.is_tensor(outs) else ((outs,), (refs,))
+                row["max_rel_err"] = max(row.get("max_rel_err", 0.0), _errors(*pair)[1])
+                row["held"].append(args[0].numel())
+            return outs
+
+        # the wrapper counts its launches on the function its module's name
+        # holds: carry the count there and back
+        held.launches = kernel.launches
+        saved.append((mod, name, kernel))
+        setattr(mod, name, held)
+    try:
+        yield record
+    finally:
+        for mod, name, kernel in saved:
+            kernel.launches = getattr(mod, name).launches
+            setattr(mod, name, kernel)
+
+
+def published_model(path):
+    """The model of the training config ``path`` (``train/builder.make_model``
+    from PUBLISHED_MODEL_SEED, dropout and drop path at the config's rates)
+    and what its steps need -> a dict."""
+    from u2mkd_tpu_torch.train import builder
+    from u2mkd_tpu_torch.utils import config
+
+    cfg = config.load(path)
+    model = builder.make_model(cfg, DEVICE, PUBLISHED_MODEL_SEED)
+    stage2 = hasattr(model, "model_s")
+    spec = {"path": path, "cfg": cfg, "model": model, "stage2": stage2,
+            "optimizer": cfg.optimizer.name, "batch": cfg.batch_size, "points": cfg.dataset.num_points,
+            "caps": tuple(cfg.capacities), "voxel": cfg.dataset.voxel_size,
+            "classes": cfg.data.num_classes,
+            "start": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+    if stage2:
+        drop, im_cr = cfg.dataset.im_drop, cfg.dataset.im_cr
+        spec.update(student_points=cfg.dataset.num_points_student,
+                    student_caps=tuple(cfg.student_capacities),
+                    caps=tuple(cfg.get_path("teacher_capacities") or cfg.capacities),
+                    cams=NUM_CAMS - drop, im_hw=(int(900 * im_cr), int(1600 * im_cr)),
+                    w_kl=cfg.criterion.get("w_kl", 1.0), w_feat=cfg.criterion.get("w_feat", 1.0))
+    return spec
+
+
+def published_batch_of(spec, b, seed):
+    """A synthetic batch of ``b`` scans at the config's points, voxel size,
+    capacities (and cameras), its host plumbing with the model's window
+    geometry, uploaded once -> (batch, per part its valid voxels and each
+    branch's longest window per level, host ms)."""
+    from u2mkd_tpu_torch.data import loaders, plumbing_host, synthetic, wgeom_host
+
+    rng = np.random.RandomState(seed)
+    model = spec["model"]
+    t0 = time.perf_counter()
+    if spec["stage2"]:
+        raw = synthetic.make_multimodal_batch(rng, b, spec["student_points"], spec["points"],
+                                              voxel_size=spec["voxel"], num_cams=spec["cams"],
+                                              im_hw=spec["im_hw"])
+        parts = (("student", raw["student"], spec["student_caps"], model.model_s),
+                 ("teacher", raw["teacher"], spec["caps"], model.model_t))
+    else:
+        raw = synthetic.make_batch(rng, b, spec["points"], voxel_size=spec["voxel"])
+        parts = (("teacher", raw, spec["caps"], model),)
+    stats = {}
+    for part, part_raw, caps, sub in parts:
+        arrays = part_raw["plumbing"] = plumbing_host.batch_plumbing(
+            part_raw["pcoords"], part_raw["xyz"], part_raw["pmask"], caps,
+            wgeom_params=wgeom_host.params_from_model(sub))
+        stats[part] = {"valid_points": int(part_raw["pmask"].sum()),
+                       "valid_voxels": [int(n.sum()) for n in arrays["nums"]],
+                       "longest_window": {br: [int(g["occ"].max()) for g in arrays["wgeom"][br]]
+                                          for br in ("cubic", "sphere")}}
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return loaders.to_device(raw, DEVICE), stats, host_ms
+
+
+def published_run(spec, batch, remat, steps, nudge=None, fault=None, held=None):
+    """``steps`` train steps of ``spec``'s model (:func:`published_model`)
+    from its start weights (nudged by one f32 ulp from seed ``nudge``), its
+    optimizer at LR, the generator from PUBLISHED_GEN_SEED;
+    ``fault`` a :func:`planted_remat_fault` in the first step; ``held(i)``
+    a context for step i -> {"loss", "device_ms", "launches" and "peak"
+    (``max_memory_allocated`` over the step) per step, and the first
+    step's "delta" (each trained parameter's update) and "buffers" (the BN
+    running statistics after it), on the host}."""
+    import torch
+    from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
+    from u2mkd_tpu_torch.train import distill, optim, state
+
+    model = spec["model"]
+    model.load_state_dict(spec["start"])
+    if nudge is not None:
+        _nudge(model, nudge)
+    gen = torch.Generator(device=DEVICE).manual_seed(PUBLISHED_GEN_SEED)
+    name = spec["optimizer"]
+    if spec["stage2"]:
+        opt, _ = distill.make_frozen_teacher_optimizer(model, name, LR)
+        step = distill.make_distill_train_step(model, opt, spec["student_caps"], spec["caps"],
+                                               w_kl=spec["w_kl"], w_feat=spec["w_feat"],
+                                               generator=gen, remat=remat)
+    else:
+        opt, _ = optim.make_optimizer(model.named_parameters(), name, LR)
+        step = state.make_train_step(model, opt, spec["caps"], generator=gen, remat=remat)
+    trained = list((model.model_s if spec["stage2"] else model).named_parameters())
+    p0 = {n: p.detach().clone() for n, p in trained}
+    counters = (S.rulebook_conv, S.rulebook_conv_dx, S.rulebook_conv_dw,
+                W.flash_rpe_fwd, W.flash_rpe_bwd_q, W.flash_rpe_bwd_k)
+    out = {"loss": [], "device_ms": [], "launches": [], "peak": []}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = [c.launches for c in counters]
+        with (held(i) if held is not None else contextlib.nullcontext()), \
+                (planted_remat_fault(fault) if fault and i == 0 else contextlib.nullcontext()):
+            aux, device_ms, _ = _timed(step, batch)
+        out["loss"].append(aux["loss"].item())
+        out["device_ms"].append(device_ms)
+        out["launches"].append({c.__name__: c.launches - b for c, b in zip(counters, before)})
+        torch.cuda.synchronize()
+        out["peak"].append(torch.cuda.max_memory_allocated())
+        if i == 0:
+            out["delta"] = {n: (p.detach() - p0[n]).cpu() for n, p in trained}
+            out["buffers"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                              if "running_" in k}
+        del aux
+    opt.zero_grad(set_to_none=True)
+    del step, opt, p0, trained
+    return out
+
+
+def remat_rule(ref, got, nudged, faults=None):
+    """The standing whole-step rule between two first steps, ``got`` (with
+    remat) against ``ref`` (without): the loss (relative), each trained
+    parameter's update (:func:`_grad_diff`) and each BN running statistic
+    (:func:`_bn_diff`), each within GRAD_SPREADS times the median of the
+    ``nudged`` steps' distances (at least GRAD_LOSS_RTOL, GRAD_RTOL,
+    DP_BN_RTOL) -> row with each distance, tolerance and the worst ratio to
+    its tolerance, and each of ``faults``'s (tag -> run) ratio."""
+    def dists(r):
+        return (abs(r["loss"][0] - ref["loss"][0]) / abs(ref["loss"][0]),
+                _grad_diff(r["delta"], ref["delta"]), _bn_diff(r["buffers"], ref["buffers"]))
+
+    spread = [dists(r) for r in nudged]
+    tols = (max(GRAD_LOSS_RTOL, GRAD_SPREADS * float(np.median([s[0] for s in spread]))),
+            max(GRAD_RTOL, GRAD_SPREADS * float(np.median([s[1][0] for s in spread]))),
+            max(DP_BN_RTOL, GRAD_SPREADS * float(np.median([s[2][0] for s in spread]))))
+
+    def ratio(r):
+        d = dists(r)
+        return max(d[0] / tols[0], d[1][0] / tols[1], d[2][0] / tols[2]), d
+
+    worst, d = ratio(got)
+    row = {"loss_rel_diff": d[0], "loss_tol_rel": tols[0], "max_update_rel_diff": d[1][0],
+           "worst_param": d[1][1], "update_tol_rel": tols[1], "bn_stat_rel_err": d[2][0],
+           "bn_stat": d[2][1], "bn_tol_rel": tols[2], "worst_over_tol": worst,
+           "ulp_nudge_loss_rel_diffs": [s[0] for s in spread],
+           "ulp_nudge_update_rel_diffs": [s[1][0] for s in spread],
+           "ulp_nudge_bn_stat_rel_errs": [s[2][0] for s in spread]}
+    for tag, run in (faults or {}).items():
+        m, fd = ratio(run)
+        row[f"planted_{tag}_margin"] = m
+        row[f"planted_{tag}_worst"] = {"loss": fd[0], "update": fd[1][0], "param": fd[1][1],
+                                       "bn": fd[2][0], "stat": fd[2][1]}
+    return row
+
+
+def _oom_asked(message):
+    """The bytes an out-of-memory error says it tried to allocate."""
+    import re
+
+    m = re.search(r"Tried to allocate ([0-9.]+) (B|KiB|MiB|GiB|TiB)", message)
+    if m is None:
+        return None
+    scale = {"B": 0, "KiB": 1, "MiB": 2, "GiB": 3, "TiB": 4}[m.group(2)]
+    return int(float(m.group(1)) * 1024 ** scale)
+
+
+def _published_launch_check(kind, runs):
+    """Across the modes of one config: K1 as dX, K1b, K4 and K5 launch as
+    often with remat as without, K1 and K3 at least as often, each of the
+    six at least once with remat."""
+    ref = runs.get("no_remat")
+    for steps in [runs["remat"]] + ([ref] if ref else []):
+        for launches in steps["launches"]:
+            if launches != steps["launches"][0]:
+                raise AssertionError(f"{kind}: the launches change from step to step: "
+                                     f"{steps['launches']}")
+    got = runs["remat"]["launches"][0]
+    if min(got.values()) < 1:
+        raise AssertionError(f"{kind}: a kernel of the remat step never launched: {got}")
+    if ref:
+        want = ref["launches"][0]
+        for name in got:
+            same = name not in ("rulebook_conv", "flash_rpe_fwd")
+            if (got[name] != want[name]) if same else (got[name] < want[name]):
+                raise AssertionError(f"{kind}: remat launches {got}, without {want}")
+
+
+def phase_published_batch():
+    """The paper's training configs (PUBLISHED) with remat: for each, part
+    1 at B=1 (three steps without remat and three with, from one copy of
+    the weights and one generator seed; the remat step held to the step
+    without by :func:`remat_rule` over PUBLISHED_NUDGES one-ulp-nudged steps,
+    each of REMAT_FAULTS missing it by FAULT_MARGIN; every launch of the
+    first remat step held to its plain version), then part 2 at the
+    config's published batch (four remat steps: the first and the largest
+    launch of each kernel held to its plain version in the first two, the
+    last two the warm ones; three without remat,
+    where they fit, and the rule again; an out-of-memory of that run alone
+    is recorded). -> the launches of the published-batch remat steps
+    {"published"}."""
+    import torch
+
+    launches = {}
+    failures = []
+    for path, batch_size in PUBLISHED:
+        spec = published_model(path)
+        kind = os.path.basename(os.path.dirname(os.path.dirname(path))) + "/" + \
+            os.path.splitext(os.path.basename(path))[0]
+        if spec["batch"] != batch_size:
+            raise AssertionError(f"{path}: batch {spec['batch']}, expected {batch_size}")
+        common = {"config": path, "gpu": gpu_line(), "classes": spec["classes"],
+                  "points": spec["points"], "capacities": list(spec["caps"])}
+        if spec["stage2"]:
+            common.update(student_points=spec["student_points"],
+                          student_capacities=list(spec["student_caps"]), cams=spec["cams"],
+                          im_hw=list(spec["im_hw"]), cr=spec["cfg"].model.cr,
+                          cr_t=spec["cfg"].model.cr_t)
+        # part 1: B=1
+        batch, stats, host_ms = published_batch_of(spec, 1, PUBLISHED_SEED)
+        per_launch = {}
+        runs = {"no_remat": published_run(spec, batch, False, PUBLISHED_STEPS),
+                "remat": published_run(spec, batch, True, PUBLISHED_STEPS,
+                                       held=lambda i: (each_launch_held_to_plain(per_launch)
+                                                       if i == 0 else contextlib.nullcontext()))}
+        nudged = [published_run(spec, batch, False, 1, nudge=s) for s in NUDGE_SEEDS]
+        faults = {f: published_run(spec, batch, True, 1, fault=f) for f in REMAT_FAULTS}
+        rule = remat_rule(runs["no_remat"], runs["remat"], nudged, faults)
+        for name, row in per_launch.items():
+            row["tol_rel"] = TOL[(name, "f32")]
+        row = {"phase": "published_batch", "part": "b1", "kind": kind, "batch": 1, **common,
+               "host_ms": host_ms, **stats,
+               **{f"{mode}_{k}": r[k] for mode, r in runs.items()
+                  for k in ("loss", "device_ms", "peak")},
+               # the remat run's first step holds every launch to its plain
+               # version: its warm steps are the last two, as the other's
+               **{f"{mode}_warm_peak": max(r["peak"][-2:]) for mode, r in runs.items()},
+               "launches_per_step": {m: r["launches"][0] for m, r in runs.items()},
+               **rule, "per_launch": per_launch}
+        emit(row)
+        del batch
+        try:
+            _published_launch_check(kind, runs)
+            bad = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
+            if bad or not all(math.isfinite(x) for r in runs.values() for x in r["loss"]):
+                raise AssertionError(f"{kind} B=1: a launch disagrees with its plain version "
+                                     f"or a loss is not finite: {bad}")
+            if not rule["worst_over_tol"] <= 1.0:
+                raise AssertionError(f"{kind} B=1: the remat step differs from the step "
+                                     f"without remat beyond the whole-step rule: {rule}")
+            for f in REMAT_FAULTS:
+                if not rule[f"planted_{f}_margin"] >= FAULT_MARGIN:
+                    raise AssertionError(f"{kind} B=1: the planted {f} fault passes the "
+                                         f"whole-step rule, which so checks nothing: {rule}")
+        except AssertionError as e:
+            failures.append(e)
+        del runs, nudged, faults
+        torch.cuda.empty_cache()
+
+        # part 2: the published batch
+        batch, stats, host_ms = published_batch_of(spec, batch_size, PUBLISHED_SEED)
+        record, picks = {}, {}
+
+        def held(i):
+            # step 0 holds each kernel's first launch; step 1 its largest
+            if i == 0:
+                return launches_held({n: {0} for n in _plain_of_launch()}, record)
+            if i == 1:
+                picks.update({n: {int(np.argmax(r["sizes"]))} for n, r in record.items()})
+                for r in record.values():
+                    r["sizes"] = []
+                return launches_held(picks, record)
+            return contextlib.nullcontext()
+
+        # two held steps, then the warm ones
+        runs = {"remat": published_run(spec, batch, True, PUBLISHED_STEPS + 1, held=held)}
+        for name, r in record.items():
+            r["tol_rel"] = TOL[(name, "f32")]
+            r["largest_call"] = int(next(iter(picks[name])))
+            r.pop("sizes")
+        row = {"phase": "published_batch", "part": "published", "kind": kind,
+               "batch": batch_size, **common, "host_ms": host_ms, **stats,
+               "remat_loss": runs["remat"]["loss"],
+               "remat_warm_device_ms": runs["remat"]["device_ms"][-2:],
+               "remat_device_ms": runs["remat"]["device_ms"],
+               "remat_peak": runs["remat"]["peak"],
+               "remat_warm_peak": max(runs["remat"]["peak"][-2:]), "held_launches": record}
+        for step_launches in runs["remat"]["launches"]:
+            for k, v in step_launches.items():
+                launches[k] = launches.get(k, 0) + v
+        try:
+            runs["no_remat"] = published_run(spec, batch, False, PUBLISHED_STEPS)
+        except torch.cuda.OutOfMemoryError as e:
+            row.update({"no_remat": "out_of_memory", "no_remat_bytes_asked": _oom_asked(str(e)),
+                        "no_remat_error": str(e).splitlines()[0][:300]})
+        torch.cuda.empty_cache()
+        if "no_remat" in runs:
+            nudged = [published_run(spec, batch, False, 1, nudge=s) for s in NUDGE_SEEDS]
+            r = runs["no_remat"]
+            row.update({"no_remat_loss": r["loss"], "no_remat_warm_device_ms": r["device_ms"][-2:],
+                        "no_remat_device_ms": r["device_ms"], "no_remat_peak": r["peak"],
+                        "no_remat_warm_peak": max(r["peak"][-2:]),
+                        **remat_rule(r, runs["remat"], nudged)})
+            del nudged
+        row["launches_per_step"] = {m: r["launches"][0] for m, r in runs.items()}
+        emit(row)
+        try:
+            _published_launch_check(kind, runs)
+            bad = {n: r for n, r in record.items()
+                   if not r.get("max_rel_err", math.inf) <= r["tol_rel"] or len(r["held"]) != 2}
+            if bad or not all(math.isfinite(x) for r in runs.values() for x in r["loss"]):
+                raise AssertionError(f"{kind} B={batch_size}: a held launch disagrees with its "
+                                     f"plain version or a loss is not finite: {bad}")
+            if "no_remat" in runs and not row["worst_over_tol"] <= 1.0:
+                raise AssertionError(f"{kind} B={batch_size}: the remat step differs from the "
+                                     f"step without remat beyond the whole-step rule: {row}")
+        except AssertionError as e:
+            failures.append(e)
+        del batch, runs, spec
+        torch.cuda.empty_cache()
+    if failures:
+        raise failures[0]
+    return {"published": launches}
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
@@ -4349,7 +4774,8 @@ def kernels_line(rows, launches):
     "device_banded", three train steps "device_train" and stage-2 step
     "device_student_train", each on plumbing built on the card, and rank
     0's data-parallel teacher step "dp_train" and stage-2 step
-    "dp_student_train"; K1 counts
+    "dp_student_train", and the remat steps of phase published_batch at
+    the configs' published batch "published"; K1 counts
     its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32. Then a bf16 entry for each kernel but K2:
@@ -4366,8 +4792,9 @@ def kernels_line(rows, launches):
                          "conv_only", "conv_only_train", "evaluate_teacher",
                          "evaluate_student", "unet", "unet_train", "device_infer",
                          "device_banded", "device_train", "device_student_train", "dp_train",
-                         "dp_student_train"),
+                         "dp_student_train", "published"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
+                   published_dx=launches["published"]["rulebook_conv_dx"],
                    dp_train_dx=launches["dp_train"]["rulebook_conv_dx"],
                    dp_student_train_dx=launches["dp_student_train"]["rulebook_conv_dx"],
                    device_train_dx=launches["device_train"]["rulebook_conv_dx"],
@@ -4380,19 +4807,19 @@ def kernels_line(rows, launches):
                    unet_train_dx=launches["unet_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
                      "data_student_train", "conv_only_train", "unet_train", "device_train",
-                     "device_student_train", "dp_train", "dp_student_train"),
+                     "device_student_train", "dp_train", "dp_student_train", "published"),
         "K2": paths("flash_window_sorted", "entry", "window_msa"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
                     "student_train", "data_train", "data_student_train", "import",
                     "conv_only", "evaluate_teacher", "evaluate_student", "unet",
                     "unet_train", "device_infer", "device_banded", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train", "published"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train", "published"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train"),
+                    "device_student_train", "dp_train", "dp_student_train", "published"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -4459,7 +4886,8 @@ def main():
     if sys.argv[1:2] == ["--phases"]:
         # a check of single phases, which prints no result line
         for name in sys.argv[2].split(","):
-            {"data_parallel": phase_data_parallel, "ablation": phase_ablation}[name]()
+            {"data_parallel": phase_data_parallel, "ablation": phase_ablation,
+             "published_batch": phase_published_batch}[name]()
         print(gpu_line(), flush=True)
         return 0
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
@@ -4481,6 +4909,7 @@ def main():
 
     weights_dir = tempfile.mkdtemp(prefix="reference_weights_")
     root = tempfile.mkdtemp(prefix="nusc_files_")
+    entry_root = tempfile.mkdtemp(prefix="nusc_files_entry_")
     try:
         student = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T,
                             voxel_size=STUDENT_VOXEL, head_dim=16, seed=0, device=DEVICE)
@@ -4492,16 +4921,23 @@ def main():
         phase_student_grad_check()
         launches.update(phase_bf16())
         launches.update(phase_data_parallel())
-        phase_ablation()
-        phase_cli()
+        launches.update(phase_published_batch())
         stats, gen_s = make_data_set(root)
         emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})
-        launches["data_student_train"], launches["data_train"] = phase_data(root)
-        evaluated = phase_evaluate(root, phase_data_cli(root, weights))
+        make_data_set(entry_root)
+        # the ablation and the entry points' phases run their work in
+        # subprocesses and check what no neighbour on the card changes: they
+        # run side by side (their wall seconds include each other); phase
+        # data, which times its loop, runs after both
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            entry = pool.submit(phase_entry_points, entry_root, weights)
+            phase_ablation()
+            evaluated = entry.result()
         launches["evaluate_teacher"] = evaluated["stage1"]
         launches["evaluate_student"] = evaluated["stage2"]
+        launches["data_student_train"], launches["data_train"] = phase_data(root)
     finally:
-        for d in (root, weights_dir, CLI_DIR):
+        for d in (root, entry_root, weights_dir, CLI_DIR):
             shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "command", "wall_s": time.perf_counter() - t_start})
     kernels_line(rows, launches)

@@ -3,7 +3,9 @@ stage 1 (``python -m u2mkd_tpu_torch.train_spformer``) on the tiny synthetic
 teacher config at cr=0.5, then stage 2
 (``python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full``) on the tiny TSD config
 with ``model.teacher_pretrain=`` stage 1's checkpoint, whose teacher is that
-cr_t=0.5 model. One epoch of 4 steps each (``data.training_size=8``, as
+cr_t=0.5 model, and again with ``train.remat=true`` (also with
+``train.split_step=true``), which must print the same loss and mIoU. One
+epoch of 4 steps each (``data.training_size=8``, as
 ``tests/test_cli_smoke.py``). The processes run without the JAX package on
 their path.
 """
@@ -20,10 +22,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_cli(args):
+def run_cli(args, threads=2):
     # two threads each: the tier-1 run shares the machine's cores among
     # several workers
-    env = dict(os.environ, PYTHONPATH="", OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH="", OMP_NUM_THREADS=str(threads))
     res = subprocess.run([sys.executable, "-m"] + args, cwd=REPO, env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                          timeout=900)
@@ -59,17 +61,29 @@ def test_teacher_cli(stage1):
     assert os.path.getsize(os.path.join(run_dir, "metrics.jsonl")) > 0
 
 
-def test_student_cli_restores_teacher(stage1, tmp_path):
-    """Stage 2 restores stage 1's model as its frozen teacher, bitwise, and
-    keeps it so through training; it validates both heads and keeps the
-    best checkpoint on the voxel head."""
-    s1_dir, _ = stage1
-    s1_ckpt = os.path.join(s1_dir, "checkpoints", "latest.pt")
-    run_dir = str(tmp_path / "stage2")
+def _stage2(stage1, run_dir, *opts):
+    """Stage 2 on one thread: with two, the image branch's backward sums in
+    an order that varies from run to run, and the remat cases compare runs
+    bitwise."""
+    s1_ckpt = os.path.join(stage1[0], "checkpoints", "latest.pt")
     out = run_cli(["u2mkd_tpu_torch.train_lc_nusc_tsd_full",
                    "configs/synthetic/train/tsd_tiny.yaml", "--run-dir", run_dir, "--cpu",
                    "num_epochs=1", "data.training_size=8",
-                   f"model.teacher_pretrain={s1_ckpt}"])
+                   f"model.teacher_pretrain={s1_ckpt}", *opts], threads=1)
+    return s1_ckpt, out
+
+
+@pytest.fixture(scope="module")
+def stage2(stage1, tmp_path_factory):
+    run_dir = str(tmp_path_factory.mktemp("stage2"))
+    return (run_dir, *_stage2(stage1, run_dir))
+
+
+def test_student_cli_restores_teacher(stage2):
+    """Stage 2 restores stage 1's model as its frozen teacher, bitwise, and
+    keeps it so through training; it validates both heads and keeps the
+    best checkpoint on the voxel head."""
+    run_dir, s1_ckpt, out = stage2
     assert f"loaded frozen teacher from {s1_ckpt}" in out
     assert "[val] counts_vox:" in out and "[val] counts_pix:" in out
     loss, _ = _epoch_line(out)
@@ -84,3 +98,13 @@ def test_student_cli_restores_teacher(stage1, tmp_path):
     for k, v in teacher.items():
         assert torch.equal(restored[k], v), k
     assert tsd["step"] == 4
+
+
+@pytest.mark.parametrize("opts", [("train.remat=true",),
+                                  ("train.remat=true", "train.split_step=true")],
+                         ids=["remat", "remat_split_step"])
+def test_student_cli_remat_prints_the_same_losses(stage1, stage2, tmp_path, opts):
+    """``train.remat=true`` (with the fused step, and with the split one)
+    prints the epoch's loss and mIoU of the run without it."""
+    _, out = _stage2(stage1, str(tmp_path / "stage2"), *opts)
+    assert _epoch_line(out) == _epoch_line(stage2[2])

@@ -1160,3 +1160,54 @@ def test_nccl_world_one_step_equals_single_device_step(cuda_device, tmp_path):
     tol = max(1e-2, 4.0 * float(np.median(spreads)))
     worst, name = _card_update_diff(got[0]["state"], ref, start)
     assert worst <= tol, (name, worst, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["teacher", "student"])
+def test_remat_step_on_card_within_the_whole_step_rule(cuda_device, part):
+    """A small teacher step and a small stage-2 step (the sizes of the train
+    step tests above; dropout and drop path at 0.3 from one generator seed)
+    with ``remat=True`` against ``remat=False`` on the card, by the
+    whole-step rule (``chip_smoke.remat_rule``: the loss, every update and
+    BN statistic within 4x the median of three one-ulp-nudged steps); each
+    planted remat fault (``chip_smoke.planted_remat_fault``) misses it by
+    2x. The remat step launches K1 and K3 again in its recomputes and dX,
+    K1b, K4 and K5 as often as the step without."""
+    if part == "teacher":
+        caps = (2048, 1024, 512, 256, 128)
+        model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.2, head_dim=16, seed=3,
+                              device=cuda_device)
+        raw = synthetic.make_batch(np.random.RandomState(4), 1, 4096, voxel_size=0.2)
+        raw["plumbing"] = plumbing_host.batch_plumbing(
+            raw["pcoords"], raw["xyz"], raw["pmask"], caps,
+            wgeom_params=wgeom_host.params_from_model(model))
+        spec = {"model": model, "stage2": False, "optimizer": "sgd_spformer", "caps": caps}
+    else:
+        s_caps = (4096, 2048, 1024, 512, 256)
+        caps = (8192, 4096, 2048, 1024, 512)
+        model = tsd_model(num_classes=17, cr=1.0, cr_t=2.0, voxel_size=0.05, seed=3,
+                          device=cuda_device)
+        raw = synthetic.make_multimodal_batch(np.random.RandomState(4), 1, 4096, 8192,
+                                              voxel_size=0.05, num_cams=2, im_hw=(72, 128))
+        for key, c, sub in (("student", s_caps, model.model_s), ("teacher", caps, model.model_t)):
+            b = raw[key]
+            b["plumbing"] = plumbing_host.batch_plumbing(
+                b["pcoords"], b["xyz"], b["pmask"], c,
+                wgeom_params=wgeom_host.params_from_model(sub))
+        spec = {"model": model, "stage2": True, "optimizer": "sgd_spformer", "caps": caps,
+                "student_caps": s_caps, "w_kl": 1.0, "w_feat": 1.0}
+    spec["start"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ref = chip_smoke.published_run(spec, raw, False, 1)
+    got = chip_smoke.published_run(spec, raw, True, 1)
+    nudged = [chip_smoke.published_run(spec, raw, False, 1, nudge=s) for s in (7, 8, 9)]
+    faults = {f: chip_smoke.published_run(spec, raw, True, 1, fault=f)
+              for f in chip_smoke.REMAT_FAULTS}
+    row = chip_smoke.remat_rule(ref, got, nudged, faults)
+    assert row["worst_over_tol"] <= 1.0, row
+    for f in chip_smoke.REMAT_FAULTS:
+        assert row[f"planted_{f}_margin"] >= 2.0, row
+    with_remat, without = got["launches"][0], ref["launches"][0]
+    for name in ("rulebook_conv_dx", "rulebook_conv_dw", "flash_rpe_bwd_q", "flash_rpe_bwd_k"):
+        assert with_remat[name] == without[name], (with_remat, without)
+    assert with_remat["rulebook_conv"] == without["rulebook_conv"] + 34
+    assert with_remat["flash_rpe_fwd"] == without["flash_rpe_fwd"] + 8

@@ -119,6 +119,29 @@ def task_distill(args, rank, group):
     return out
 
 
+def task_remat(args, rank, group):
+    """The stage-2 data-parallel train step on this rank's scan from the
+    given weights, with dropout and drop path drawn from a generator of the
+    rank's seed, once with ``remat=False`` and once with ``remat=True``."""
+    from u2mkd_tpu_torch.models.tsd import TSDFull
+    from u2mkd_tpu_torch.parallel import mesh
+    from u2mkd_tpu_torch.train import distill
+
+    out = {}
+    for remat in (False, True):
+        model = TSDFull(process_group=group, **args["model"])
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in args["state"].items()})
+        opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", args["lr"])
+        gen = torch.Generator().manual_seed(args["seed"] + rank)
+        step = mesh.data_parallel_step(distill.make_distill_train_step(
+            model, opt, tuple(args["s_caps"]), tuple(args["t_caps"]), generator=gen,
+            process_group=group, remat=remat), model, group)
+        aux = step(args["batches"][rank])
+        out[remat] = {"aux": {k: float(v) for k, v in aux.items()}, "state": _state(model),
+                      "generator": _np(gen.get_state())}
+    return out
+
+
 def task_card_teacher(args, rank, group):
     """On the card: the flagship teacher's (``teacher_model``, K1-K5)
     data-parallel train step on this rank's scan from the given weights."""
@@ -138,7 +161,7 @@ def task_card_teacher(args, rank, group):
 
 
 TASKS = {"bn": task_bn, "teacher": task_teacher, "distill": task_distill,
-         "card_teacher": task_card_teacher}
+         "remat": task_remat, "card_teacher": task_card_teacher}
 
 
 def free_port():

@@ -16,14 +16,23 @@ autograd, on any device (the reference a card run is held against).
 The random draws of training (:class:`DropPath`, :class:`Dropout`) take an
 explicit ``torch.Generator`` on the features' device, handed in by the
 caller (the train step); they never draw from the global generator.
+
+:class:`Remat` runs a model's segments under ``torch.utils.checkpoint``
+(the JAX steps' ``remat``): the backward recomputes each segment's forward
+instead of keeping its activations, and the recompute draws the masks the
+forward drew and leaves the BN running statistics as the forward left
+them (:func:`recomputing`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from u2mkd_tpu_torch.core.structures import LevelContext
@@ -52,13 +61,111 @@ def trunc_normal_(t: torch.Tensor, std: float, a: float, b: float, generator) ->
         return t.clamp_(min=a, max=b)
 
 
+class _Segment:
+    """One run of a :class:`Remat` segment: its first run records what
+    :func:`reused` computes, the recompute replays it in call order."""
+
+    def __init__(self, memo: List, replay: bool):
+        self.memo, self.replay, self.next = memo, replay, 0
+
+
+_SEGMENT: contextvars.ContextVar = contextvars.ContextVar("remat_segment", default=None)
+
+
+def recomputing() -> bool:
+    """True inside the backward's recompute of a :class:`Remat` segment.
+    The BN layers then leave their running statistics as the forward left
+    them: updated once a step, as flax's mutable ``batch_stats`` are."""
+    seg = _SEGMENT.get()
+    return seg is not None and seg.replay
+
+
+def reused(fn: Callable, *args):
+    """``fn(*args)``. Inside a :class:`Remat` segment it is computed in the
+    segment's first run and handed back as it was in the recompute (a
+    window sort, which the recompute must see unchanged and not redo)."""
+    seg = _SEGMENT.get()
+    if seg is None:
+        return fn(*args)
+    if seg.replay:
+        seg.next += 1
+        return seg.memo[seg.next - 1]
+    out = fn(*args)
+    seg.memo.append(out)
+    return out
+
+
+@contextlib.contextmanager
+def _rewound(generator: Optional[torch.Generator], state: Optional[torch.Tensor]):
+    """``generator`` at ``state`` inside; after, at the state it had on
+    entry."""
+    if generator is None:
+        yield
+        return
+    after = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(after)
+
+
+@contextlib.contextmanager
+def _in_segment(seg: _Segment):
+    token = _SEGMENT.set(seg)
+    try:
+        yield
+    finally:
+        _SEGMENT.reset(token)
+
+
+class Remat:
+    """The segments of one forward. ``run = Remat(enabled, generator)``;
+    ``run(fn, *args)`` is ``fn(*args)``, and with ``enabled`` and
+    gradients on, a segment under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward runs ``fn`` again to recompute the activations it saved,
+    and keeps only the segment's inputs from the forward. In the recompute
+    ``generator`` (the one the segment's dropout and drop path draw from)
+    is set back to its state at the segment's start and afterwards put back
+    where it was, so that the recompute draws the forward's masks and later
+    draws are those of a step without remat; :func:`recomputing` is true,
+    so that the BN layers do not update their running statistics again;
+    and :func:`reused` hands back what the first run computed."""
+
+    def __init__(self, enabled: bool = False, generator: Optional[torch.Generator] = None):
+        self.enabled, self.generator = enabled, generator
+
+    def __call__(self, fn: Callable, *args):
+        if not (self.enabled and torch.is_grad_enabled()):
+            return fn(*args)
+        gen = self.generator
+        start = None if gen is None else gen.get_state()
+        memo: List = []
+        runs: List[bool] = []
+
+        def segment(*a):
+            if not runs:
+                runs.append(True)
+                with _in_segment(_Segment(memo, False)):
+                    return fn(*a)
+            with _rewound(gen, start), _in_segment(_Segment(memo, True)):
+                return fn(*a)
+
+        # the segment draws only from ``generator``: torch's global ones
+        # need no stash
+        return torch.utils.checkpoint.checkpoint(segment, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of [B, V, C]: momentum 0.1, eps 1e-5,
     biased batch variance to normalize, unbiased for the running estimate.
     Masked rows come out zero. With a ``process_group`` the count and both
     moments are summed over its ranks before the count is clamped (JAX's
     ``axis_name``): the statistics of the global batch, whose gradient
-    reaches every rank (``parallel/mesh.all_reduce_sum``)."""
+    reaches every rank (``parallel/mesh.all_reduce_sum``). In a
+    :class:`Remat` segment's recompute the sums run again (on every rank,
+    in the forward's order) and the running statistics stay as they are."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
                  process_group=None):
@@ -79,10 +186,11 @@ class MaskedBatchNorm(nn.Module):
             cnt = cnt.clamp(min=1.0)
             mean = s1 / cnt
             var = (s2 / cnt - mean * mean).clamp(min=0.0)
-            with torch.no_grad():
-                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            if not recomputing():
+                with torch.no_grad():
+                    unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

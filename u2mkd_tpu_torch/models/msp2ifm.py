@@ -30,9 +30,9 @@ import torch
 from torch import nn
 
 from u2mkd_tpu_torch.models import blocks, fusion
-from u2mkd_tpu_torch.models import plumbing as P
 from u2mkd_tpu_torch.models.plumbing import UNetPlumbing, point_to_voxel, voxel_to_point
 from u2mkd_tpu_torch.models.sphereformer import SphereAttention, SphereFormerBlock
+from u2mkd_tpu_torch.models.spvcnn import decoder_stage, encoder_stage, stem
 from u2mkd_tpu_torch.models.swiftnet import (BNReluConv, SwiftNetResNet,
                                              resize_bilinear_align_corners)
 from u2mkd_tpu_torch.ops import losses
@@ -138,7 +138,7 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
                 images: Optional[torch.Tensor], pix_coords: Optional[torch.Tensor],
                 cam_masks: Optional[torch.Tensor], fov_mask: Optional[torch.Tensor],
                 lidar_only: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict:
+                generator: Optional[torch.Generator] = None, remat: bool = False) -> Dict:
         """pfeats [B, P, Cin]; images [B, NCAM, H, W, 3] (the JAX package's
         NHWC); pix_coords [B, NCAM, P, 2] in [-1, 1]; cam_masks [B, NCAM, P];
         fov_mask [B, P]; the last four None with ``lidar_only``. The plumbing
@@ -147,87 +147,60 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
         windows on. Returns {"x_vox" [B, P, classes]} and, on the
         camera path, "x_pix" [B, P, classes] (zero outside every field of
         view), "mse_loss" (one per stage) and "pts_feats" (the adapted
-        stage-4 features, with ``adapt_out_ch``)."""
+        stage-4 features, with ``adapt_out_ch``). ``remat`` runs as
+        checkpointed segments (``blocks.Remat``), when gradients are on: the
+        LiDAR stem, encoder and decoder stages and point MLPs (as SPVCNN's),
+        the image stem, each ResNet layer, the SPP, each stage's L2C and C2L
+        fusion, each upsample block and the pixel head."""
+        run = blocks.Remat(remat, generator)
         lv = plumbing.levels
         pmask = plumbing.pmask
         caps = [l.grid.capacity for l in lv]
         pb = self.pix_branch
 
         x0 = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, caps[0])
-        x0 = self.stem1(self.stem0(x0, lv[0]), lv[0])
+        x0 = run(stem, self, x0, lv[0])
         z0 = voxel_to_point(x0, plumbing.devox_idx[0], plumbing.devox_w[0])
         if not lidar_only:
             b, ncam, ih, iw, _ = images.shape
-            x_im = pb.forward_stem(images.reshape(b * ncam, ih, iw, 3).permute(0, 3, 1, 2))
+            x_im = run(pb.forward_stem, images.reshape(b * ncam, ih, iw, 3).permute(0, 3, 1, 2))
 
         vox_feats = [point_to_voxel(z0, plumbing.p2v[0], caps[0])]
         img_skips, mse_losses = [], []
         kd_feats = None
         pts_feat = None
         for idx in range(4):
-            f = getattr(self, f"down{idx}_conv")(
-                vox_feats[idx], lv[idx], down_nbr8=lv[idx + 1].down_nbr8,
-                out_mask=lv[idx + 1].grid.mask)
-            f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
-            f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
-            if not lidar_only:
-                f = getattr(self, f"sphereformer{idx + 1}")(
-                    f, P.level_xyz(plumbing, idx + 1), lv[idx + 1].grid.mask,
-                    P.level_geom(plumbing, idx + 1), generator)
+            f = run(encoder_stage, self, idx, vox_feats[idx], plumbing, generator, not lidar_only)
             pts_feat = voxel_to_point(f, plumbing.devox_idx[idx + 1],
                                       plumbing.devox_w[idx + 1])
             if idx == 3 and self.adapt_out_ch is not None:
                 kd_feats = torch.relu(self.adapt_bn(self.adapt_fc(pts_feat), pmask))
 
-            learner = getattr(self, f"learner{idx}")
-            c2l = getattr(self, f"c2l{idx}")
             if lidar_only:
-                pts_feat = c2l(pts_feat, learner(pts_feat, pmask), pmask)
+                learner = getattr(self, f"learner{idx}")
+                pts_feat = getattr(self, f"c2l{idx}")(pts_feat, learner(pts_feat, pmask), pmask)
             else:
-                x_im, skip = pb.forward_resblock(x_im, idx)
+                x_im, skip = run(pb.forward_resblock, x_im, idx)
                 if idx == 3:
-                    skip = pb.forward_spp(skip)
-                size = tuple(skip.shape[-2:])
-                l2c_map = self._l2c_map(pts_feat, pix_coords, cam_masks, size, 4 - idx)
-                x_im, skip = getattr(self, f"l2c{idx}")(l2c_map, skip)
+                    skip = run(pb.forward_spp, skip)
+                x_im, skip = run(self._l2c, idx, pts_feat, skip, pix_coords, cam_masks)
                 img_skips.append(skip)
-
-                ifc = skip.shape[1]
-                imf = fusion.feature_fetch(skip.reshape(b, ncam, ifc, *size), pix_coords,
-                                           cam_masks)
-                pseudo = learner(pts_feat, pmask)
-                imf = torch.where(fov_mask[..., None], imf, pseudo)
-                mse_losses.append(losses.masked_mse(
-                    pseudo.reshape(-1, ifc), imf.detach().reshape(-1, ifc),
-                    (fov_mask & pmask).reshape(-1)))
-                pts_feat = c2l(pts_feat, imf, pmask)
+                pts_feat, mse = run(self._c2l, idx, pts_feat, skip, pix_coords, cam_masks,
+                                    fov_mask, pmask)
+                mse_losses.append(mse)
             vox_feats.append(point_to_voxel(pts_feat, plumbing.p2v[idx + 1], caps[idx + 1]))
 
         x1, x2, x3 = vox_feats[1:4]
         # the stage-4 fused point features (reference :511)
-        z1 = pts_feat + self.point_transform0(z0, pmask)
-
-        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]), generator)
-        y1 = self.up0_deconv(y1, lv[3].up_parent, lv[3].up_koff, lv[3].grid.mask)
-        y1 = torch.cat([y1, x3], dim=-1)
-        y1 = self.up0_res1(self.up0_res0(y1, lv[3]), lv[3])
-
-        y2 = self.up1_deconv(y1, lv[2].up_parent, lv[2].up_koff, lv[2].grid.mask)
-        y2 = torch.cat([y2, x2], dim=-1)
-        y2 = self.up1_res1(self.up1_res0(y2, lv[2]), lv[2])
+        z1 = pts_feat + run(self.point_transform0, z0, pmask)
+        y1 = run(decoder_stage, self, 0, z1, x3, plumbing, generator)
+        y2 = run(decoder_stage, self, 1, y1, x2, plumbing, generator)
         z2 = voxel_to_point(y2, plumbing.devox_idx[2], plumbing.devox_w[2])
-        z2 = z2 + self.point_transform1(z1, pmask)
-
-        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]), generator)
-        y3 = self.up2_deconv(y3, lv[1].up_parent, lv[1].up_koff, lv[1].grid.mask)
-        y3 = torch.cat([y3, x1], dim=-1)
-        y3 = self.up2_res1(self.up2_res0(y3, lv[1]), lv[1])
-
-        y4 = self.up3_deconv(y3, lv[0].up_parent, lv[0].up_koff, lv[0].grid.mask)
-        y4 = torch.cat([y4, x0], dim=-1)
-        y4 = self.up3_res1(self.up3_res0(y4, lv[0]), lv[0])
+        z2 = z2 + run(self.point_transform1, z1, pmask)
+        y3 = run(decoder_stage, self, 2, z2, x1, plumbing, generator)
+        y4 = run(decoder_stage, self, 3, y3, x0, plumbing, generator)
         z3 = voxel_to_point(y4, plumbing.devox_idx[0], plumbing.devox_w[0])
-        z3 = z3 + self.point_transform2(z2, pmask)
+        z3 = z3 + run(self.point_transform2, z2, pmask)
 
         out = {"x_vox": self.classifier_vox(z3)}
         if not lidar_only:
@@ -235,7 +208,41 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
             if kd_feats is not None:
                 out["pts_feats"] = kd_feats
             if self.run_pix_decoder:
-                fmap_pix = self.classifier_pix(pb.forward_up(img_skips, im_size=(ih, iw)))
-                out["x_pix"] = fusion.feature_fetch(
-                    fmap_pix.reshape(b, ncam, self.num_classes, ih, iw), pix_coords, cam_masks)
+                up = pb.forward_up(img_skips, run=run)
+                out["x_pix"] = run(self._pix_head, up, (ih, iw), pix_coords, cam_masks)
         return out
+
+    def _l2c(self, idx: int, pts_feat: torch.Tensor, skip: torch.Tensor,
+             pix_coords: torch.Tensor, cam_masks: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage ``idx``'s LiDAR -> camera fusion: the point features
+        scattered into the camera grids at 4 - idx scales, then
+        ``l2c{idx}`` -> (image features, the stage's skip)."""
+        size = tuple(skip.shape[-2:])
+        l2c_map = self._l2c_map(pts_feat, pix_coords, cam_masks, size, 4 - idx)
+        return getattr(self, f"l2c{idx}")(l2c_map, skip)
+
+    def _c2l(self, idx: int, pts_feat: torch.Tensor, skip: torch.Tensor,
+             pix_coords: torch.Tensor, cam_masks: torch.Tensor, fov_mask: torch.Tensor,
+             pmask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage ``idx``'s camera -> LiDAR fusion: the skip's features at the
+        point projections, the learner's pseudo-image features outside every
+        field of view, then ``c2l{idx}`` -> (fused point features, the
+        learner's MSE against the camera features)."""
+        b, ncam = pix_coords.shape[:2]
+        ifc, size = skip.shape[1], tuple(skip.shape[-2:])
+        imf = fusion.feature_fetch(skip.reshape(b, ncam, ifc, *size), pix_coords, cam_masks)
+        pseudo = getattr(self, f"learner{idx}")(pts_feat, pmask)
+        imf = torch.where(fov_mask[..., None], imf, pseudo)
+        mse = losses.masked_mse(pseudo.reshape(-1, ifc), imf.detach().reshape(-1, ifc),
+                                (fov_mask & pmask).reshape(-1))
+        return getattr(self, f"c2l{idx}")(pts_feat, imf, pmask), mse
+
+    def _pix_head(self, x: torch.Tensor, im_size: Tuple[int, int], pix_coords: torch.Tensor,
+                  cam_masks: torch.Tensor) -> torch.Tensor:
+        """The decoded image features resized to the image, the pixel
+        classifier, and its logits at the point projections."""
+        b, ncam = pix_coords.shape[:2]
+        fmap = self.classifier_pix(resize_bilinear_align_corners(x, im_size))
+        return fusion.feature_fetch(fmap.reshape(b, ncam, self.num_classes, *im_size),
+                                    pix_coords, cam_masks)

@@ -17,6 +17,13 @@ Each branch takes the JAX module's route:
     plain torch as JAX leaves it to XLA, which drops the pairs of a window
     further apart than ``band * tile`` sorted rows (``band_cubic`` and
     ``band_sphere`` tiles).
+
+Under remat (``blocks.Remat``) the block is part of its encoder stage's
+segment: the recompute runs K3 again over the same geometry (a window sort
+taken in the step is the forward's, ``blocks.reused``; the banded
+attention sorts again, stably, to the same order) and draws the forward's
+drop-path masks, and ``FlashRPE``'s backward (K4, K5) reads the
+recompute's output and lse.
 """
 
 from __future__ import annotations
@@ -27,10 +34,11 @@ import torch
 from torch import nn
 
 from u2mkd_tpu_torch.core.structures import WindowGeom
-from u2mkd_tpu_torch.models.blocks import DropPath, dense, trunc_normal_
+from u2mkd_tpu_torch.models.blocks import DropPath, dense, reused, trunc_normal_
 from u2mkd_tpu_torch.ops import wattn
 from u2mkd_tpu_torch.ops.kernels.wattn_kernel import (flash_pregeom_batched,
-                                                      sparse_window_attention_flash_batched)
+                                                      sparse_window_attention_flash_batched,
+                                                      window_sort_batched)
 
 
 def _table(shape, generator) -> nn.Parameter:
@@ -116,8 +124,10 @@ class SphereAttention(nn.Module):
         r = coords[..., 2] if sphere else None
         if flash:
             rpe = wattn.RPEParams(*tables, quant, g, r, self.a)
+            # a remat segment's recompute takes the forward's sort
+            sw = reused(window_sort_batched, coords, mask, ws)
             return sparse_window_attention_flash_batched(q, k, v, coords, mask, ws, rpe,
-                                                         plain=self.plain)
+                                                         plain=self.plain, sw=sw)
         band = self.band_sphere if sphere else self.band_cubic
         return torch.stack([
             wattn.sparse_window_attention(

@@ -195,9 +195,14 @@ class SphereFormerSemantic(nn.Module):
                 m.plain = plain
 
     def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, remat: bool = False):
         """In training, ``generator`` (on the model's device) draws the
-        drop-path masks."""
+        drop-path masks. ``remat`` raises: the recursive ``UBlock`` has no
+        segments (a level's checkpoint would hold the deeper levels), and
+        no builder or config trains this model."""
+        if remat:
+            raise NotImplementedError("SphereFormerSemantic has no remat segments: train it "
+                                      "with remat=False")
         lv0 = plumbing.levels[0]
         cap0 = lv0.grid.capacity
         x = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, cap0)

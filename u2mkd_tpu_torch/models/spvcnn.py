@@ -10,7 +10,11 @@ default is the SphereFormer teacher. ``pallas_attention`` and
 ``pallas_cubic`` route each attention branch as the flax module's do
 (``models/sphereformer.py``): kernel K3 over the host geometry or over
 windows sorted in the step, or the banded attention. The attribute names
-mirror the flax module names.
+mirror the flax module names. ``remat`` runs the stem, each encoder stage
+(with its SphereFormer block), each decoder stage and each point MLP as a
+checkpointed segment (``blocks.Remat``); :func:`stem`,
+:func:`encoder_stage` and :func:`decoder_stage` are shared with the
+student's LiDAR branch.
 """
 
 from __future__ import annotations
@@ -101,58 +105,38 @@ class SPVCNN(nn.Module):
                 m.plain = plain
 
     def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, remat: bool = False):
         """pfeats [B, P, Cin] -> {"x_vox": [B, P, num_classes]} (and
         "pts_feats", the stage-4 features at the points, when
         ``return_point_feats``). In training, ``generator`` (on the model's
-        device) draws the dropout and drop-path masks."""
+        device) draws the dropout and drop-path masks. ``remat`` runs the
+        stem, each encoder and decoder stage and each point MLP as a
+        checkpointed segment (``blocks.Remat``) when gradients are on."""
+        run = blocks.Remat(remat, generator)
         lv = plumbing.levels
         pmask = plumbing.pmask
         caps = [l.grid.capacity for l in lv]
 
         x0 = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, caps[0])
-        x0 = self.stem0(x0, lv[0])
-        x0 = self.stem1(x0, lv[0])
+        x0 = run(stem, self, x0, lv[0])
         z0 = voxel_to_point(x0, plumbing.devox_idx[0], plumbing.devox_w[0])
 
         vox_feats = [point_to_voxel(z0, plumbing.p2v[0], caps[0])]
         for idx in range(4):
-            f = getattr(self, f"down{idx}_conv")(
-                vox_feats[idx], lv[idx], down_nbr8=lv[idx + 1].down_nbr8,
-                out_mask=lv[idx + 1].grid.mask)
-            f = getattr(self, f"down{idx}_res0")(f, lv[idx + 1])
-            f = getattr(self, f"down{idx}_res1")(f, lv[idx + 1])
-            if self.sphereformer:
-                f = getattr(self, f"sphereformer{idx + 1}")(
-                    f, P.level_xyz(plumbing, idx + 1), lv[idx + 1].grid.mask,
-                    P.level_geom(plumbing, idx + 1), generator)
-            vox_feats.append(f)
+            vox_feats.append(run(encoder_stage, self, idx, vox_feats[idx], plumbing, generator,
+                                 self.sphereformer))
         x1, x2, x3, x4 = vox_feats[1:]
 
         x4_pts = voxel_to_point(x4, plumbing.devox_idx[4], plumbing.devox_w[4])
-        z1 = x4_pts + self.point_transform0(z0, pmask)
-
-        y1 = self.dropout(point_to_voxel(z1, plumbing.p2v[4], caps[4]), generator)
-        y1 = self.up0_deconv(y1, lv[3].up_parent, lv[3].up_koff, lv[3].grid.mask)
-        y1 = torch.cat([y1, x3], dim=-1)
-        y1 = self.up0_res1(self.up0_res0(y1, lv[3]), lv[3])
-
-        y2 = self.up1_deconv(y1, lv[2].up_parent, lv[2].up_koff, lv[2].grid.mask)
-        y2 = torch.cat([y2, x2], dim=-1)
-        y2 = self.up1_res1(self.up1_res0(y2, lv[2]), lv[2])
+        z1 = x4_pts + run(self.point_transform0, z0, pmask)
+        y1 = run(decoder_stage, self, 0, z1, x3, plumbing, generator)
+        y2 = run(decoder_stage, self, 1, y1, x2, plumbing, generator)
         z2 = voxel_to_point(y2, plumbing.devox_idx[2], plumbing.devox_w[2])
-        z2 = z2 + self.point_transform1(z1, pmask)
-
-        y3 = self.dropout(point_to_voxel(z2, plumbing.p2v[2], caps[2]), generator)
-        y3 = self.up2_deconv(y3, lv[1].up_parent, lv[1].up_koff, lv[1].grid.mask)
-        y3 = torch.cat([y3, x1], dim=-1)
-        y3 = self.up2_res1(self.up2_res0(y3, lv[1]), lv[1])
-
-        y4 = self.up3_deconv(y3, lv[0].up_parent, lv[0].up_koff, lv[0].grid.mask)
-        y4 = torch.cat([y4, x0], dim=-1)
-        y4 = self.up3_res1(self.up3_res0(y4, lv[0]), lv[0])
+        z2 = z2 + run(self.point_transform1, z1, pmask)
+        y3 = run(decoder_stage, self, 2, z2, x1, plumbing, generator)
+        y4 = run(decoder_stage, self, 3, y3, x0, plumbing, generator)
         z3 = voxel_to_point(y4, plumbing.devox_idx[0], plumbing.devox_w[0])
-        z3 = z3 + self.point_transform2(z2, pmask)
+        z3 = z3 + run(self.point_transform2, z2, pmask)
 
         out = {"x_vox": self.classifier_vox(z3)}
         if self.return_point_feats:
@@ -160,6 +144,45 @@ class SPVCNN(nn.Module):
             # takes as z1's base, exported for knowledge distillation
             out["pts_feats"] = x4_pts
         return out
+
+
+def stem(model: nn.Module, x: torch.Tensor, level) -> torch.Tensor:
+    """The two ks=3 conv blocks at level 0 (``stem0``, ``stem1``)."""
+    return model.stem1(model.stem0(x, level), level)
+
+
+def encoder_stage(model: nn.Module, idx: int, feats: torch.Tensor, plumbing: UNetPlumbing,
+                  generator: Optional[torch.Generator], attention: bool) -> torch.Tensor:
+    """Encoder stage ``idx`` of ``model`` (an SPVCNN or the student's LiDAR
+    branch, by their shared names): the ks2/s2 down conv from level idx to
+    idx + 1, two residual blocks and, with ``attention``, the SphereFormer
+    block (its drop path drawn from ``generator``)."""
+    lv = plumbing.levels
+    f = getattr(model, f"down{idx}_conv")(feats, lv[idx], down_nbr8=lv[idx + 1].down_nbr8,
+                                         out_mask=lv[idx + 1].grid.mask)
+    f = getattr(model, f"down{idx}_res0")(f, lv[idx + 1])
+    f = getattr(model, f"down{idx}_res1")(f, lv[idx + 1])
+    if attention:
+        f = getattr(model, f"sphereformer{idx + 1}")(
+            f, P.level_xyz(plumbing, idx + 1), lv[idx + 1].grid.mask,
+            P.level_geom(plumbing, idx + 1), generator)
+    return f
+
+
+def decoder_stage(model: nn.Module, i: int, y: torch.Tensor, skip: torch.Tensor,
+                  plumbing: UNetPlumbing, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Decoder stage ``i`` of ``model``, from level 4 - i to 3 - i: stages
+    0 and 2 take the point stream ``y``, pool it to the voxels of level
+    4 - i and drop (``generator``); then the transposed conv, the
+    concatenation of ``skip`` and two residual blocks."""
+    lv = plumbing.levels
+    if i % 2 == 0:
+        y = model.dropout(point_to_voxel(y, plumbing.p2v[4 - i], lv[4 - i].grid.capacity),
+                          generator)
+    out = lv[3 - i]
+    y = getattr(model, f"up{i}_deconv")(y, out.up_parent, out.up_koff, out.grid.mask)
+    y = torch.cat([y, skip], dim=-1)
+    return getattr(model, f"up{i}_res1")(getattr(model, f"up{i}_res0")(y, out), out)
 
 
 def teacher_model(num_classes: int = 17, cr: float = 1.0, voxel_size: float = 0.1,

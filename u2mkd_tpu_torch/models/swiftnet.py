@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from u2mkd_tpu_torch.models import blocks
 from u2mkd_tpu_torch.models.blocks import trunc_normal_
 from u2mkd_tpu_torch.ops.precision import cast_compute
 from u2mkd_tpu_torch.parallel import mesh
@@ -84,7 +85,9 @@ class BatchNorm2d(nn.Module):
     ``swiftnet.py:67-100``), in two passes as one process takes them: the
     count and the sum of x over the group give the mean, then the sum of
     squares about it over the group the variance (each sum
-    ``parallel/mesh.all_reduce_sum``, whose backward sums the cotangents)."""
+    ``parallel/mesh.all_reduce_sum``, whose backward sums the cotangents).
+    In a remat segment's recompute (``blocks.recomputing``) the running
+    statistics stay as the forward left them."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
                  process_group=None):
@@ -98,8 +101,13 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.process_group is None:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, self.training, self.momentum, self.eps)
+            mean, var = self.running_mean, self.running_var
+            if self.training and blocks.recomputing():
+                # the recompute's update lands on copies, through the kernel
+                # of the forward, so that it saves the same tensors
+                mean, var = mean.clone(), var.clone()
+            return F.batch_norm(x, mean, var, self.weight, self.bias, self.training,
+                                self.momentum, self.eps)
         xf = x.float()
         cnt = xf.new_tensor(float(x.numel() // x.shape[1]))
         cnt, s1 = mesh.all_reduce_sum((cnt, xf.sum((0, 2, 3))), self.process_group)
@@ -107,10 +115,11 @@ class BatchNorm2d(nn.Module):
         (m2,) = mesh.all_reduce_sum((((xf - mean[:, None, None]) ** 2).sum((0, 2, 3)),),
                                     self.process_group)
         var = m2 / cnt
-        with torch.no_grad():
-            unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        if not blocks.recomputing():
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
@@ -253,11 +262,15 @@ class SwiftNetResNet(nn.Module):
         return feats
 
     def forward_up(self, features: Sequence[torch.Tensor],
-                   im_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                   im_size: Optional[Tuple[int, int]] = None,
+                   run: Optional[blocks.Remat] = None) -> torch.Tensor:
+        """The decoder; ``run`` (a :class:`blocks.Remat`) runs each
+        upsample block as a segment."""
+        run = run or blocks.Remat()
         features = list(features)[::-1]
         x = features[0]
         for i, skip in enumerate(features[1:]):
-            x = getattr(self, f"up{i}")(x, skip)
+            x = run(getattr(self, f"up{i}"), x, skip)
         if im_size is not None:
             x = resize_bilinear_align_corners(x, im_size)
         return x

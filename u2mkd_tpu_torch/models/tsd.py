@@ -77,17 +77,19 @@ class TSDFull(nn.Module):
                 teacher_batch: Optional[Dict[str, torch.Tensor]] = None,
                 teacher_plumbing: Optional[UNetPlumbing] = None,
                 run_teacher: bool = True,
-                generator: Optional[torch.Generator] = None) -> Dict:
+                generator: Optional[torch.Generator] = None, remat: bool = False) -> Dict:
         """Batches hold device tensors: the student's ``feats``, ``images``,
         ``pix_coords``, ``cam_masks`` and ``fov_mask``; the teacher's
         ``feats``. In training mode the student's dropout and drop path draw
-        from ``generator`` (on the features' device). Returns {"stu": the
+        from ``generator`` (on the features' device). ``remat`` runs the
+        student's segments checkpointed (the frozen teacher, without
+        gradients, keeps nothing for a backward). Returns {"stu": the
         student's outputs} and, with ``run_teacher``, {"t": the teacher's
         outputs, detached}."""
         sb = student_batch
         out = {"stu": self.model_s(sb["feats"], student_plumbing, sb["images"],
                                    sb["pix_coords"], sb["cam_masks"], sb["fov_mask"],
-                                   generator=generator)}
+                                   generator=generator, remat=remat)}
         if run_teacher:
             out["t"] = self.frozen_teacher(teacher_batch, teacher_plumbing)
         return out

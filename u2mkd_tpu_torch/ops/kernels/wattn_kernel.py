@@ -484,33 +484,44 @@ def flash_pregeom_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return res.reshape(b, vcap, h, d)
 
 
-def sparse_window_attention_flash_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                          xyz: torch.Tensor, valid: torch.Tensor,
-                                          window_size: Sequence[float], rpe: wattn.RPEParams,
-                                          plain: bool = False) -> torch.Tensor:
-    """Window attention with contextual RPE over geometry taken in the step
-    (the JAX package's ``sparse_window_attention_flash_batched``): q/k/v
-    [B, V, h, d] (q pre-scaled), xyz [B, V, 3] the window coordinates,
-    valid [B, V], ``rpe`` with quant [B, V, 3] and r [B, V] or None ->
-    [B, V, h, d] in q's dtype, zero on invalid rows. Each sample's window
-    keys, tagged with its batch index above the key's 48 bits (the JAX
-    package adds it to the high half), sort the flattened batch in one
-    sequence (:func:`sort_window_keys`: a dead row is a window of its own);
-    the sorted, padded rows go through :class:`FlashRPE` (K3, and K4 and K5
-    in the backward) as the host geometry's do, or through the plain
-    version with ``plain``. The sort is named ``window_sort`` in a
+def window_sort_batched(xyz: torch.Tensor, valid: torch.Tensor,
+                        window_size: Sequence[float]) -> SortedWindows:
+    """The window sort of :func:`sparse_window_attention_flash_batched`:
+    each sample's window keys of xyz [B, V, 3], valid [B, V], tagged with
+    its batch index above the key's 48 bits (the JAX package adds it to the
+    high half), sorted in one sequence (:func:`sort_window_keys`: a dead
+    row is a window of its own). Named ``window_sort`` in a
     ``torch.profiler`` trace."""
-    b, vcap, h, d = q.shape
-    n = b * vcap
+    b = xyz.shape[0]
     if b >= 1 << 15:
         raise ValueError(f"the batch tag takes 15 bits of the window key; B={b}")
     with torch.profiler.record_function("window_sort"):
         keys = torch.stack([wattn.window_keys(xyz[i], valid[i], window_size)
                             for i in range(b)])
-        tag = torch.arange(b, device=q.device, dtype=torch.int64)[:, None] << 48
+        tag = torch.arange(b, device=xyz.device, dtype=torch.int64)[:, None] << 48
         keys = torch.where(valid & (keys != hashing.PACKED_INVALID), keys + tag,
                            hashing.PACKED_INVALID)
-        sw = sort_window_keys(keys.reshape(n))
+        return sort_window_keys(keys.reshape(-1))
+
+
+def sparse_window_attention_flash_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                          xyz: torch.Tensor, valid: torch.Tensor,
+                                          window_size: Sequence[float], rpe: wattn.RPEParams,
+                                          plain: bool = False,
+                                          sw: Optional[SortedWindows] = None) -> torch.Tensor:
+    """Window attention with contextual RPE over geometry taken in the step
+    (the JAX package's ``sparse_window_attention_flash_batched``): q/k/v
+    [B, V, h, d] (q pre-scaled), xyz [B, V, 3] the window coordinates,
+    valid [B, V], ``rpe`` with quant [B, V, 3] and r [B, V] or None ->
+    [B, V, h, d] in q's dtype, zero on invalid rows. The flattened batch
+    is sorted by window (``sw``, or :func:`window_sort_batched` of xyz,
+    valid and window_size when it is not given); the sorted, padded rows go
+    through :class:`FlashRPE` (K3, and K4 and K5 in the backward) as the
+    host geometry's do, or through the plain version with ``plain``."""
+    b, vcap, h, d = q.shape
+    n = b * vcap
+    if sw is None:
+        sw = window_sort_batched(xyz, valid, window_size)
     padn = sw.rank.shape[0] - n
 
     def sorted_padded(x):

@@ -17,8 +17,10 @@ With a ``process_group`` (data parallelism, ``parallel/mesh.py``) the train
 step averages the student's gradients and the loss terms over the ranks in
 one coalesced ``all_reduce`` and takes the max of the capacity counters (JAX
 ``distill.py:185-199``); the eval step sums ``counts_vox``, ``counts_pix``
-and ``counts_teacher``. The split step takes no group, as in JAX. The JAX
-steps' ``remat`` (a TPU memory workaround) has no counterpart.
+and ``counts_teacher``. The split step takes no group, as in JAX.
+``remat`` runs the student's segments checkpointed, as the teacher step
+does (``train/state.py``); the frozen teacher runs without gradients
+either way.
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
                             mse_norm_feat: bool = False,
                             scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                             generator: Optional[torch.Generator] = None,
-                            overflow_checks: bool = False, process_group=None) -> Callable:
+                            overflow_checks: bool = False, process_group=None,
+                            remat: bool = False) -> Callable:
     """Returns ``step_fn(batch) -> aux`` for ``batch = {"student",
     "teacher", "t2s"}`` as ``data/synthetic.make_multimodal_batch`` gives it
     (numpy arrays or device tensors; a part without a ``plumbing`` entry is
@@ -108,9 +111,11 @@ def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
     :func:`make_distill_split_steps`'s step: in torch the fused step and the
     split one are the same computation. With ``process_group`` the
     gradients and LOSS_TERMS are the ranks' means, the counters their max
-    (module docstring)."""
+    (module docstring). ``remat`` recomputes the student's segments in the
+    backward."""
     return _train_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat, ignore_label,
-                        mse_norm_feat, scheduler, generator, overflow_checks, process_group)
+                        mse_norm_feat, scheduler, generator, overflow_checks, process_group,
+                        remat)
 
 
 def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
@@ -119,7 +124,7 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
                              mse_norm_feat: bool = False,
                              scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                              generator: Optional[torch.Generator] = None,
-                             overflow_checks: bool = False) -> Callable:
+                             overflow_checks: bool = False, remat: bool = False) -> Callable:
     """The train step of :func:`make_distill_train_step` in two calls, as
     the JAX package's two programs: ``step.teacher_fn(batch)`` runs the
     frozen teacher and gathers its logits and stage-4 features to student
@@ -127,15 +132,15 @@ def make_distill_split_steps(model: TSDFull, optimizer: torch.optim.Optimizer,
     also the teacher plumbing's counters); ``step.student_fn(batch, t_out)``
     runs the student's forward, the loss, the backward and the update.
     ``step(batch)`` is the two in turn; no gradient crosses between
-    them."""
+    them. ``remat`` as :func:`make_distill_train_step`'s."""
     return _train_steps(model, optimizer, s_caps, t_caps, w_kl, w_feat, ignore_label,
-                        mse_norm_feat, scheduler, generator, overflow_checks, None)
+                        mse_norm_feat, scheduler, generator, overflow_checks, None, remat)
 
 
 def _train_steps(model: TSDFull, optimizer: torch.optim.Optimizer, s_caps: Sequence[int],
                  t_caps: Sequence[int], w_kl: float, w_feat: float, ignore_label: int,
                  mse_norm_feat: bool, scheduler, generator: Optional[torch.Generator],
-                 overflow_checks: bool, process_group) -> Callable:
+                 overflow_checks: bool, process_group, remat: bool) -> Callable:
     device, student_plumbing, tensor_of = batch_reader(model.model_s, s_caps)
     _, teacher_plumbing, _ = batch_reader(model.model_t, t_caps)
     if generator is None:
@@ -163,7 +168,7 @@ def _train_steps(model: TSDFull, optimizer: torch.optim.Optimizer, s_caps: Seque
         t2s_valid = pmask & (tensor_of(batch, "t2s", torch.int64) >= 0)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        stu = model(s_in, spl, run_teacher=False, generator=generator)["stu"]
+        stu = model(s_in, spl, run_teacher=False, generator=generator, remat=remat)["stu"]
         loss, aux = _distill_losses(stu, t_out["x_vox_t2s"], t_out["feat_t2s"], labels, fov,
                                     label_valid, t2s_valid, w_kl, w_feat, mse_norm_feat)
         loss.backward()

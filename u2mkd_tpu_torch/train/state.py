@@ -10,8 +10,11 @@ averaged over the ranks in one coalesced ``all_reduce``, as JAX's
 ``pmean`` (``state.py:127-145``), the capacity counters take their max, and
 the eval step's counters are summed.
 
-The JAX package's ``remat`` (a TPU memory workaround) has no counterpart
-here.
+``remat`` (JAX's ``jax.checkpoint`` around the forward) runs the model's
+segments under ``torch.utils.checkpoint`` (``models/blocks.Remat``): the
+same loss, gradients, update, BN running statistics and dropout masks, with
+fewer activations kept between the forward and the backward, for more
+device time.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     capacities: Sequence[int], ignore_label: int = 0,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     generator: Optional[torch.Generator] = None,
-                    overflow_checks: bool = False, process_group=None) -> Callable:
+                    overflow_checks: bool = False, process_group=None,
+                    remat: bool = False) -> Callable:
     """Returns ``step_fn(batch) -> {"loss"}``: Lovász + CE on the points
     that are valid, in a keyframe and not ``ignore_label``; the forward in
     train mode (batch-stat BN, whose running stats update in place as flax's
@@ -75,7 +79,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``overflow_checks`` adds the batch's capacity counters
     (``overflow.stats_for_model``), device tensors too. With
     ``process_group`` the loss and gradients are the ranks' means and the
-    counters their max (module docstring)."""
+    counters their max (module docstring). ``remat`` recomputes the
+    forward's segments in the backward (module docstring); a model without
+    segments raises."""
     device, plumbing_of, tensor_of = batch_reader(model, capacities)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -86,7 +92,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         valid = pl.pmask & tensor_of(batch, "keyframe_mask", torch.bool) & (labels != ignore_label)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        logits = model(tensor_of(batch, "feats", torch.float32), pl, generator)["x_vox"]
+        logits = model(tensor_of(batch, "feats", torch.float32), pl, generator,
+                       remat=remat)["x_vox"]
         loss = losses.lovasz_ce(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                                 valid.reshape(-1))
         loss.backward()
