@@ -193,10 +193,11 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      training run printed, the three views of each scan differ; wall s,
      requests, K1 and K3 launches per request, peak memory.
 
-Phases 14, 16 and 17 run their entry points in subprocesses, in turn, on
-a set of their own, in a thread beside phase 13e (the ablation, whose work
-is subprocesses too); phase 15 runs after both, alone, since it times its
-loop. Every phase but 13b runs in f32. Then the command's wall time, a
+Phases 14, 16 and 17 run their entry points in subprocesses, in turn, in
+a thread beside phase 13e (the ablation, whose work is subprocesses too),
+so that the command stays inside its time limit: their wall seconds and
+the ablation's include each other. Phase 15 runs after both, alone, on the
+same set, since it times its loop. Every phase but 13b runs in f32. Then the command's wall time, a
 ``{"kernels": [...]}`` line (an f32 entry per kernel and a bf16 entry for
 each but K2), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1328,33 +1329,43 @@ def _plain_of_launch():
 
 
 @contextlib.contextmanager
-def each_launch_recorded(record, hold=False):
+def each_launch_recorded(record, hold=False, picks=None):
     """Inside, every call of the six counted wrappers adds one to
     ``record[name]["calls"]`` and, where it launched its kernel (the
     wrapper's own count moved), one to ``record[name]["by_dtype"][dtype]``,
     the dtype of its first input. With ``hold``, each call also runs its
     plain version on the same arguments, and ``record[name]["max_rel_err"]``
     collects the largest error of any output relative to the plain output's
-    largest entry (:func:`_errors`)."""
+    largest entry (:func:`_errors`). ``picks`` ({name: call indices},
+    counting from 0 per wrapper inside this context) holds those calls
+    alone, and records each call's size (its first input's elements) in
+    ``record[name]["sizes"]`` and each held call's in ``["held"]``."""
     import torch
 
     saved = []
+    calls = {}
     for name, (mod, plain) in _plain_of_launch().items():
         kernel = getattr(mod, name)
 
         def recorded(*args, _kernel=kernel, _plain=plain, _name=name, _mod=mod):
             shim = getattr(_mod, _name)
             before = shim.launches
+            i = calls[_name] = calls.get(_name, -1) + 1
             outs = _kernel(*args)
             row = record.setdefault(_name, {"calls": 0, "by_dtype": {}})
             row["calls"] += 1
             if shim.launches != before:
                 dtype = str(args[0].dtype).replace("torch.", "")
                 row["by_dtype"][dtype] = row["by_dtype"].get(dtype, 0) + 1
-            if hold:
+            if picks is not None:
+                row.setdefault("sizes", []).append(args[0].numel())
+                row.setdefault("held", [])
+            if hold and (picks is None or i in picks.get(_name, ())):
                 refs = _plain(*args)
                 pair = (outs, refs) if not torch.is_tensor(outs) else ((outs,), (refs,))
                 row["max_rel_err"] = max(row.get("max_rel_err", 0.0), _errors(*pair)[1])
+                if picks is not None:
+                    row["held"].append(args[0].numel())
             return outs
 
         # the wrapper counts its launches on the function its module's name
@@ -4400,46 +4411,6 @@ def planted_remat_fault(fault):
         blocks._rewound, blocks.recomputing = saved
 
 
-@contextlib.contextmanager
-def launches_held(picks, record):
-    """Inside, call i of each of the six counted wrappers (counting from 0
-    per wrapper) also runs its plain version where i is in ``picks[name]``,
-    its largest error relative to the plain output's largest entry going
-    to ``record[name]["max_rel_err"]`` and its size to
-    ``record[name]["held"]``; every call's size (its first input's
-    elements) goes to ``record[name]["sizes"]``."""
-    saved = []
-    calls = {}
-    for name, (mod, plain) in _plain_of_launch().items():
-        kernel = getattr(mod, name)
-
-        def held(*args, _kernel=kernel, _plain=plain, _name=name):
-            import torch
-
-            i = calls[_name] = calls.get(_name, -1) + 1
-            outs = _kernel(*args)
-            row = record.setdefault(_name, {"sizes": [], "held": []})
-            row["sizes"].append(args[0].numel())
-            if i in picks.get(_name, ()):
-                refs = _plain(*args)
-                pair = (outs, refs) if not torch.is_tensor(outs) else ((outs,), (refs,))
-                row["max_rel_err"] = max(row.get("max_rel_err", 0.0), _errors(*pair)[1])
-                row["held"].append(args[0].numel())
-            return outs
-
-        # the wrapper counts its launches on the function its module's name
-        # holds: carry the count there and back
-        held.launches = kernel.launches
-        saved.append((mod, name, kernel))
-        setattr(mod, name, held)
-    try:
-        yield record
-    finally:
-        for mod, name, kernel in saved:
-            kernel.launches = getattr(mod, name).launches
-            setattr(mod, name, kernel)
-
-
 def published_model(path):
     """The model of the training config ``path`` (``train/builder.make_model``
     from PUBLISHED_MODEL_SEED, dropout and drop path at the config's rates)
@@ -4697,12 +4668,12 @@ def phase_published_batch():
         def held(i):
             # step 0 holds each kernel's first launch; step 1 its largest
             if i == 0:
-                return launches_held({n: {0} for n in _plain_of_launch()}, record)
+                return each_launch_recorded(record, True, {n: {0} for n in _plain_of_launch()})
             if i == 1:
                 picks.update({n: {int(np.argmax(r["sizes"]))} for n, r in record.items()})
                 for r in record.values():
                     r["sizes"] = []
-                return launches_held(picks, record)
+                return each_launch_recorded(record, True, picks)
             return contextlib.nullcontext()
 
         # two held steps, then the warm ones
@@ -4909,7 +4880,6 @@ def main():
 
     weights_dir = tempfile.mkdtemp(prefix="reference_weights_")
     root = tempfile.mkdtemp(prefix="nusc_files_")
-    entry_root = tempfile.mkdtemp(prefix="nusc_files_entry_")
     try:
         student = tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T,
                             voxel_size=STUDENT_VOXEL, head_dim=16, seed=0, device=DEVICE)
@@ -4924,20 +4894,20 @@ def main():
         launches.update(phase_published_batch())
         stats, gen_s = make_data_set(root)
         emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})
-        make_data_set(entry_root)
         # the ablation and the entry points' phases run their work in
         # subprocesses and check what no neighbour on the card changes: they
-        # run side by side (their wall seconds include each other); phase
-        # data, which times its loop, runs after both
+        # run side by side, so that the command stays inside its time limit,
+        # and their wall seconds include each other; phase data, which times
+        # its loop, runs after both, alone
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            entry = pool.submit(phase_entry_points, entry_root, weights)
+            entry = pool.submit(phase_entry_points, root, weights)
             phase_ablation()
             evaluated = entry.result()
         launches["evaluate_teacher"] = evaluated["stage1"]
         launches["evaluate_student"] = evaluated["stage2"]
         launches["data_student_train"], launches["data_train"] = phase_data(root)
     finally:
-        for d in (root, entry_root, weights_dir, CLI_DIR):
+        for d in (root, weights_dir, CLI_DIR):
             shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "command", "wall_s": time.perf_counter() - t_start})
     kernels_line(rows, launches)

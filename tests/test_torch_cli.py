@@ -3,9 +3,8 @@ stage 1 (``python -m u2mkd_tpu_torch.train_spformer``) on the tiny synthetic
 teacher config at cr=0.5, then stage 2
 (``python -m u2mkd_tpu_torch.train_lc_nusc_tsd_full``) on the tiny TSD config
 with ``model.teacher_pretrain=`` stage 1's checkpoint, whose teacher is that
-cr_t=0.5 model, and again with ``train.remat=true`` (also with
-``train.split_step=true``), which must print the same loss and mIoU. One
-epoch of 4 steps each (``data.training_size=8``, as
+cr_t=0.5 model, and again with ``train.remat=true``, which must print the
+same loss and mIoU. One epoch of 4 steps each (``data.training_size=8``, as
 ``tests/test_cli_smoke.py``). The processes run without the JAX package on
 their path.
 """
@@ -100,11 +99,8 @@ def test_student_cli_restores_teacher(stage2):
     assert tsd["step"] == 4
 
 
-@pytest.mark.parametrize("opts", [("train.remat=true",),
-                                  ("train.remat=true", "train.split_step=true")],
-                         ids=["remat", "remat_split_step"])
-def test_student_cli_remat_prints_the_same_losses(stage1, stage2, tmp_path, opts):
-    """``train.remat=true`` (with the fused step, and with the split one)
-    prints the epoch's loss and mIoU of the run without it."""
-    _, out = _stage2(stage1, str(tmp_path / "stage2"), *opts)
+def test_student_cli_remat_prints_the_same_losses(stage1, stage2, tmp_path):
+    """``train.remat=true`` prints the epoch's loss and mIoU of the run
+    without it."""
+    _, out = _stage2(stage1, str(tmp_path / "stage2"), "train.remat=true")
     assert _epoch_line(out) == _epoch_line(stage2[2])

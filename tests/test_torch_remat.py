@@ -17,7 +17,8 @@ dropout and drop path on:
 * the remat steps match the JAX package's ``make_train_step(...,
   remat=True)`` and ``make_distill_train_step(..., remat=True)`` (XLA
   paths) with the masks the port drew fed to JAX's draws, within the
-  tolerances of those files; the generator fault misses the stage-2 bound;
+  tolerances of those files; the generator fault misses the stage-2 bound
+  (the stage-2 case is ``slow``: its JAX step compiles for ~2 min);
 * a two-rank gloo data-parallel stage-2 step with remat equals the one
   without;
 * a model without segments (the SphereFormer U-Net) raises.
@@ -328,6 +329,7 @@ def _distill_grads(variables, pb, fault=None):
     return terms, {n: p.grad.numpy().copy() for n, p in port.model_s.named_parameters()}
 
 
+@pytest.mark.slow
 def test_distill_remat_step_matches_jax():
     """The port's stage-2 step with remat against JAX's
     ``make_distill_train_step(..., remat=True)`` on its XLA paths, the

@@ -18,10 +18,9 @@ logs both parts' capacity counters every ``log_every`` steps;
 saturates. ``train.remat`` (off by default) recomputes the student's
 forward segments in the backward (``models/blocks.Remat``): the same
 losses and updates in less device memory, for more device time.
-``train.split_step`` runs the step as two calls, the frozen teacher's and
-the student's (``distill.make_distill_split_steps``, single-process only,
-as in JAX): the same computation. Runs on the card unless ``--cpu`` is
-given. ``--multihost
+``train.split_step`` has no effect: in torch the split step is the fused
+step's computation. Runs on the card unless ``--cpu`` is given.
+``--multihost
 --coordinator --num-processes --process-id`` run one process of a
 data-parallel run, as the stage-1 CLI.
 
@@ -96,16 +95,12 @@ def main(argv=None):
     ignore = cfg.criterion.ignore_index
     ncls = cfg.data.num_classes
     debug_val = bool(cfg.get_path("debug.debug_val", False))
-    kw = dict(w_kl=cfg.criterion.get("w_kl", 1.0), w_feat=cfg.criterion.get("w_feat", 1.0),
-              ignore_label=ignore, mse_norm_feat=cfg.criterion.get("mse_norm_feat", False),
-              scheduler=scheduler, generator=generator,
-              overflow_checks=bool(cfg.get_path("train.overflow_checks", True)),
-              remat=bool(cfg.get_path("train.remat", False)))
-    if group is None and bool(cfg.get_path("train.split_step", False)):
-        step = distill.make_distill_split_steps(model, optimizer, s_caps, t_caps, **kw)
-    else:
-        step = distill.make_distill_train_step(model, optimizer, s_caps, t_caps,
-                                               process_group=group, **kw)
+    step = distill.make_distill_train_step(
+        model, optimizer, s_caps, t_caps, w_kl=cfg.criterion.get("w_kl", 1.0),
+        w_feat=cfg.criterion.get("w_feat", 1.0), ignore_label=ignore,
+        mse_norm_feat=cfg.criterion.get("mse_norm_feat", False), scheduler=scheduler,
+        generator=generator, overflow_checks=bool(cfg.get_path("train.overflow_checks", True)),
+        remat=bool(cfg.get_path("train.remat", False)), process_group=group)
     ev = distill.make_distill_eval_step(model, s_caps, t_caps, ncls, ignore,
                                         run_teacher=debug_val, process_group=group)
     step = mesh.data_parallel_step(step, model, group)
