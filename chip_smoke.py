@@ -441,7 +441,8 @@ EVAL_LAUNCHES = {"rulebook_conv": 34, "flash_rpe_fwd": 8}
 BF16_TEACHER = ("configs/nuscenes/train/spformer.yaml", (f"dataset.voxel_size={VOXEL}",))
 BF16_STUDENT = ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", ())
 BF16_LOGIT_RTOL = 0.1
-BF16_PATHS = ("bf16_infer", "bf16_train", "bf16_student", "bf16_student_train")
+BF16_PATHS = ("bf16_infer", "bf16_train", "bf16_student", "bf16_student_train", "bf16_unet",
+              "bf16_unet_train")
 # the image branch's convolutions in a profile, summed: device kernels whose
 # names carry one of these marks (cuDNN's implicit-GEMM, FFT and Winograd
 # convolutions and their helpers), the port's kernels and BN aside
@@ -480,6 +481,8 @@ BF16_PEAK = 989e12    # H100 SXM dense bf16 FLOP/s
 # to the card's single-process step on the batch of both scans; the training
 # CLI in two processes on a fresh tools/make_nusc_mini.py set
 DP_WORLD = 2
+# the parts each rank runs: the teacher, the stage-2 model and the U-Net
+DP_PARTS = ("teacher", "student", "unet")
 DP_TEACHER = ("configs/nuscenes/train/spformer.yaml", (f"dataset.voxel_size={VOXEL}",))
 DP_STUDENT = ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", ())
 DP_MODEL_SEED = 3
@@ -502,13 +505,18 @@ DP_CLI_TIMEOUT_S = 300
 # batch (stage 1 on nuScenes, SemanticKITTI and Waymo; stage 2 and its
 # variant B), their own points, capacities, classes and cameras, synthetic
 # scans; f32, dropout and drop path at the configs' rates, the configs'
-# optimizers at LR
+# optimizers at LR; and the SphereFormer U-Net (no config names it:
+# UNET_SPEC, unet_model's, at P) at B=3
+UNET_SPEC = "sphereformer_unet"
 PUBLISHED = (("configs/nuscenes/train/spformer.yaml", 3),
              ("configs/semantickitti/train/spformer.yaml", 3),
              ("configs/waymo/train/spformer.yaml", 3),
              ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", 4),
-             ("configs/nuscenes/train/spformer_tsd_full_ours_star_B.yaml", 3))
+             ("configs/nuscenes/train/spformer_tsd_full_ours_star_B.yaml", 3),
+             (UNET_SPEC, 3))
 PUBLISHED_SEED = 81
+# phase repeatable: the weights', the scans' and the generator's seed
+REPEATABLE_SEED = 91
 PUBLISHED_MODEL_SEED = 5
 PUBLISHED_GEN_SEED = 9
 PUBLISHED_STEPS = 3
@@ -2008,9 +2016,10 @@ def phase_conv_only():
     return requests, step
 
 
-def unet_model(seed, drop_path_rate=0.3):
+def unet_model(seed, drop_path_rate=0.3, process_group=None):
     """The SphereFormer U-Net at full width with random weights from
-    ``seed``, on the card (in train mode, as built)."""
+    ``seed``, on the card (in train mode, as built), its BN synced over
+    ``process_group``."""
     import torch
     from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
 
@@ -2020,7 +2029,7 @@ def unet_model(seed, drop_path_rate=0.3):
         quant_size=(ws / 24,) * 3, window_size_sphere=WINDOW_SPHERE,
         quant_size_sphere=(2.0 / 24, 2.0 / 24, 5.0), window_size_scale=(2.0, 2.0),
         head_dim=16, drop_path_rate=drop_path_rate, a=0.0125, block_type="residual",
-        generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+        generator=torch.Generator().manual_seed(seed), process_group=process_group).to(DEVICE)
 
 
 def _unet_train_setup(seed, generator_seed):
@@ -2743,20 +2752,22 @@ def phase_cli():
     ``model.teacher_pretrain=`` stage 1's checkpoint. Each must exit 0 with
     a finite loss and a validation mIoU, and write its checkpoints; stage
     2's teacher, after its training, must be stage 1's model bitwise. Their
-    outputs go to OUT_DIR, their run directories under CLI_DIR, which is
-    removed afterwards."""
+    outputs go to OUT_DIR, their run directories under CLI_DIR/synthetic
+    (its neighbours in the whole script write beside it), which is removed
+    afterwards."""
     import shutil
 
     import torch
 
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    base = os.path.join(CLI_DIR, "synthetic")
+    shutil.rmtree(base, ignore_errors=True)
     row = {"phase": "cli"}
     try:
-        stage1_ckpt = os.path.join(CLI_DIR, "stage1", "checkpoints", "latest.pt")
+        stage1_ckpt = os.path.join(base, "stage1", "checkpoints", "latest.pt")
         for tag, (module, cfg, *opts), extra in (
                 ("stage1", CLI_STAGE1, []),
                 ("stage2", CLI_STAGE2, [f"model.teacher_pretrain={stage1_ckpt}"])):
-            run_dir = os.path.join(CLI_DIR, tag)
+            run_dir = os.path.join(base, tag)
             cmd = [sys.executable, "-m", module, cfg, "--run-dir", run_dir, *opts, *extra]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2778,25 +2789,17 @@ def phase_cli():
                 raise AssertionError(f"the {tag} entry point failed: {row[tag]}; its output is "
                                      f"in {OUT_DIR}/cli_{tag}.txt")
         teacher = torch.load(stage1_ckpt, weights_only=True)["model"]
-        tsd = torch.load(os.path.join(CLI_DIR, "stage2", "checkpoints", "latest.pt"),
+        tsd = torch.load(os.path.join(base, "stage2", "checkpoints", "latest.pt"),
                          weights_only=True)["model"]
         row["teacher_restored_bitwise"] = sorted(teacher) == sorted(
             k[len("model_t."):] for k in tsd if k.startswith("model_t.")) and all(
             torch.equal(tsd["model_t." + k], v) for k, v in teacher.items())
-        row["stage1_banded"] = _cli_banded(os.path.join(CLI_DIR, "stage1_banded"))
+        row["stage1_banded"] = _cli_banded(os.path.join(base, "stage1_banded"))
         emit(row)
         if not row["teacher_restored_bitwise"]:
             raise AssertionError("stage 2's teacher is not stage 1's model")
     finally:
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
-
-
-def phase_entry_points(root, weights):
-    """Phases cli, data_cli (on the set at ``root``, the teacher and ResNet
-    files of ``weights``) and evaluate, in turn -> :func:`phase_evaluate`'s
-    launches."""
-    phase_cli()
-    return phase_evaluate(root, phase_data_cli(root, weights))
+        shutil.rmtree(base, ignore_errors=True)
 
 
 CLI_RUNNER = """
@@ -3462,8 +3465,9 @@ def phase_bf16():
     three student requests (6 cameras at 360x640, P=65536) and one
     profiled, with the image branch's convolutions by kernel; three stage-2
     train steps (3 cameras, the cr_t=2.0 teacher): five finite loss terms,
-    the teacher bitwise frozen, peak memory. The policy is f32 again after
-    the phase, however it ends. -> the bf16 launches of each path."""
+    the teacher bitwise frozen, peak memory; the U-Net's request and step
+    (:func:`_bf16_unet`). The policy is f32 again after the phase, however
+    it ends. -> the bf16 launches of each path."""
     import torch
     from u2mkd_tpu_torch.ops import precision
     from u2mkd_tpu_torch.train import distill, optim, state
@@ -3575,9 +3579,70 @@ def phase_bf16():
         if not frozen:
             raise AssertionError("the frozen teacher moved in a bf16 stage-2 step")
         del student, step_fn, opt, batches, teacher0
+        launches.update(_bf16_unet())
     finally:
         precision.set_compute_dtype("float32")
         torch.cuda.empty_cache()
+    return launches
+
+
+def _bf16_unet():
+    """The U-Net's part of phase bf16 (no builder name reaches the U-Net, so
+    the policy is set directly): three requests at P (UNET_LAUNCHES, all
+    bf16), every launch of one held to its plain version at the bf16 TOL,
+    the first request's logits against the f32 request of the same scan
+    and weights (BF16_LOGIT_RTOL, argmax agreement); three train steps
+    (UNET_TRAIN_LAUNCHES of bf16, finite losses, peak memory), every launch
+    of one more held to its plain version. -> its bf16 launches."""
+    import torch
+    from u2mkd_tpu_torch.ops import precision
+    from u2mkd_tpu_torch.train import state
+
+    launches = {}
+    precision.set_compute_dtype("float32")
+    model = unet_model(0).eval()
+    eval_fn = state.make_eval_step(model, CAPS, NUM_CLASSES)
+    batches = [(seed, *host_batch(seed, model)) for seed in SEEDS]
+    ref = eval_fn(batches[0][1])["logits"]
+    precision.set_compute_dtype("bfloat16")
+    torch.cuda.synchronize()
+
+    def logits_ok(out):
+        lg = out["logits"]
+        return {"finite": bool(torch.isfinite(lg).all()) and lg.dtype == torch.float32
+                and list(lg.shape) == [1, P, NUM_CLASSES]}
+
+    outs, rows, launches["bf16_unet"] = _bf16_runs("bf16_unet_request", eval_fn, batches,
+                                                   UNET_LAUNCHES, logits_ok)
+    _bf16_held("bf16_unet_request_per_launch", eval_fn, batches[0][1], UNET_LAUNCHES)
+    valid = torch.as_tensor(batches[0][1]["pmask"], device=DEVICE)
+    got, want = outs[0]["logits"][valid], ref[valid]
+    check = {"phase": "bf16_unet_request_vs_f32", "seed": batches[0][0],
+             "mean_abs_diff_over_mean_abs_f32": ((got - want).abs().mean()
+                                                 / want.abs().mean()).item(),
+             "tol": BF16_LOGIT_RTOL,
+             "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+             "max_logit_abs_diff": (got - want).abs().max().item(),
+             "max_abs_logit_f32": want.abs().max().item(),
+             "request_device_ms_warm": _warm(rows)}
+    emit(check)
+    if not check["mean_abs_diff_over_mean_abs_f32"] < BF16_LOGIT_RTOL:
+        raise AssertionError(f"the bf16 U-Net request is not close to the f32 one: {check}")
+    del model, eval_fn, outs, ref
+
+    model, step_fn, _ = _unet_train_setup(0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, rows, launches["bf16_unet_train"] = _bf16_runs(
+        "bf16_unet_train_step", step_fn, batches, UNET_TRAIN_LAUNCHES,
+        lambda out: {"loss": out["loss"].item(), "finite": math.isfinite(out["loss"].item())})
+    emit({"phase": "bf16_unet_train", "steps": len(rows),
+          "launches": launches["bf16_unet_train"],
+          "device_ms": [r["device_ms"] for r in rows], "step_device_ms_warm": _warm(rows),
+          "loss": [r["loss"] for r in rows],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    _bf16_held("bf16_unet_train_step_per_launch", step_fn, batches[0][1], UNET_TRAIN_LAUNCHES)
+    del model, step_fn, batches
     return launches
 
 
@@ -3629,14 +3694,17 @@ def untrained_student_held(root):
             for c in ABLATION["drop_classes"]}
 
 
-def phase_ablation():
-    """The distillation-efficacy ablation (``distill_ablation.run_ablation``,
-    ABLATION) on a fresh ``tools/make_nusc_mini.py`` set, in f32 and then in
-    bf16 from the f32 run's teacher checkpoint, each held to
-    ABLATION_BOUNDS, with its wall seconds, each student arm's validation by
-    epoch and its best epoch, and what the untrained student predicts
+def phase_ablation(card_free=None):
+    """The distillation-efficacy ablation (``distill_ablation``, ABLATION)
+    on a fresh ``tools/make_nusc_mini.py`` set: the f32 teacher, then the
+    arms in f32 and in bf16 from its checkpoint, side by side; each
+    precision held to ABLATION_BOUNDS, with the teacher's and its arms'
+    wall seconds, each student arm's validation by epoch and its best
+    epoch, and what the untrained student predicts
     (:func:`untrained_student_held`). First it asserts that the compute
-    policy is f32 again after phase ``bf16``."""
+    policy is f32 again after phase ``bf16``. ``card_free`` is called once
+    the phase's own work on the card is done (its runs are subprocesses,
+    whose launches count in no counter of this process)."""
     import shutil
     import tempfile
 
@@ -3662,17 +3730,32 @@ def phase_ablation():
         if digest != STUDENT_INIT_SHA256:
             raise AssertionError(f"the ablation's student starts from another init than "
                                  f"{STUDENT_INIT_SHA256}: {digest}")
-        results = {}
-        for prec in ("float32", "bfloat16"):
-            kw = {} if prec == "float32" else {
-                "teacher_ckpt": os.path.join(work, "float32", "teacher", "checkpoints",
-                                             "max-iou-val-vox.pt"),
-                "teacher_miou": results["float32"]["teacher_miou"]}
+        if card_free is not None:
+            card_free()
+        # the f32 teacher, then the arms of both precisions from it, all four
+        # side by side (each arm's steps repeat bitwise: no neighbour moves
+        # its result)
+        t0 = time.perf_counter()
+        ckpt, teacher_miou = distill_ablation.train_teacher(
+            os.path.join(work, "set"), os.path.join(work, "float32"),
+            ABLATION["teacher_epochs"])
+        teacher_s = time.perf_counter() - t0
+
+        def arms(prec):
             t0 = time.perf_counter()
             r = distill_ablation.run_ablation(root=os.path.join(work, "set"),
                                               workdir=os.path.join(work, prec),
-                                              precision=prec, **ABLATION, **kw)
-            wall_s = time.perf_counter() - t0
+                                              precision=prec, teacher_ckpt=ckpt,
+                                              teacher_miou=teacher_miou, **ABLATION)
+            if prec == "float32":  # this run's own teacher
+                r["config"]["teacher_epochs"] = ABLATION["teacher_epochs"]
+            return r, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = {prec: pool.submit(arms, prec) for prec in ("float32", "bfloat16")}
+            runs = {prec: f.result() for prec, f in runs.items()}
+        results, missed = {}, []
+        for prec, (r, arms_s) in runs.items():
             bounds = {name: bool(ok(r)) for name, ok in ABLATION_BOUNDS.items()}
             results[prec] = r
             # the runs' outputs go to OUT_DIR; each student arm's validation
@@ -3693,14 +3776,342 @@ def phase_ablation():
                                      for t, h in zip(tables, held)]
                     best_epoch[run] = 1 + max(range(len(tables)),
                                               key=lambda i: tables[i].get("Mean", 0.0))
-            emit({"phase": "ablation", "precision": prec, "wall_s": wall_s, "result": r,
-                  "bounds": bounds, "best_epoch": best_epoch,
+            emit({"phase": "ablation", "precision": prec, "teacher_s": teacher_s,
+                  "arms_s": arms_s, "result": r, "bounds": bounds, "best_epoch": best_epoch,
                   "mean_held_and_each_held_iou_by_epoch": by_epoch})
             if not all(bounds.values()):
-                raise AssertionError(f"the {prec} ablation misses a bound: {bounds}, {r}")
+                missed.append(f"{prec}: {bounds}, {r}")
+        if missed:
+            raise AssertionError("the ablation misses a bound: " + "; ".join(missed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
+
+
+# ---- phase ablation_bisect (run alone: ``--phases ablation_bisect``)
+
+# the scratch arm of the ablation (tsd_mini.yaml, its seed and init, the
+# held classes ignored, w_kl = w_feat = 0) for BISECT_EPOCHS epochs, each way
+# a process of its own: on the card with the kernels, the same with the
+# masks drawn from the card's own generator as the CLI draws them, with
+# TF32 off in cuDNN and matmuls, through the kernels' plain versions, and
+# on the CPU, once and from weights nudged by one ulp from three seeds (the
+# whole-step rule's spread); but for "card_cuda_masks", every way draws
+# its dropout and drop-path masks from one CPU generator of the CLI's seed,
+# so that the ways see one mask stream
+BISECT_EPOCHS = 4
+# the steps whose student gradients the ways compare (two epochs of three)
+BISECT_GRAD_STEPS = 6
+BISECT_WAYS = ("card", "card_cuda_masks", "card_tf32_off", "card_plain", "cpu",
+               "cpu_nudged_1", "cpu_nudged_2", "cpu_nudged_3")
+BISECT_TIMEOUT_S = 1500
+BISECT_RUNNER = """
+import json, os, runpy, sys
+import torch
+from u2mkd_tpu_torch.models import blocks
+from u2mkd_tpu_torch.train import builder, distill
+way, out_dir, seed, ignore = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+held, grad_steps = json.loads(sys.argv[5]), int(sys.argv[6])
+sys.argv = sys.argv[7:]
+nudge = int(way.rsplit("_", 1)[1]) if "nudged" in way else 0
+if way == "card_tf32_off":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+if way != "card_cuda_masks":
+    masks = torch.Generator().manual_seed(seed)
+    blocks._keep_mask = lambda shape, rate, x, generator: (
+        torch.rand(shape, generator=masks) < 1.0 - rate).to(x.device)
+make_model = builder.make_model
+
+def built(*a, **kw):
+    model = make_model(*a, **kw)
+    model.set_plain(way == "card_plain")
+    if nudge:
+        g = torch.Generator().manual_seed(nudge)
+        with torch.no_grad():
+            for p in model.model_s.parameters():
+                p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=g).to(p.device))
+    return model
+
+builder.make_model = built
+make_step, make_eval = distill.make_distill_train_step, distill.make_distill_eval_step
+losses, evals = [], []
+
+def recorded_step(model, *a, **kw):
+    step = make_step(model, *a, **kw)
+
+    def run(batch):
+        aux = step(batch)
+        if len(losses) < grad_steps:
+            torch.save({n: p.grad.detach().cpu() for n, p in model.model_s.named_parameters()
+                        if p.grad is not None}, os.path.join(out_dir, f"grads{len(losses)}.pt"))
+        losses.append(aux["loss"].item())
+        return aux
+    return run
+
+def recorded_eval(*a, **kw):
+    ev = make_eval(*a, **kw)
+
+    def run(batch):
+        out = ev(batch)
+        pred = out["pred_vox"].reshape(-1).cpu()
+        lab = torch.as_tensor(batch["student"]["labels"]).reshape(-1).cpu()
+        keep = lab != ignore
+        evals.append([int(keep.sum())] + [int((pred[keep] == c).sum()) for c in held])
+        return out
+    return run
+
+distill.make_distill_train_step, distill.make_distill_eval_step = recorded_step, recorded_eval
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    with open(os.path.join(out_dir, "record.json"), "w") as f:
+        json.dump({"losses": losses, "evals": evals}, f)
+"""
+
+
+def phase_ablation_bisect():
+    """Where the card's and the CPU's scratch arms part (BISECT_WAYS, one
+    process each, side by side): each way's loss by step, and by epoch
+    its share of the val points predicted as each held class (what
+    :func:`untrained_student_held` measures), its held classes' IoU and its
+    mIoU; then, step by step, each card way's student gradients against the
+    CPU's by the whole-step rule (within GRAD_SPREADS times the median of
+    the nudged CPU runs' distances from the CPU's, at least GRAD_RTOL) and
+    the first step each parts beyond it."""
+    import shutil
+    import tempfile
+
+    import torch
+    from u2mkd_tpu_torch import distill_ablation
+    from u2mkd_tpu_torch.utils import config as config_lib
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from make_nusc_mini import generate
+
+    module, cfg_path = distill_ablation.STAGE2
+    cfg = config_lib.load(cfg_path)
+    seed, ignore = cfg.train.seed % (2 ** 31), cfg.criterion.ignore_index
+    held = list(ABLATION["drop_classes"])
+    work = tempfile.mkdtemp(prefix="ablation_bisect_")
+    try:
+        root = os.path.join(work, "set")
+        generate(root)
+        opts = [f"dataset.root={root}", f"num_epochs={BISECT_EPOCHS}",
+                f"dataset.label_drop_p={ABLATION['drop']}",
+                "dataset.label_drop_classes=[" + ",".join(map(str, held)) + "]",
+                "criterion.w_kl=0.0", "criterion.w_feat=0.0", "precision=float32"]
+        procs, logs = {}, {}
+        t0 = time.perf_counter()
+        for way in BISECT_WAYS:
+            out_dir = os.path.join(work, way)
+            os.makedirs(out_dir)
+            grad_steps = 0 if way == "card_cuda_masks" else BISECT_GRAD_STEPS
+            cmd = [sys.executable, "-c", BISECT_RUNNER, way, out_dir, str(seed), str(ignore),
+                   json.dumps(held), str(grad_steps), module, cfg_path, "--run-dir",
+                   os.path.join(out_dir, "run"),
+                   *opts, *(["--cpu"] if way.startswith("cpu") else [])]
+            env = dict(os.environ, OMP_NUM_THREADS="2") if way.startswith("cpu") else None
+            logs[way] = open(os.path.join(OUT_DIR, f"ablation_bisect_{way}.txt"), "w")
+            procs[way] = subprocess.Popen(cmd, stdout=logs[way], stderr=subprocess.STDOUT,
+                                          env=env)
+        walls = {}
+        for way, proc in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, BISECT_TIMEOUT_S - (time.perf_counter() - t0)))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                logs[way].close()
+            walls[way] = time.perf_counter() - t0
+        records = {}
+        for way in BISECT_WAYS:
+            with open(os.path.join(OUT_DIR, f"ablation_bisect_{way}.txt")) as f:
+                text = f.read()
+            rec_path = os.path.join(work, way, "record.json")
+            rec = json.load(open(rec_path)) if os.path.isfile(rec_path) else {"losses": [],
+                                                                             "evals": []}
+            tables = distill_ablation._vox_tables(text)
+            per = max(1, len(rec["evals"]) // max(1, len(tables)))
+            shares = []
+            for e in range(len(rec["evals"]) // per):
+                tot = np.sum(rec["evals"][e * per:(e + 1) * per], axis=0)
+                shares.append({str(c): float(tot[i + 1]) / max(float(tot[0]), 1.0)
+                               for i, c in enumerate(held)})
+            records[way] = rec
+            emit({"phase": "ablation_bisect", "way": way, "rc": procs[way].returncode,
+                  "wall_s": walls[way], "steps": len(rec["losses"]), "loss_by_step":
+                  rec["losses"], "held_share_by_epoch": shares,
+                  "held_iou_by_epoch": [{str(c): t.get(f"c{c}", 0.0) for c in held}
+                                        for t in tables],
+                  "miou_by_epoch": [t.get("Mean") for t in tables]})
+        n = min([BISECT_GRAD_STEPS] + [len(r["losses"]) for r in records.values()])
+        nudged = [w for w in BISECT_WAYS if "nudged" in w]
+        per_step, first = [], {}
+
+        def grads(way, k):
+            return torch.load(os.path.join(work, way, f"grads{k}.pt"))
+
+        for k in range(n):
+            ref = grads("cpu", k)
+            spreads = [_grad_diff(grads(w, k), ref)[0] for w in nudged]
+            tol = max(GRAD_RTOL, GRAD_SPREADS * float(np.median(spreads)))
+            row = {"step": k + 1, "tol_rel": tol, "ulp_nudge_rel_diffs": spreads,
+                   "loss": {w: records[w]["losses"][k] for w in BISECT_WAYS}}
+            for way in (w for w in BISECT_WAYS if w.startswith("card") and w != "card_cuda_masks"):
+                d, name = _grad_diff(grads(way, k), ref)
+                row[way] = {"over_tol": d / tol, "worst_param": name}
+                if d > tol and way not in first:
+                    first[way] = k + 1
+            per_step.append(row)
+        emit({"phase": "ablation_bisect_steps", "gpu": gpu_line(), "steps": n,
+              "first_step_beyond_the_rule": first, "per_step": per_step})
+        if any(procs[w].returncode != 0 for w in BISECT_WAYS):
+            raise AssertionError(f"a way of the bisect failed: see {OUT_DIR}/ablation_bisect_*")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- phase repeatable: one state and one batch, one result
+
+
+def _run_record(model, eval_fn, step_fn, gen, batch):
+    """A request then a train step from ``model``'s present state -> every
+    tensor they give or change, cloned: the request's outputs, the step's
+    aux, each gradient, the state dict (parameters and BN statistics) and
+    the generator's state."""
+    import torch
+
+    rec = {}
+
+    def put(prefix, tree):
+        if torch.is_tensor(tree):
+            rec[prefix] = tree.detach().clone()
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                put(f"{prefix}.{k}", v)
+
+    put("request", eval_fn(batch))
+    put("step", step_fn(batch))
+    put("grad", {n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+    put("state", model.state_dict())
+    rec["generator"] = gen.get_state()
+    return rec
+
+
+def repeatable_runs(model, make_steps, batch, runs):
+    """``runs`` runs of :func:`_run_record`, each from ``model``'s state on
+    entry with fresh steps (``make_steps(model)`` -> (eval, step,
+    generator): the optimizer anew, the generator from its seed) ->
+    the records."""
+    import torch
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    out = []
+    for _ in range(runs):
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        eval_fn, step_fn, gen = make_steps(model)
+        out.append(_run_record(model, eval_fn, step_fn, gen, batch))
+        torch.cuda.synchronize()
+    model.load_state_dict(start)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+@contextlib.contextmanager
+def nondeterministic_ops(flagged):
+    """Inside, torch flags each op it knows to add in a run-dependent order
+    (``torch.use_deterministic_algorithms(True, warn_only=True)``); the
+    warnings' first lines go to ``flagged``. cuBLAS's workspace warning is
+    left out: one stream's matrix products repeat."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield flagged
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in caught:
+        line = str(w.message).splitlines()[0][:200]
+        if "CUBLAS_WORKSPACE_CONFIG" not in line and line not in flagged:
+            flagged.append(line)
+
+
+def phase_repeatable():
+    """One state, one batch, one result (as XLA's programs on the TPU): the
+    teacher (P, host plumbing), the stage-2 model (STUDENT_P,
+    STUDENT_TRAIN_CAMS cameras, the cr_t=CR_T teacher) and the U-Net (P),
+    each a request and a train step (dropout and drop path on, from a
+    seeded device generator) run twice from one copy of the weights:
+    logits, losses, every gradient, the parameters, the BN statistics and
+    the generator's state bitwise equal; then a third run with torch's
+    flags for ops that add in a run-dependent order, none of which may
+    fire."""
+    import torch
+    from u2mkd_tpu_torch.models.spvcnn import teacher_model
+    from u2mkd_tpu_torch.models.tsd import tsd_model
+    from u2mkd_tpu_torch.train import distill, optim, state
+
+    def teacher():
+        return teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL, head_dim=16,
+                             seed=REPEATABLE_SEED, device=DEVICE)
+
+    def student():
+        return tsd_model(num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
+                         head_dim=16, seed=REPEATABLE_SEED, device=DEVICE)
+
+    def plain_steps(m):
+        opt, _ = optim.make_optimizer(m.named_parameters(), "sgd_spformer", LR)
+        gen = torch.Generator(device=DEVICE).manual_seed(REPEATABLE_SEED)
+        return (state.make_eval_step(m, CAPS, NUM_CLASSES),
+                state.make_train_step(m, opt, CAPS, generator=gen), gen)
+
+    def student_steps(m):
+        opt, _ = distill.make_frozen_teacher_optimizer(m, "sgd_spformer", LR)
+        gen = torch.Generator(device=DEVICE).manual_seed(REPEATABLE_SEED)
+        return (distill.make_distill_eval_step(m, STUDENT_CAPS, CAPS, NUM_CLASSES,
+                                               run_teacher=True),
+                distill.make_distill_train_step(m, opt, STUDENT_CAPS, CAPS, generator=gen),
+                gen)
+
+    failures = []
+    for kind, build, make_steps, batch_of in (
+            ("teacher", teacher, plain_steps, lambda m: host_batch(REPEATABLE_SEED, m)[0]),
+            ("student", student, student_steps,
+             lambda m: student_batch(REPEATABLE_SEED, m, with_teacher=True,
+                                     num_cams=STUDENT_TRAIN_CAMS)[0]),
+            ("unet", lambda: unet_model(REPEATABLE_SEED), plain_steps,
+             lambda m: host_batch(REPEATABLE_SEED, m)[0])):
+        t0 = time.perf_counter()
+        model = build()
+        batch = batch_of(model)
+        first, second = repeatable_runs(model, make_steps, batch, 2)
+        flagged = []
+        with nondeterministic_ops(flagged):
+            probe = repeatable_runs(model, make_steps, batch, 1)[0]
+        differ = [k for k in first if not torch.equal(first[k], second[k])]
+        row = {"phase": "repeatable", "kind": kind, "tensors": len(first),
+               "gradients": sum(k.startswith("grad.") for k in first),
+               "bn_statistics": sum("running_" in k for k in first),
+               "differ": differ[:40], "n_differ": len(differ),
+               "nondeterministic_ops_flagged": flagged,
+               "loss": first["step.loss"].item(),
+               "flagged_run_loss": probe["step.loss"].item(),
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        if differ or flagged or first.keys() != second.keys():
+            failures.append(AssertionError(f"the {kind} request and step do not repeat "
+                                           f"bitwise: {row}"))
+        del model, batch, first, second, probe
+        torch.cuda.empty_cache()
+    if failures:
+        raise failures[0]
 
 
 # ---- phase data_parallel: the teacher and stage-2 train steps on two ranks
@@ -3842,7 +4253,8 @@ def mean_of_scans_distill_step(model, optimizer, s_caps, t_caps, w_kl=1.0, w_fea
 
 def dp_model(part, group=None, device=None):
     """The model of DP_TEACHER or DP_STUDENT (``part`` "teacher" or
-    "student") built by ``train/builder.make_model`` from DP_MODEL_SEED, its
+    "student") built by ``train/builder.make_model``, or :func:`unet_model`'s
+    U-Net (``part`` "unet"), from DP_MODEL_SEED, its
     BN synced over ``group``, with dropout and drop path off (a rank draws
     its masks for its own scan, so no single-process run can repeat them),
     its optimizer (``sgd_spformer`` at LR; the stage-2 model's over its
@@ -3852,6 +4264,9 @@ def dp_model(part, group=None, device=None):
     from u2mkd_tpu_torch.train import builder
     from u2mkd_tpu_torch.utils import config
 
+    if part == "unet":
+        model = unet_model(DP_MODEL_SEED, 0.0, group)
+        return (model, *dp_optimizer(part, model))
     path, overrides = DP_TEACHER if part == "teacher" else DP_STUDENT
     cfg = config.update_dotted(config.load(path), list(overrides))
     model = builder.make_model(cfg, device or DEVICE, DP_MODEL_SEED, process_group=group)
@@ -3866,7 +4281,7 @@ def dp_optimizer(part, model):
     (name, parameter) pairs)."""
     from u2mkd_tpu_torch.train import distill, optim
 
-    if part == "teacher":
+    if part in ("teacher", "unet"):
         opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
         return opt, list(model.named_parameters())
     opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", LR)
@@ -3890,7 +4305,7 @@ def dp_scans(part, model, rank=None):
     (the single-process reference's)."""
     from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 
-    if part == "teacher":
+    if part in ("teacher", "unet"):
         raws = [synthetic.make_batch(np.random.RandomState(s), 1, P, voxel_size=VOXEL)
                 for s in DP_TEACHER_SCANS]
         feeds = [(None, CAPS, model)]
@@ -3917,7 +4332,7 @@ def _dp_steps(part, model, opt, group):
     from u2mkd_tpu_torch.train import distill, state
 
     caught = []
-    if part == "teacher":
+    if part in ("teacher", "unet"):
         step = state.make_train_step(model, opt, CAPS, process_group=group)
         ev = state.make_eval_step(model, CAPS, NUM_CLASSES, process_group=group)
         local = state.make_eval_step(model, CAPS, NUM_CLASSES)
@@ -4101,7 +4516,7 @@ def dp_rank_main(argv):
             row = {"nccl_world_1": dp_nccl_one(mesh.data_group())}
         else:
             row = {part: dp_rank_part(part, rank, mesh.data_group(), work)
-                   for part in ("teacher", "student")}
+                   for part in DP_PARTS}
     finally:
         mesh.shutdown()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -4203,8 +4618,8 @@ def dp_reference(part, ranks, work):
             opt, trained = dp_optimizer(part, model)
             _nudge(model, int(tag.rsplit("_", 1)[1]))
         p0 = {n: p.detach().clone() for n, p in trained}
-        step = (mean_of_scans_teacher_step(model, opt, CAPS) if part == "teacher" else
-                mean_of_scans_distill_step(model, opt, STUDENT_CAPS, CAPS))
+        step = (mean_of_scans_distill_step(model, opt, STUDENT_CAPS, CAPS)
+                if part == "student" else mean_of_scans_teacher_step(model, opt, CAPS))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out, device_ms, _ = _timed(step, batch)
@@ -4269,7 +4684,8 @@ def dp_reference(part, ranks, work):
     per_launch = ranks[0][part]["per_launch"]
     row["per_launch_rank0"] = per_launch
     emit(row)
-    expected = TRAIN_LAUNCHES if part == "teacher" else STUDENT_TRAIN_LAUNCHES
+    expected = {"teacher": TRAIN_LAUNCHES, "student": STUDENT_TRAIN_LAUNCHES,
+                "unet": UNET_TRAIN_LAUNCHES}[part]
     bad_launch = {n: r for n, r in per_launch.items() if not r["max_rel_err"] <= r["tol_rel"]}
     if bad_launch or {n: r["calls"] for n, r in per_launch.items()} != expected \
             or row["launches_rank0"] != expected:
@@ -4284,6 +4700,18 @@ def dp_reference(part, ranks, work):
         raise AssertionError(f"the planted BN fault passes the {part} data-parallel check, "
                              f"which so checks nothing: {row}")
     return row
+
+
+def phase_dp_cli():
+    """:func:`dp_cli` in a work directory of its own."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="data_parallel_cli_")
+    try:
+        return dp_cli(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def dp_cli(work):
@@ -4333,19 +4761,21 @@ def dp_cli(work):
     return row
 
 
-def phase_data_parallel():
+def phase_data_parallel(with_cli=True):
     """Data parallelism on the one card: DP_WORLD ranks (processes of this
     script, :func:`dp_rank_main`, gloo over CUDA tensors: NCCL refuses two
     ranks on one device) each run the teacher train step (DP_TEACHER at
-    P) and the stage-2 step (DP_STUDENT at STUDENT_P, STUDENT_TRAIN_CAMS
-    cameras, the cr_t=CR_T teacher) on a scan of their own; each held to
-    the card's single-process reference by :func:`dp_reference`; one NCCL
-    rank of world 1 against the single-device step (:func:`dp_nccl_one`);
-    the training CLI in DP_WORLD processes (:func:`dp_cli`). A rank that
+    P), the stage-2 step (DP_STUDENT at STUDENT_P, STUDENT_TRAIN_CAMS
+    cameras, the cr_t=CR_T teacher) and the U-Net's step on a scan of
+    their own; each held to the card's single-process reference by
+    :func:`dp_reference`; one NCCL rank of world 1 against the
+    single-device step (:func:`dp_nccl_one`); ``with_cli``, the training
+    CLI in DP_WORLD processes (:func:`phase_dp_cli`, which the whole script
+    runs beside the ablation). A rank that
     fails or outlasts DP_RANK_TIMEOUT_S fails the phase; the ranks' outputs
     are kept under OUT_DIR; every check emits its row before the first
     failure is raised. -> rank 0's launches {"dp_train",
-    "dp_student_train"}."""
+    "dp_student_train", "dp_unet_train"}."""
     import shutil
     import tempfile
 
@@ -4375,8 +4805,8 @@ def phase_data_parallel():
         if not nccl["max_update_rel_diff"] <= nccl["update_tol_rel"]:
             failures.append(AssertionError(f"the world-1 NCCL step differs from the "
                                            f"single-device step: {nccl}"))
-        for check, args in [(dp_reference, ("teacher", ranks, work)),
-                            (dp_reference, ("student", ranks, work)), (dp_cli, (work,))]:
+        for check, args in [*[(dp_reference, (part, ranks, work)) for part in DP_PARTS],
+                            *([(dp_cli, (work,))] if with_cli else [])]:
             try:
                 check(*args)
             except AssertionError as e:
@@ -4387,7 +4817,8 @@ def phase_data_parallel():
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"dp_train": ranks[0]["teacher"]["launches"],
-            "dp_student_train": ranks[0]["student"]["launches"]}
+            "dp_student_train": ranks[0]["student"]["launches"],
+            "dp_unet_train": ranks[0]["unet"]["launches"]}
 
 
 @contextlib.contextmanager
@@ -4413,11 +4844,18 @@ def planted_remat_fault(fault):
 
 def published_model(path):
     """The model of the training config ``path`` (``train/builder.make_model``
-    from PUBLISHED_MODEL_SEED, dropout and drop path at the config's rates)
-    and what its steps need -> a dict."""
+    from PUBLISHED_MODEL_SEED, dropout and drop path at the config's rates),
+    or for UNET_SPEC :func:`unet_model`'s U-Net at P, and what its steps
+    need -> a dict."""
     from u2mkd_tpu_torch.train import builder
     from u2mkd_tpu_torch.utils import config
 
+    if path == UNET_SPEC:
+        model = unet_model(PUBLISHED_MODEL_SEED)
+        return {"path": path, "cfg": None, "model": model, "stage2": False,
+                "optimizer": "sgd_spformer", "batch": 3, "points": P, "caps": CAPS,
+                "voxel": VOXEL, "classes": NUM_CLASSES,
+                "start": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
     cfg = config.load(path)
     model = builder.make_model(cfg, DEVICE, PUBLISHED_MODEL_SEED)
     stage2 = hasattr(model, "model_s")
@@ -4609,8 +5047,9 @@ def phase_published_batch():
     failures = []
     for path, batch_size in PUBLISHED:
         spec = published_model(path)
-        kind = os.path.basename(os.path.dirname(os.path.dirname(path))) + "/" + \
-            os.path.splitext(os.path.basename(path))[0]
+        kind = path if path == UNET_SPEC else (
+            os.path.basename(os.path.dirname(os.path.dirname(path))) + "/"
+            + os.path.splitext(os.path.basename(path))[0])
         if spec["batch"] != batch_size:
             raise AssertionError(f"{path}: batch {spec['batch']}, expected {batch_size}")
         common = {"config": path, "gpu": gpu_line(), "classes": spec["classes"],
@@ -4744,9 +5183,10 @@ def kernels_line(rows, launches):
     in-program path's three requests with K3 "device_infer" and without
     "device_banded", three train steps "device_train" and stage-2 step
     "device_student_train", each on plumbing built on the card, and rank
-    0's data-parallel teacher step "dp_train" and stage-2 step
-    "dp_student_train", and the remat steps of phase published_batch at
-    the configs' published batch "published"; K1 counts
+    0's data-parallel teacher step "dp_train", stage-2 step
+    "dp_student_train" and U-Net step "dp_unet_train", and the remat steps
+    of phase published_batch at the configs' published batch and the
+    U-Net's B=3 "published"; K1 counts
     its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32. Then a bf16 entry for each kernel but K2:
@@ -4763,11 +5203,12 @@ def kernels_line(rows, launches):
                          "conv_only", "conv_only_train", "evaluate_teacher",
                          "evaluate_student", "unet", "unet_train", "device_infer",
                          "device_banded", "device_train", "device_student_train", "dp_train",
-                         "dp_student_train", "published"),
+                         "dp_student_train", "dp_unet_train", "published"),
                    train_dx=launches["train"]["rulebook_conv_dx"],
                    published_dx=launches["published"]["rulebook_conv_dx"],
                    dp_train_dx=launches["dp_train"]["rulebook_conv_dx"],
                    dp_student_train_dx=launches["dp_student_train"]["rulebook_conv_dx"],
+                   dp_unet_train_dx=launches["dp_unet_train"]["rulebook_conv_dx"],
                    device_train_dx=launches["device_train"]["rulebook_conv_dx"],
                    device_student_train_dx=launches["device_student_train"][
                        "rulebook_conv_dx"],
@@ -4778,19 +5219,23 @@ def kernels_line(rows, launches):
                    unet_train_dx=launches["unet_train"]["rulebook_conv_dx"]),
         "K1b": paths("rulebook_conv_dw", "train", "student_train", "data_train",
                      "data_student_train", "conv_only_train", "unet_train", "device_train",
-                     "device_student_train", "dp_train", "dp_student_train", "published"),
+                     "device_student_train", "dp_train", "dp_student_train", "dp_unet_train",
+                     "published"),
         "K2": paths("flash_window_sorted", "entry", "window_msa"),
         "K3": paths("flash_rpe_fwd", "infer", "train", "student", "student_teacher",
                     "student_train", "data_train", "data_student_train", "import",
                     "conv_only", "evaluate_teacher", "evaluate_student", "unet",
                     "unet_train", "device_infer", "device_banded", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train", "published"),
+                    "device_student_train", "dp_train", "dp_student_train", "dp_unet_train",
+                    "published"),
         "K4": paths("flash_rpe_bwd_q", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train", "published"),
+                    "device_student_train", "dp_train", "dp_student_train", "dp_unet_train",
+                    "published"),
         "K5": paths("flash_rpe_bwd_k", "train", "student_train", "data_train",
                     "data_student_train", "unet_train", "device_train",
-                    "device_student_train", "dp_train", "dp_student_train", "published"),
+                    "device_student_train", "dp_train", "dp_student_train", "dp_unet_train",
+                    "published"),
     }
     table = (("K1", ("rulebook_conv", "rulebook_conv_dx"), S.SOURCE, S.REPLACES),
              ("K1b", ("rulebook_conv_dw",), S.SOURCE_DW, S.REPLACES_DW),
@@ -4858,7 +5303,8 @@ def main():
         # a check of single phases, which prints no result line
         for name in sys.argv[2].split(","):
             {"data_parallel": phase_data_parallel, "ablation": phase_ablation,
-             "published_batch": phase_published_batch}[name]()
+             "published_batch": phase_published_batch, "repeatable": phase_repeatable,
+             "ablation_bisect": phase_ablation_bisect}[name]()
         print(gpu_line(), flush=True)
         return 0
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,
@@ -4867,6 +5313,7 @@ def main():
     launches = {"infer": phase_main_path(model)}
     launches.update(phase_device_plumbing(model))
     del model
+    phase_repeatable()
     launches["train"] = phase_train()
     phase_grad_check()
     launches["entry"] = {"flash_window_sorted": phase_window_entry(raw)}
@@ -4890,22 +5337,29 @@ def main():
         launches["student_train"] = phase_student_train()
         phase_student_grad_check()
         launches.update(phase_bf16())
-        launches.update(phase_data_parallel())
+        launches.update(phase_data_parallel(with_cli=False))
         launches.update(phase_published_batch())
         stats, gen_s = make_data_set(root)
         emit({"phase": "data_set", "pts_per_scan": DATA_PTS, "generate_s": gen_s, **stats})
-        # the ablation and the entry points' phases run their work in
-        # subprocesses and check what no neighbour on the card changes: they
-        # run side by side, so that the command stays inside its time limit,
-        # and their wall seconds include each other; phase data, which times
-        # its loop, runs after both, alone
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            entry = pool.submit(phase_entry_points, root, weights)
-            phase_ablation()
-            evaluated = entry.result()
+        # the ablation, the entry points' phases (cli and the CLI on two
+        # ranks; data_cli, then evaluate on its checkpoints) and phase data
+        # check what no neighbour
+        # on the card changes (bitwise batches, launches, counters, bounds,
+        # exit codes): they run side by side, so that the command stays
+        # inside its time limit, and their wall seconds and phase data's
+        # loader times include each other
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            cli = pool.submit(lambda: (phase_cli(), phase_dp_cli()))
+            evaluated = pool.submit(lambda: phase_evaluate(root, phase_data_cli(root, weights)))
+            # phase data counts this process's launches: it starts once the
+            # ablation's own request on the card is over
+            data = []
+            phase_ablation(card_free=lambda: data.append(pool.submit(phase_data, root)))
+            cli.result()
+            evaluated = evaluated.result()
+            launches["data_student_train"], launches["data_train"] = data[0].result()
         launches["evaluate_teacher"] = evaluated["stage1"]
         launches["evaluate_student"] = evaluated["stage2"]
-        launches["data_student_train"], launches["data_train"] = phase_data(root)
     finally:
         for d in (root, weights_dir, CLI_DIR):
             shutil.rmtree(d, ignore_errors=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the port's three main paths, two trees alternately, on one
+"""Device time of the port's four main paths, two trees alternately, on one
 card.
 
     python3 compare_trees.py --other DIR [--sync-check]
@@ -8,8 +8,8 @@ card.
 parent commit, unpacked with ``git archive``). Each run is a fresh process
 that imports ``chip_smoke`` and the port from its tree and times, with CUDA
 events as ``chip_smoke.py`` does, three teacher inference requests, three
-teacher train steps and three student requests (P, capacities, seeds and
-widths of ``chip_smoke.py``). The trees run in the order other, this, this,
+teacher train steps, three student requests and three stage-2 train steps
+(P, capacities, cameras, seeds and widths of ``chip_smoke.py``). The trees run in the order other, this, this,
 other, so that a drift of the card or its host during the call falls on
 both. One JSON line per run; the warm numbers are the last two of each
 path. ``--sync-check`` also runs one more warm teacher request of this tree
@@ -73,6 +73,12 @@ def run_paths(tag, sync_check):
     batches = [C.student_batch(s, student)[0] for s in C.STUDENT_SEEDS]
     torch.cuda.synchronize()
     out["student_request_ms"] = [C._timed(eval_fn, b)[1] for b in batches]
+    del student, eval_fn, batches
+    student, step_fn = C._student_train_setup(seed=0, generator_seed=0)
+    batches = [C.student_batch(s, student, with_teacher=True, num_cams=C.STUDENT_TRAIN_CAMS)[0]
+               for s in C.STUDENT_TRAIN_SEEDS]
+    torch.cuda.synchronize()
+    out["student_train_step_ms"] = [C._timed(step_fn, b)[1] for b in batches]
     print(json.dumps(out), flush=True)
 
 

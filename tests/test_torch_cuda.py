@@ -1163,21 +1163,24 @@ def test_nccl_world_one_step_equals_single_device_step(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("part", ["teacher", "student"])
+@pytest.mark.parametrize("part", ["teacher", "student", "unet"])
 def test_remat_step_on_card_within_the_whole_step_rule(cuda_device, part):
-    """A small teacher step and a small stage-2 step (the sizes of the train
-    step tests above; dropout and drop path at 0.3 from one generator seed)
+    """A small teacher step, a small stage-2 step and a small step of the
+    full-width U-Net (the sizes of the train step tests above; dropout and
+    drop path at 0.3 from one generator seed)
     with ``remat=True`` against ``remat=False`` on the card, by the
     whole-step rule (``chip_smoke.remat_rule``: the loss, every update and
     BN statistic within 4x the median of three one-ulp-nudged steps); each
     planted remat fault (``chip_smoke.planted_remat_fault``) misses it by
     2x. The remat step launches K1 and K3 again in its recomputes and dX,
     K1b, K4 and K5 as often as the step without."""
-    if part == "teacher":
+    if part in ("teacher", "unet"):
         caps = (2048, 1024, 512, 256, 128)
-        model = teacher_model(num_classes=17, cr=1.0, voxel_size=0.2, head_dim=16, seed=3,
-                              device=cuda_device)
-        raw = synthetic.make_batch(np.random.RandomState(4), 1, 4096, voxel_size=0.2)
+        model = (teacher_model(num_classes=17, cr=1.0, voxel_size=0.2, head_dim=16, seed=3,
+                               device=cuda_device) if part == "teacher"
+                 else chip_smoke.unet_model(3))
+        voxel = 0.2 if part == "teacher" else chip_smoke.VOXEL
+        raw = synthetic.make_batch(np.random.RandomState(4), 1, 4096, voxel_size=voxel)
         raw["plumbing"] = plumbing_host.batch_plumbing(
             raw["pcoords"], raw["xyz"], raw["pmask"], caps,
             wgeom_params=wgeom_host.params_from_model(model))
@@ -1209,5 +1212,109 @@ def test_remat_step_on_card_within_the_whole_step_rule(cuda_device, part):
     with_remat, without = got["launches"][0], ref["launches"][0]
     for name in ("rulebook_conv_dx", "rulebook_conv_dw", "flash_rpe_bwd_q", "flash_rpe_bwd_k"):
         assert with_remat[name] == without[name], (with_remat, without)
-    assert with_remat["rulebook_conv"] == without["rulebook_conv"] + 34
-    assert with_remat["flash_rpe_fwd"] == without["flash_rpe_fwd"] + 8
+    # the recomputes: the student's segments, or every segment of the U-Net
+    k1, k3 = (37, 10) if part == "unet" else (34, 8)
+    assert with_remat["rulebook_conv"] == without["rulebook_conv"] + k1
+    assert with_remat["flash_rpe_fwd"] == without["flash_rpe_fwd"] + k3
+
+
+def _repeatable_sites():
+    """Each site that sums in a fixed order on the card (``ops/segment.py``
+    and its callers): a function of a generator and the device -> the
+    tensors it computes, forward and backward, at a main path's scale (many
+    rows to one voxel, pixel or bin)."""
+    import torch.nn.functional as F
+
+    from u2mkd_tpu_torch.models import fusion, plumbing, swiftnet
+    from u2mkd_tpu_torch.ops import segment
+
+    def grads(out, *inputs):
+        g = torch.randn(out.shape, device=out.device,
+                        generator=torch.Generator(out.device).manual_seed(1))
+        return [out, *torch.autograd.grad(out, inputs, g)]
+
+    def rand(gen, dev, *shape, grad=False):
+        return torch.randn(*shape, device=dev, generator=gen).requires_grad_(grad)
+
+    def ids(gen, dev, shape, lo, hi):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen)
+
+    def segment_sum(gen, dev):
+        x = rand(gen, dev, 131072, 32, grad=True)
+        return grads(segment.segment_sum(x, segment.plan(ids(gen, dev, (131072,), -1, 4096),
+                                                         4096)), x)
+
+    def point_maps(gen, dev):
+        feats = rand(gen, dev, 1, 131072, 32, grad=True)
+        vox = rand(gen, dev, 1, 65536, 32, grad=True)
+        p2v = ids(gen, dev, (1, 131072), -1, 65536)
+        idx8 = ids(gen, dev, (1, 131072, 8), -1, 65536)
+        w8 = torch.rand(1, 131072, 8, device=dev, generator=gen)
+        return (grads(plumbing.point_to_voxel(feats, p2v, 65536), feats)
+                + grads(plumbing.voxel_to_point(vox, idx8, w8), vox))
+
+    def gathers(gen, dev):
+        x = rand(gen, dev, 1, 65536, 32, grad=True)
+        t2s = ids(gen, dev, (1, 131072), -1, 65536)
+        feats = rand(gen, dev, 16384, 64, grad=True)
+        parent = ids(gen, dev, (131072,), -1, 16384).int()
+        koff = ids(gen, dev, (131072,), 0, 8).int()
+        weight = rand(gen, dev, 8, 64, 32)
+        from u2mkd_tpu_torch.ops import spconv
+        from u2mkd_tpu_torch.train import distill as d
+        return (grads(d._gather_t2s(x, t2s), x)
+                + grads(spconv.sparse_conv_transposed_2x2(feats, parent, koff, weight), feats))
+
+    def image_ops(gen, dev):
+        fmap = rand(gen, dev, 3, 64, 90, 160, grad=True)
+        coords = torch.rand(3, 65536, 2, device=dev, generator=gen) * 2.2 - 1.1
+        pfeats = rand(gen, dev, 1, 65536, 64, grad=True)
+        masks = torch.rand(1, 3, 65536, device=dev, generator=gen) < 0.8
+        small = rand(gen, dev, 3, 128, 12, 20, grad=True)
+        return (grads(fusion.feature_gather(fmap, coords), fmap)
+                + grads(fusion.point_to_grid(pfeats, coords[None], masks, (90, 160)), pfeats)
+                + grads(swiftnet.resize_bilinear_align_corners(small, (90, 160)), small)
+                + grads(swiftnet.adaptive_avg_pool(small, (4, 7)), small))
+
+    def image_conv(gen, dev):
+        swiftnet.repeatable_convolutions()
+        x = rand(gen, dev, 3, 64, 90, 160, grad=True)
+        w = rand(gen, dev, 64, 64, 3, 3, grad=True)
+        return grads(F.conv2d(x, w, padding=1), x, w)
+
+    def plain_attention(gen, dev):
+        from u2mkd_tpu_torch.ops import wattn
+        n, h, d, g_len = 4096, 2, 16, 24
+        rank = torch.sort(ids(gen, dev, (n,), 0, 64)).values
+        q, k, v = (rand(gen, dev, n, h, d, grad=True) for _ in range(3))
+        qT, kT = (rand(gen, dev, n, h, 3, 2 * g_len) for _ in range(2))
+        tv = rand(gen, dev, 2 * g_len, 3, h, d)
+        quant = ids(gen, dev, (n, 3), 0, g_len)
+        r = torch.rand(n, device=dev, generator=gen) * 50
+        out, lse = wattn.window_attention_rpe_fwd(q, k, v, qT, kT, tv, rank, quant, r, g_len,
+                                                  0.0125)
+        do = rand(gen, dev, n, h, d)
+        edo = torch.einsum("nhd,lahd->nhal", do, tv)
+        bwd = wattn.window_attention_rpe_bwd(q, k, v, qT, kT, edo, rank, quant, r, lse, do,
+                                             (do * out).sum(-1), g_len, 0.0125)
+        return [wattn.window_attention_plain(q, k, v, rank), out, lse, *bwd]
+
+    return {"segment_sum": segment_sum, "point_maps": point_maps, "gathers": gathers,
+            "image_ops": image_ops, "image_conv": image_conv,
+            "plain_attention": plain_attention}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["segment_sum", "point_maps", "gathers", "image_ops",
+                                  "image_conv", "plain_attention"])
+def test_repeatable_sums_on_card(cuda_device, site):
+    """Each site that sums in a fixed order, run twice on the card from one
+    input: every output and gradient bitwise equal (torch's atomic
+    scatter-adds, ``grid_sample``'s, the resize's and the pool's backward and
+    cuDNN's autotuned convolutions did not repeat)."""
+    fn = _repeatable_sites()[site]
+    first, second = (fn(torch.Generator(cuda_device).manual_seed(0), cuda_device)
+                     for _ in range(2))
+    assert len(first) == len(second)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -11,6 +11,11 @@ gloo ranks (processes of ``tests/torch_dp_worker.py``, as in
   (``chip_smoke.dropped_bn_backward_sum``), must miss that by FAULT_MARGIN.
   Against JAX's data-parallel step (the TSD of ``tests/test_train_dp.py``)
   it is ``slow``: JAX's compile of the stage-2 program takes minutes.
+* The SphereFormer U-Net's two-rank step (synced masked BN, one coalesced
+  gradient reduction) against the port's single-process step on both scans
+  (``chip_smoke.mean_of_scans_teacher_step``) by the same rule, with the
+  same planted fault, and against JAX's ``data_parallel_step`` (``pmean``
+  over two of conftest's virtual devices) on the same weights.
 * ``python -m u2mkd_tpu_torch.train_spformer ... --multihost --cpu`` in two
   processes for one epoch.
 """
@@ -40,9 +45,17 @@ from test_torch_model import _random_variables
 from test_torch_parallel import LR, RANK_TIMEOUT_S, REPO, WORLD, _ranks
 from torch_dp_worker import free_port
 from test_torch_student_eval import GEOMETRY, NCLS, S_CAPS, T_CAPS
+from test_torch_sphereformer_unet import CAPS as UNET_CAPS
+from test_torch_sphereformer_unet import GEOMETRY as UNET_GEOMETRY
+from test_torch_sphereformer_unet import N_PLANES as UNET_PLANES
+from test_torch_sphereformer_unet import NUM_CLASSES as UNET_CLASSES
+from test_torch_sphereformer_unet import VOXEL as UNET_VOXEL
+from u2mkd_tpu.models.sphereformer_unet import SphereFormerSemantic as JaxUNet
+from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
 from u2mkd_tpu_torch.models import convert_weights
+from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
 from u2mkd_tpu_torch.models.tsd import TSDFull
-from u2mkd_tpu_torch.train import distill
+from u2mkd_tpu_torch.train import distill, optim
 
 NUDGE_SEEDS = (1, 2, 3)
 
@@ -185,6 +198,130 @@ def test_distill_dp_step_matches_jax(tmp_path):
     shipped = _distill_dp(tmp_path, start, kw, raws)[0]["dp"]["aux"]
     assert abs(shipped["ce_pix"] - float(aux["ce_pix"])) > 100 * LOSS_RTOL * abs(
         float(aux["ce_pix"]))
+
+
+def _unet_port(state=None):
+    kw = dict(num_classes=UNET_CLASSES, n_planes=UNET_PLANES, head_dim=4, drop_path_rate=0.0,
+              **UNET_GEOMETRY)
+    port = SphereFormerSemantic(generator=torch.Generator().manual_seed(5), **kw)
+    if state is not None:
+        port.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return port, kw
+
+
+def _unet_scans(port):
+    """Two scans (seeds 3, 4) -> (each with its host plumbing, both as one
+    batch with its own)."""
+    raws = [jax_synthetic.make_batch(np.random.RandomState(s), 1, 512, voxel_size=UNET_VOXEL,
+                                     num_sweep_factor=2) for s in (3, 4)]
+    params = wgeom_host.params_from_model(port)
+
+    def with_plumbing(raw):
+        arrays = plumbing_host.batch_plumbing(raw["pcoords"], raw["xyz"], raw["pmask"],
+                                              UNET_CAPS, wgeom_params=params)
+        # the banded JAX attention is exact at these occupancies
+        assert max(int(g["occ"].max()) for g in arrays["wgeom"]["cubic"]) <= 128
+        assert max(int(g["occ"].max()) for g in arrays["wgeom"]["sphere"]) <= 4 * 128
+        return dict(raw, plumbing=arrays)
+
+    return [with_plumbing(r) for r in raws], with_plumbing(chip_smoke.concat_scans(raws))
+
+
+def _unet_state_diff(got, ref, start):
+    """:func:`test_torch_distill._state_diff` over every parameter and BN
+    statistic."""
+    def one(n):
+        change = float(np.abs(ref[n] - start[n]).max())
+        ulps = 2 * float(np.spacing(np.abs(ref[n]).max().astype(np.float32)))
+        return float(np.abs(got[n] - ref[n]).max()) / (change + ulps)
+
+    return max((one(n), n) for n in ref)
+
+
+def _unet_dp(tmp_path, start, kw, scans):
+    return _ranks("unet", {"model": kw, "state": start, "lr": LR, "caps": UNET_CAPS,
+                           "batches": scans}, tmp_path)
+
+
+def test_unet_dp_step_is_the_mean_of_scans_step(tmp_path):
+    """The U-Net's two-rank step against its single-process step on the
+    batch of both scans with the mean of the scans' losses
+    (``chip_smoke.mean_of_scans_teacher_step``): the loss to LOSS_RTOL, the
+    state within GRAD_SPREADS times the median of three one-ulp-nudged
+    steps (and at least UPDATE_RTOL), the ranks bitwise equal, the eval
+    counters the sums of the ranks' own; rank 1 dropping the backward sum
+    of its BN statistics misses by FAULT_MARGIN."""
+    port, kw = _unet_port()
+    start = {k: v.numpy().copy() for k, v in port.state_dict().items()}
+    scans, both = _unet_scans(port)
+    got = _unet_dp(tmp_path, start, kw, scans)
+    ref = {}
+    for tag in ("reference", *NUDGE_SEEDS):
+        m, _ = _unet_port(start)
+        if tag != "reference":
+            gen = torch.Generator().manual_seed(tag)
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=gen))
+        opt, _ = optim.make_optimizer(m.named_parameters(), "sgd_spformer", LR)
+        loss = chip_smoke.mean_of_scans_teacher_step(m, opt, UNET_CAPS)(both)["loss"]
+        ref[tag] = ({k: v.numpy().copy() for k, v in m.state_dict().items()}, loss.item())
+    ref_state, ref_loss = ref["reference"]
+    np.testing.assert_allclose(got[0]["dp"]["loss"], ref_loss, rtol=LOSS_RTOL)
+    spreads = [_unet_state_diff(ref[s][0], ref_state, start)[0] for s in NUDGE_SEEDS]
+    tol = max(UPDATE_RTOL, GRAD_SPREADS * float(np.median(spreads)))
+    worst, name = _unet_state_diff(got[0]["dp"]["state"], ref_state, start)
+    fault, fault_name = _unet_state_diff(got[0]["fault"]["state"], ref_state, start)
+    print(f"U-Net DP step: {worst:.3g} ({name}) of tol {tol:.3g}; planted fault "
+          f"{fault / tol:.3g}x ({fault_name})")
+    assert worst <= tol, (name, worst, tol)
+    assert fault >= FAULT_MARGIN * tol, (fault_name, fault, tol)
+    for k, v in got[0]["dp"]["state"].items():
+        np.testing.assert_array_equal(got[1]["dp"]["state"][k], v, k)
+    for n in ("seen", "correct", "positive"):
+        total = sum(r["dp"]["local_counts"][n] for r in got)
+        for r in got:
+            np.testing.assert_array_equal(r["dp"]["counts"][n], total)
+
+
+def test_unet_dp_step_matches_jax(tmp_path):
+    """The U-Net's two-rank step against JAX's ``data_parallel_step`` of
+    ``make_train_step`` (``axis_name``: BN statistics and gradients
+    ``pmean``-ed over two virtual devices) on the same bridged weights and
+    scans: the loss to LOSS_RTOL and every parameter and BN statistic after
+    the step by the rule of ``tests/test_torch_parallel.py``
+    (UPDATE_RTOL of its change, plus two f32 ulps)."""
+    from test_torch_sphereformer_unet import _variables as unet_variables
+
+    port, kw = _unet_port()
+    scans, _ = _unet_scans(port)
+    model = JaxUNet(**kw)
+    model_dp = JaxUNet(axis_name=jax_mesh.DATA_AXIS, **kw)
+    bj = jax.tree_util.tree_map(lambda *xs: jnp.concatenate(xs), *[
+        dict({k: jnp.asarray(v) for k, v in s.items() if k != "plumbing"},
+             plumbing={k: [jnp.asarray(x) for x in v] for k, v in s["plumbing"].items()
+                       if k != "wgeom"}) for s in scans])
+    one = jax.tree_util.tree_map(lambda t: t[:1], bj)
+    variables = unet_variables(model, one)
+    tx = jax_optim.make_optimizer("sgd_spformer", LR)
+    st = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                              batch_stats=variables["batch_stats"],
+                              opt_state=tx.init(variables["params"]))
+    step = jax_mesh.data_parallel_step(jax_state.make_train_step(
+        model_dp, tx, UNET_CAPS, axis_name=jax_mesh.DATA_AXIS), jax_mesh.make_mesh(WORLD))
+    st1, aux = step(st, bj, jax.random.PRNGKey(1))
+    start = {k: v.numpy() for k, v in convert_weights.from_flax(
+        variables["params"], variables["batch_stats"]).items()}
+    got = _unet_dp(tmp_path, start, kw, scans)
+    np.testing.assert_allclose(got[0]["dp"]["loss"], float(aux["loss"]), rtol=LOSS_RTOL)
+    ref = convert_weights.from_flax(jax.tree_util.tree_map(np.asarray, st1.params),
+                                    jax.tree_util.tree_map(np.asarray, st1.batch_stats))
+    assert sorted(ref) == sorted(got[0]["dp"]["state"])
+    for name, t in ref.items():
+        p_ref, p_got = t.numpy(), got[0]["dp"]["state"][name]
+        atol = (UPDATE_RTOL * np.abs(p_ref - start[name]).max()
+                + 2 * np.spacing(np.abs(p_ref).max().astype(np.float32)))
+        np.testing.assert_allclose(p_got, p_ref, rtol=0, atol=atol, err_msg=name)
 
 
 def test_multihost_cli_two_processes(tmp_path):

@@ -45,8 +45,8 @@ from u2mkd_tpu.train import state as jax_state
 from u2mkd_tpu.utils import config as jax_config
 
 from test_torch_config_builder import REPO
-from test_torch_distill import (LR, TERMS, _batches, _capturing, _JaxTSDNoDropout, _port,
-                                _port_batch)
+from test_torch_distill import (GRAD_SPREADS, LR, TERMS, _batches, _capturing,
+                                _JaxTSDNoDropout, _port, _port_batch)
 from test_torch_model import CAPS, _jax_teacher, _random_variables
 from test_torch_student_eval import GEOMETRY, NCLS, S_CAPS, T_CAPS
 from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
@@ -308,3 +308,89 @@ def test_float32_build_after_bfloat16_build_runs_f32():
         cfg_j = jax_config.update_dotted(jax_config.load(path), [f"precision={prec}"])
         jax_builder.make_model(cfg_j)
     assert jax_precision.compute_dtype() == jnp.bfloat16
+
+
+def test_unet_bf16_request_and_step_match_jax():
+    """The SphereFormer U-Net (the size of ``tests/test_torch_sphereformer_unet.py``,
+    drop path 0) in bf16, against JAX's bf16 on the same weights and scan.
+    The U-Net stacks ~40 layers, so a value that rounds one bf16 ulp apart
+    moves a few logits further than in the teacher: its largest logit
+    difference (0.024-0.031 of the mean |logit| over three weight seeds)
+    passes LOGIT_RTOL, but stays under what bf16 rounding itself moves
+    JAX's logits from its f32 ones (0.031-0.060). So the logits are held
+    by JAX's bf16 criterion at LOGIT_RTOL (mean |port - JAX| over mean
+    |JAX|; measured 1.3e-3 to 1.7e-3) and, entry by entry, within JAX's own
+    bf16-against-f32 difference; one ``sgd_spformer`` train step's loss to
+    TERMS_RTOL relative, and each parameter's gradient within GRAD_SPREADS
+    times what bf16 rounding moves JAX's own gradient of it from its f32
+    one, in L2 (floored at GRAD_FLOOR of the largest entry of all, per
+    entry; measured at most 1.12 times that move, the median 0.13); each
+    package's bf16 within BF16_F32_RTOL of its f32 (mean over mean)."""
+    from test_torch_sphereformer_unet import CAPS as UNET_CAPS
+    from test_torch_sphereformer_unet import NUM_CLASSES as UNET_CLASSES
+    from test_torch_sphereformer_unet import _batch, _models, _variables
+    from test_torch_train import GRAD_FLOOR
+    from u2mkd_tpu.ops import losses as jax_losses
+    from u2mkd_tpu_torch.train import optim
+
+    model, port = _models()
+    batch_j, batch = _batch(3, port)
+    variables = _variables(model, batch_j)
+    st = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                              batch_stats=variables["batch_stats"], opt_state=())
+    start = convert_weights.from_flax(variables["params"], variables["batch_stats"])
+    valid = batch["pmask"]
+
+    def loss_fn(params, batch):
+        out, _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                             batch["feats"], jax_state.get_plumbing(batch, UNET_CAPS), True,
+                             rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
+        ok = batch["pmask"] & batch["keyframe_mask"] & (batch["labels"] != 0)
+        return jax_losses.lovasz_ce(out["x_vox"].reshape(-1, UNET_CLASSES),
+                                    batch["labels"].reshape(-1), ok.reshape(-1))
+
+    outs, loss, grads = {}, {}, {}
+    for dtype in ("f32", "bf16"):
+        _policy({"f32": "float32", "bf16": "bfloat16"}[dtype])
+        ref = jax.jit(jax_state.make_eval_step(model, UNET_CAPS, UNET_CLASSES))(st, batch_j)
+        outs["jax", dtype] = np.asarray(ref["logits"])[valid]
+        port.load_state_dict(start)
+        got = state.make_eval_step(port, UNET_CAPS, UNET_CLASSES)(batch)
+        outs["port", dtype] = got["logits"].numpy()[valid]
+        loss["jax", dtype], g = jax.jit(jax.value_and_grad(loss_fn))(st.params, batch_j)
+        grads["jax", dtype] = {n: t.numpy() for n, t in convert_weights.from_flax(
+            jax.tree_util.tree_map(np.asarray, g), {}).items()}
+        opt, _ = optim.make_optimizer(port.named_parameters(), "sgd_spformer", LR)
+        aux = state.make_train_step(port, opt, UNET_CAPS)(batch)
+        assert aux["loss"].dtype == torch.float32
+        loss["port", dtype] = aux["loss"].item()
+        grads["port", dtype] = {n: p.grad.numpy().copy() for n, p in port.named_parameters()}
+
+    scale = np.abs(outs["jax", "bf16"]).mean()
+    port_jax_mean = _rel_mean(outs["port", "bf16"], outs["jax", "bf16"])
+    port_jax = np.abs(outs["port", "bf16"] - outs["jax", "bf16"])
+    jax_own = np.abs(outs["jax", "bf16"] - outs["jax", "f32"])
+    own = {p: _rel_mean(outs[p, "bf16"], outs[p, "f32"]) for p in ("jax", "port")}
+    loss = {k: float(v) for k, v in loss.items()}
+    loss_err = abs(loss["port", "bf16"] - loss["jax", "bf16"]) / abs(loss["jax", "bf16"])
+    loss_own = {p: abs(loss[p, "bf16"] - loss[p, "f32"]) / abs(loss[p, "f32"])
+                for p in ("jax", "port")}
+    gj, gp, gj32 = grads["jax", "bf16"], grads["port", "bf16"], grads["jax", "f32"]
+    assert sorted(gj) == sorted(gp)
+    floor = GRAD_FLOOR * max(float(np.abs(t).max()) for t in gj.values())
+    grad_ratio = {n: float(np.linalg.norm(gp[n] - t)) / max(
+        float(np.linalg.norm(t - gj32[n])), floor * np.sqrt(t.size)) for n, t in gj.items()}
+    worst = max(grad_ratio, key=grad_ratio.get)
+    print(f"U-Net bf16: logits port against JAX {port_jax_mean:.3g} mean over mean "
+          f"(tolerance {LOGIT_RTOL}), largest {port_jax.max() / scale:.3g} against JAX's own "
+          f"bf16 - f32 {jax_own.max() / scale:.3g} of the mean |logit|; bf16 against f32 "
+          f"{own}; loss {loss_err:.3g} (tolerance {TERMS_RTOL}), bf16 against f32 "
+          f"{loss_own}; gradients at most {grad_ratio[worst]:.3g} times JAX's own bf16 move "
+          f"({worst}; tolerance {GRAD_SPREADS})")
+    assert all(o.dtype == np.float32 for o in outs.values())
+    assert port_jax_mean <= LOGIT_RTOL, port_jax_mean
+    assert port_jax.max() <= jax_own.max(), (port_jax.max(), jax_own.max())
+    assert all(err < BF16_F32_RTOL for err in own.values()) and own["port"] > 0, own
+    assert loss_err <= TERMS_RTOL, loss_err
+    assert all(err < BF16_F32_RTOL for err in loss_own.values()), loss_own
+    assert grad_ratio[worst] <= GRAD_SPREADS, (worst, grad_ratio[worst])

@@ -8,20 +8,22 @@ dropout and drop path on:
 
 * the teacher step (on host plumbing, and on plumbing built in the step,
   whose window sorts the recompute takes from the forward), the stage-2
-  step and the split steps with ``remat=True`` equal ``remat=False``
-  bitwise over two steps: every loss term, every gradient, the parameters
-  and BN running statistics, and the generator's state after the step;
+  step, the split steps and the SphereFormer U-Net's step (segments per
+  level) with ``remat=True`` equal ``remat=False`` bitwise over two steps:
+  every loss term, every gradient, the parameters and BN running
+  statistics, and the generator's state after the step;
 * two planted faults (``chip_smoke.planted_remat_fault``) break that
   equality: a recompute that draws from the generator where the forward
   left it, and one that updates the BN running statistics a second time;
 * the remat steps match the JAX package's ``make_train_step(...,
-  remat=True)`` and ``make_distill_train_step(..., remat=True)`` (XLA
-  paths) with the masks the port drew fed to JAX's draws, within the
-  tolerances of those files; the generator fault misses the stage-2 bound
-  (the stage-2 case is ``slow``: its JAX step compiles for ~2 min);
+  remat=True)`` (the teacher and the U-Net) and
+  ``make_distill_train_step(..., remat=True)`` (XLA paths) with the masks
+  the port drew fed to JAX's draws, within the tolerances of
+  ``tests/test_torch_train.py``, ``tests/test_torch_sphereformer_unet.py``
+  and ``tests/test_torch_distill.py``; the generator fault misses the
+  stage-2 bound;
 * a two-rank gloo data-parallel stage-2 step with remat equals the one
-  without;
-* a model without segments (the SphereFormer U-Net) raises.
+  without.
 """
 
 import contextlib
@@ -47,8 +49,12 @@ from test_torch_distill import (FAULT_MARGIN, GRAD_SPREADS, TERMS, _batches, _ca
                                 _grad_diff, _port_batch, _port_setup)
 from test_torch_model import _random_variables
 from test_torch_parallel import LR, _ranks
+from test_torch_sphereformer_unet import GEOMETRY as UNET_GEOMETRY
+from test_torch_sphereformer_unet import _batch as _unet_batch
+from test_torch_sphereformer_unet import _models as _unet_models
+from test_torch_sphereformer_unet import _variables as _unet_variables
 from test_torch_student_eval import GEOMETRY, NCLS, S_CAPS, T_CAPS
-from test_torch_train import GRAD_FLOOR, GRAD_RTOL, LOSS_RTOL
+from test_torch_train import GRAD_FLOOR, GRAD_RTOL, LOSS_RTOL, _compare
 from u2mkd_tpu_torch.data import plumbing_host, synthetic, wgeom_host
 from u2mkd_tpu_torch.models import blocks, convert_weights
 from u2mkd_tpu_torch.models import sphereformer as sphereformer_mod
@@ -60,7 +66,8 @@ from u2mkd_tpu_torch.train import distill, optim, state
 CAPS = (256, 128, 64, 32, 16)
 TEACHER_CLASSES = 5
 GEN_SEED = 8
-KINDS = ("teacher", "teacher_device_plumbing", "distill", "split")
+KINDS = ("teacher", "teacher_device_plumbing", "distill", "split", "unet")
+UNET_PLANES = (8, 16, 16, 16, 16)
 
 
 @pytest.fixture(autouse=True)
@@ -89,14 +96,27 @@ def _teacher():
                          seed=3, device="cpu")
 
 
+def _unet():
+    """A narrow SphereFormer U-Net, drop path at 0.3, random weights from one
+    seed."""
+    return SphereFormerSemantic(num_classes=TEACHER_CLASSES, n_planes=UNET_PLANES,
+                                head_dim=4, drop_path_rate=0.3,
+                                generator=torch.Generator().manual_seed(3), **UNET_GEOMETRY)
+
+
+def _model_of(kind):
+    return {"teacher": _teacher, "unet": _unet}.get(kind.split("_")[0],
+                                                    lambda: _port_setup()[0])()
+
+
 def _steps(kind, remat):
     """Two steps of ``kind`` from one seed's weights and generator ->
     (the steps' aux, the second step's gradients, the state dict, the
     generator's state)."""
     gen = torch.Generator().manual_seed(GEN_SEED)
-    if kind.startswith("teacher"):
-        model = _teacher()
-        batch = _teacher_batch(model, host_plumbing=kind == "teacher")
+    if kind.startswith("teacher") or kind == "unet":
+        model = _model_of(kind)
+        batch = _teacher_batch(model, host_plumbing=kind != "teacher_device_plumbing")
         opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
         step = state.make_train_step(model, opt, CAPS, generator=gen, remat=remat)
     else:
@@ -128,7 +148,7 @@ def test_remat_step_equals_the_step(kind):
     got = _steps(kind, remat=True)
     assert sorted(ref[1]) == sorted(got[1]) and len(ref[1]) > 50
     assert not _differences(ref, got)
-    start = (_teacher() if kind.startswith("teacher") else _port_setup()[0]).state_dict()
+    start = _model_of(kind).state_dict()
     moved = [k for k, v in ref[2].items() if "running_" in k and not torch.equal(v, start[k])]
     frozen = [k for k in start if k.startswith("model_t.") and "running_" in k]
     assert len(moved) == len([k for k in start if "running_" in k]) - len(frozen)
@@ -151,7 +171,7 @@ def test_recompute_takes_the_forward_window_sorts(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", chip_smoke.REMAT_FAULTS)
-@pytest.mark.parametrize("kind", ["teacher", "distill"])
+@pytest.mark.parametrize("kind", ["teacher", "distill", "unet"])
 def test_planted_fault_breaks_the_equality(kind, fault):
     """Each planted fault makes remat=True differ from remat=False where it
     should: the generator fault in the gradients, the state and the
@@ -165,19 +185,6 @@ def test_planted_fault_breaks_the_equality(kind, fault):
     else:
         stats = [d for d in diff if "running_" in d]
         assert stats and not any(d.startswith("grad") for d in diff)
-
-
-def test_model_without_segments_raises():
-    """The SphereFormer U-Net has no remat segments: its remat step raises
-    and does not run without remat."""
-    model = SphereFormerSemantic(num_classes=TEACHER_CLASSES, n_planes=(8, 16, 16, 16, 16),
-                                 head_dim=4, drop_path_rate=0.0,
-                                 generator=torch.Generator().manual_seed(0))
-    raw = synthetic.make_batch(np.random.RandomState(3), 1, 512, voxel_size=0.3)
-    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd", LR)
-    step = state.make_train_step(model, opt, CAPS, remat=True)
-    with pytest.raises(NotImplementedError, match="no remat segments"):
-        step(raw)
 
 
 def test_data_parallel_remat_step_equals_the_step(tmp_path):
@@ -312,6 +319,46 @@ def test_teacher_remat_step_matches_jax():
         g = g.numpy()
         np.testing.assert_allclose(named[name].grad.numpy(), g, rtol=0,
                                    atol=GRAD_RTOL * max(np.abs(g).max(), floor), err_msg=name)
+
+
+def test_unet_remat_step_matches_jax():
+    """The port's U-Net step with remat (segments per level) against JAX's
+    ``make_train_step(..., remat=True)`` on a U-Net whose windows fit the
+    JAX band, drop path at 0.3 with the port's masks: the loss to
+    LOSS_RTOL and every gradient by the rule of
+    ``tests/test_torch_sphereformer_unet.py`` (GRAD_RTOL of its parameter's
+    largest entry, floored at GRAD_FLOOR of all)."""
+    model, port = _unet_models(drop_path_rate=0.3)
+    port.train()
+    batch_j, pb = _unet_batch(3, port)
+    variables = _unet_variables(model, batch_j)
+    port.load_state_dict(convert_weights.from_flax(variables["params"],
+                                                   variables["batch_stats"]))
+    _, plumbing_of, _ = state.batch_reader(port, CAPS)
+    masks = _port_forward_masks(port, torch.as_tensor(pb["feats"]), plumbing_of(pb),
+                                torch.Generator().manual_seed(GEN_SEED))
+    assert len(masks) == 10  # two drop paths in the attention block of each level
+
+    tx = _capturing(jax_optim.make_optimizer("sgd_spformer", LR))
+    st = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                              batch_stats=variables["batch_stats"],
+                              opt_state=tx.init(variables["params"]))
+    with jax_draws(masks) as calls:
+        st, aux = jax.jit(jax_state.make_train_step(model, tx, CAPS, remat=True))(
+            st, batch_j, jax.random.PRNGKey(1))
+    assert calls[0] >= len(masks) and calls[0] % len(masks) == 0
+    grads_j = convert_weights.from_flax(jax.tree_util.tree_map(np.asarray, st.opt_state[1]), {})
+
+    opt, _ = optim.make_optimizer(port.named_parameters(), "sgd_spformer", LR)
+    step = state.make_train_step(port, opt, CAPS, generator=torch.Generator().manual_seed(
+        GEN_SEED), remat=True)
+    loss = step(pb)["loss"].item()
+    np.testing.assert_allclose(loss, float(aux["loss"]), rtol=LOSS_RTOL)
+    named = dict(port.named_parameters())
+    assert sorted(grads_j) == sorted(named)
+    floor = GRAD_FLOOR * max(float(t.abs().max()) for t in grads_j.values())
+    for name, g in grads_j.items():
+        _compare(f"grad {name}", named[name].grad, g, GRAD_RTOL, floor)
 
 
 def _distill_grads(variables, pb, fault=None):

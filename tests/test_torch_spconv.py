@@ -18,6 +18,7 @@ from u2mkd_tpu.ops import voxelize as jax_voxelize
 from u2mkd_tpu.ops.pallas import spconv_kernel as jax_spk
 
 from u2mkd_tpu_torch.data import plumbing_host, synthetic
+from u2mkd_tpu_torch.models import plumbing
 from u2mkd_tpu_torch.ops import spconv, voxelize
 from u2mkd_tpu_torch.ops.kernels import spconv_kernel
 
@@ -102,8 +103,10 @@ def test_transposed_conv_matches_jax(rng):
 
 
 def test_point_voxel_transfer_matches_jax(rng):
-    """segment_mean (with the ``capacity`` drop bucket), point_to_voxel_mean
-    (-1 drops) and trilinear_devoxelize on the host plumbing's maps."""
+    """segment_mean (with the ``capacity`` drop bucket), and the plumbing's
+    point_to_voxel (-1 drops) and voxel_to_point against JAX's
+    point_to_voxel_mean and trilinear_devoxelize on the host plumbing's
+    maps."""
     pl, caps = _level(p=512, b=1)
     p2v, dvi, dvw = pl["p2v"][1][0], pl["dvi"][1][0], pl["dvw"][1][0]
     pf = rng.randn(len(p2v), 5).astype(np.float32)
@@ -112,12 +115,13 @@ def test_point_voxel_transfer_matches_jax(rng):
     out = voxelize.segment_mean(torch.from_numpy(pf), torch.from_numpy(seg), caps[1])
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
     ref = jax_voxelize.point_to_voxel_mean(jnp.asarray(pf), jnp.asarray(p2v), caps[1])
-    out = voxelize.point_to_voxel_mean(torch.from_numpy(pf), torch.from_numpy(p2v), caps[1])
+    out = plumbing.point_to_voxel(torch.from_numpy(pf)[None], torch.from_numpy(p2v)[None],
+                                  caps[1])[0]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
     vf = rng.randn(caps[1], 7).astype(np.float32)
     ref = jax_voxelize.trilinear_devoxelize(jnp.asarray(vf), jnp.asarray(dvi), jnp.asarray(dvw))
-    out = voxelize.trilinear_devoxelize(torch.from_numpy(vf), torch.from_numpy(dvi),
-                                        torch.from_numpy(dvw))
+    out = plumbing.voxel_to_point(torch.from_numpy(vf)[None], torch.from_numpy(dvi)[None],
+                                  torch.from_numpy(dvw)[None])[0]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 

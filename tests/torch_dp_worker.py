@@ -119,6 +119,40 @@ def task_distill(args, rank, group):
     return out
 
 
+def task_unet(args, rank, group):
+    """The SphereFormer U-Net's data-parallel train step (``sgd_spformer``)
+    on this rank's scan from the given weights, then its data-parallel and
+    single-process eval steps; then, from the same weights, the step with
+    its BN sums' backward reduction dropped on rank 1
+    (``chip_smoke.dropped_bn_backward_sum``)."""
+    from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
+    from u2mkd_tpu_torch.parallel import mesh
+    from u2mkd_tpu_torch.train import optim, state
+
+    import chip_smoke
+
+    caps, ncls = tuple(args["caps"]), args["model"]["num_classes"]
+    batch = args["batches"][rank]
+    out = {}
+    for tag in ("dp", "fault"):
+        model = SphereFormerSemantic(process_group=group, **args["model"])
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in args["state"].items()})
+        opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", args["lr"])
+        step = mesh.data_parallel_step(state.make_train_step(model, opt, caps,
+                                                             process_group=group), model, group)
+        with (chip_smoke.dropped_bn_backward_sum() if tag == "fault" and rank == 1
+              else contextlib.nullcontext()):
+            aux = step(batch)
+        out[tag] = {"loss": float(aux["loss"]), "state": _state(model)}
+        if tag == "dp":
+            ev = mesh.data_parallel_eval(state.make_eval_step(model, caps, ncls,
+                                                              process_group=group), model, group)
+            out[tag]["counts"] = {n: _np(v) for n, v in ev(batch)["counts"].items()}
+            local = state.make_eval_step(model, caps, ncls)(batch)
+            out[tag]["local_counts"] = {n: _np(v) for n, v in local["counts"].items()}
+    return out
+
+
 def task_remat(args, rank, group):
     """The stage-2 data-parallel train step on this rank's scan from the
     given weights, with dropout and drop path drawn from a generator of the
@@ -161,7 +195,7 @@ def task_card_teacher(args, rank, group):
 
 
 TASKS = {"bn": task_bn, "teacher": task_teacher, "distill": task_distill,
-         "remat": task_remat, "card_teacher": task_card_teacher}
+         "remat": task_remat, "card_teacher": task_card_teacher, "unet": task_unet}
 
 
 def free_port():

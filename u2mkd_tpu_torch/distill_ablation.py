@@ -16,7 +16,9 @@ training entry points and the nuScenes-mini configs, on a
   3. the scratch student trains on the same labels and rng stream with
      ``criterion.w_kl=0 criterion.w_feat=0``, every other term the same.
 
-The gap, distilled mIoU minus scratch mIoU (best validation epoch of each),
+The two arms run side by side, each a process of its own (their steps
+repeat bitwise, so neither changes the other's result). The gap,
+distilled mIoU minus scratch mIoU (best validation epoch of each),
 is what the teacher adds beyond the labels; with held-out classes, the
 held classes' IoU of each arm at its best epoch. Each run's output goes to
 ``WORKDIR/{teacher,distilled,scratch}.txt``. Runs go to the card unless
@@ -41,6 +43,7 @@ import re
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,6 +105,18 @@ def _held_iou(out: str, drop_classes: Optional[Sequence[int]]) -> Optional[float
     return sum(vals) / len(vals)
 
 
+def train_teacher(root: str, workdir: str, teacher_epochs: int, precision: str = "float32",
+                  cpu: bool = False):
+    """Step 1: the stage-1 teacher on full labels -> (its best checkpoint,
+    its last epoch's mIoU)."""
+    os.makedirs(workdir, exist_ok=True)
+    teacher_dir = os.path.join(workdir, "teacher")
+    flags = [f"precision={precision}"] + (["--cpu"] if cpu else [])
+    out = _logged(_command(STAGE1, teacher_dir, [
+        f"dataset.root={root}", f"num_epochs={teacher_epochs}", *flags]), workdir, "teacher")
+    return os.path.join(teacher_dir, "checkpoints", "max-iou-val-vox.pt"), _mious(out)[-1]
+
+
 def run_ablation(root=None, workdir=None, drop=0.9, teacher_epochs=3, student_epochs=2,
                  teacher_ckpt=None, teacher_miou=None, drop_classes=None,
                  precision="float32", cpu=False) -> Dict:
@@ -118,11 +133,7 @@ def run_ablation(root=None, workdir=None, drop=0.9, teacher_epochs=3, student_ep
 
     prebuilt_teacher = teacher_ckpt is not None
     if teacher_ckpt is None:
-        teacher_dir = os.path.join(workdir, "teacher")
-        out = _logged(_command(STAGE1, teacher_dir, [
-            f"dataset.root={root}", f"num_epochs={teacher_epochs}", *flags]), workdir, "teacher")
-        teacher_miou = _mious(out)[-1]
-        teacher_ckpt = os.path.join(teacher_dir, "checkpoints", "max-iou-val-vox.pt")
+        teacher_ckpt, teacher_miou = train_teacher(root, workdir, teacher_epochs, precision, cpu)
     elif teacher_miou is None:
         teacher_miou = float("nan")
 
@@ -135,11 +146,12 @@ def run_ablation(root=None, workdir=None, drop=0.9, teacher_epochs=3, student_ep
         # distilled arm can learn it from the teacher's dense predictions
         common.append("dataset.label_drop_classes=[" + ",".join(
             str(int(c)) for c in drop_classes) + "]")
-    out_d = _logged(_command(STAGE2, os.path.join(workdir, "distilled"), common), workdir,
-                    "distilled")
-    out_s = _logged(_command(STAGE2, os.path.join(workdir, "scratch"),
-                             common + ["criterion.w_kl=0.0", "criterion.w_feat=0.0"]),
-                    workdir, "scratch")
+    arms = {"distilled": common,
+            "scratch": common + ["criterion.w_kl=0.0", "criterion.w_feat=0.0"]}
+    with ThreadPoolExecutor(len(arms)) as pool:
+        runs = {name: pool.submit(_logged, _command(STAGE2, os.path.join(workdir, name), opts),
+                                  workdir, name) for name, opts in arms.items()}
+        out_d, out_s = runs["distilled"].result(), runs["scratch"].result()
     # best validation over the epochs: the MaxSaver protocol of the
     # reference and of evaluate.py
     distilled, scratch = max(_mious(out_d)), max(_mious(out_s))

@@ -26,13 +26,62 @@ from torch import nn
 
 from u2mkd_tpu_torch.models.blocks import MaskedBatchNorm, dense
 from u2mkd_tpu_torch.models.swiftnet import BatchNorm2d, conv1x1
+from u2mkd_tpu_torch.ops import segment, voxelize
+
+
+def _bilinear_corners(coords: torch.Tensor, h: int, w: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four bilinear corners of ``F.grid_sample(align_corners=True,
+    padding_mode="zeros")`` at coords [N, P, 2]: pixel rows [N, P, 4] into
+    each map's h * w pixels (-1 outside it) and weights [N, P, 4], in torch's
+    order (nw, ne, sw, se) and with its formulas."""
+    ix = (coords[..., 0] + 1) / 2 * (w - 1)
+    iy = (coords[..., 1] + 1) / 2 * (h - 1)
+    ix_nw, iy_nw = torch.floor(ix), torch.floor(iy)
+    ix_se, iy_se = ix_nw + 1, iy_nw + 1
+    corners = ((ix_nw, iy_nw, (ix_se - ix) * (iy_se - iy)),
+               (ix_se, iy_nw, (ix - ix_nw) * (iy_se - iy)),
+               (ix_nw, iy_se, (ix_se - ix) * (iy - iy_nw)),
+               (ix_se, iy_se, (ix - ix_nw) * (iy - iy_nw)))
+    rows, weights = [], []
+    for cx, cy, wt in corners:
+        inside = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+        rows.append(torch.where(inside, cy.long() * w + cx.long(), -1))
+        weights.append(wt)
+    return torch.stack(rows, -1), torch.stack(weights, -1)
+
+
+class _GridSample(torch.autograd.Function):
+    """``F.grid_sample`` (bilinear, zeros, align corners) whose backward
+    to the map adds each pixel's corner terms in a fixed order (point by
+    point, nw, ne, sw, se within a point: the CPU kernel's order) through a
+    sorted segment sum (``ops/segment.py``), where torch's card kernel adds
+    them with atomics. The coordinates get no gradient."""
+
+    @staticmethod
+    def forward(ctx, fmap, coords):
+        ctx.save_for_backward(coords)
+        ctx.map_shape = fmap.shape
+        return F.grid_sample(fmap, coords[:, None], mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        n, c, h, w = ctx.map_shape
+        rows, wts = _bilinear_corners(coords, h, w)                 # [N, P, 4]
+        base = torch.arange(n, device=rows.device)[:, None, None] * (h * w)
+        ids = torch.where(rows >= 0, rows + base, -1)
+        terms = g[:, :, 0].transpose(1, 2)[:, :, None, :] * wts[..., None]   # [N, P, 4, C]
+        grad = segment.segment_sum(terms.reshape(-1, c), segment.plan(ids, n * h * w))
+        return grad.view(n, h, w, c).permute(0, 3, 1, 2), None
 
 
 def feature_gather(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of fmap [N, C, H, W] at coords [N, P, 2] ((x, y) in
-    [-1, 1], align corners, zeros outside) -> [N, P, C]."""
-    out = F.grid_sample(fmap, coords[:, None], mode="bilinear", padding_mode="zeros",
-                        align_corners=True)                    # [N, C, 1, P]
+    [-1, 1], align corners, zeros outside) -> [N, P, C]. The coordinates
+    carry no gradient."""
+    out = _GridSample.apply(fmap, coords.detach())             # [N, C, 1, P]
     return out[:, :, 0].transpose(1, 2)
 
 
@@ -42,23 +91,20 @@ def point_to_grid(pfeats: torch.Tensor, coords: torch.Tensor, masks: torch.Tenso
     [h, w] grid: coords [B, NCAM, P, 2], masks [B, NCAM, P] -> [B*NCAM, C, h,
     w]. Pixel uv = floor((coord + 1) / 2 * (dim - 1)); points sharing a
     pixel average; masked points and points off the grid go to the drop
-    bucket."""
+    bucket. Each pixel's sum adds its points in index order (a sorted
+    segment sum, ``ops/segment.py``)."""
     b, ncam, _, _ = coords.shape
     h, w = size
-    c = pfeats.shape[-1]
     u = torch.floor((coords[..., 0] + 1.0) * 0.5 * (w - 1)).long()
     v = torch.floor((coords[..., 1] + 1.0) * 0.5 * (h - 1)).long()
     ok = masks & (u >= 0) & (u < w) & (v >= 0) & (v < h)
-    drop = b * ncam * h * w
-    base = torch.arange(b * ncam, device=coords.device).reshape(b, ncam, 1) * (h * w)
-    seg = torch.where(ok, base + v * w + u, drop)              # [B, NCAM, P]
-    sums = pfeats.new_zeros(drop + 1, c)
+    seg = torch.where(ok, v * w + u, h * w)                    # [B, NCAM, P]
+    grids = []
     for bi in range(b):
         for ci in range(ncam):
-            sums.index_add_(0, seg[bi, ci], pfeats[bi])
-    counts = torch.bincount(seg.reshape(-1), minlength=drop + 1)
-    grid = sums[:drop] / counts[:drop].clamp(min=1)[:, None].to(pfeats.dtype)
-    return grid.reshape(b * ncam, h, w, c).permute(0, 3, 1, 2)
+            grids.append(voxelize.segment_mean(pfeats[bi], seg[bi, ci], h * w))
+    grid = torch.stack(grids)                                   # [B*NCAM, h*w, C]
+    return grid.reshape(b * ncam, h, w, -1).permute(0, 3, 1, 2)
 
 
 def feature_fetch(fmaps: torch.Tensor, coords: torch.Tensor,

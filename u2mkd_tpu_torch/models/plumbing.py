@@ -21,7 +21,7 @@ import torch
 
 from u2mkd_tpu_torch.core.device import resolve_device
 from u2mkd_tpu_torch.core.structures import LevelContext, VoxelGrid, WindowGeom
-from u2mkd_tpu_torch.ops import hashing, spconv, voxelize
+from u2mkd_tpu_torch.ops import hashing, segment, spconv, voxelize
 
 
 @dataclass
@@ -259,15 +259,55 @@ def recursive_vox_xyz(xyz0: torch.Tensor,
     return tuple(out)
 
 
+def batch_plan(ids: torch.Tensor, rows: int, negative_reads_row0: bool = False
+               ) -> segment.SegmentPlan:
+    """The segment plan (``ops/segment.py``) of a batch's row map ``ids``
+    [B, ...] into ``rows`` rows a sample, over the batch's B * rows rows
+    (sample b's row r is b * rows + r; ids outside [0, rows) dropped, or a
+    negative id read as row 0 with ``negative_reads_row0``). The maps are
+    fixed per batch, so the plan is made once and kept on ``ids`` for
+    every later call of the batch's forward and backward."""
+    memo = getattr(ids, "_batch_plans", None)
+    if memo is None:
+        memo = {}
+        ids._batch_plans = memo
+    key = (rows, negative_reads_row0)
+    if key not in memo:
+        b = ids.shape[0]
+        base = torch.arange(b, device=ids.device).view((b,) + (1,) * (ids.dim() - 1)) * rows
+        ids = ids.long().clamp(min=0) if negative_reads_row0 else ids.long()
+        ok = (ids >= 0) & (ids < rows)
+        memo[key] = segment.plan(torch.where(ok, ids + base, -1), b * rows)
+    return memo[key]
+
+
+def batch_rows(x: torch.Tensor, ids: torch.Tensor,
+               negative_reads_row0: bool = False) -> torch.Tensor:
+    """Rows [B, ..., C] of each sample's x [B, R, C] at its ``ids`` [B, ...]
+    (zero where an id is outside [0, R), or row 0 for a negative id with
+    ``negative_reads_row0``); the backward sums each row's gradients
+    through the batch's plan of ``ids`` (:func:`batch_plan`)."""
+    plan = batch_plan(ids, x.shape[1], negative_reads_row0)
+    rows = segment.take(x.reshape(-1, x.shape[-1]), plan.rows, plan)
+    return rows.view(tuple(ids.shape) + (x.shape[-1],))
+
+
 def point_to_voxel(pfeats: torch.Tensor, p2v: torch.Tensor,
                    capacity: int) -> torch.Tensor:
-    """Batched scatter-mean of point features [B, P, C] onto voxel rows."""
-    return torch.stack([voxelize.point_to_voxel_mean(f, m, capacity)
-                        for f, m in zip(pfeats, p2v)])
+    """Batched scatter-mean of point features [B, P, C] onto voxel rows
+    [B, capacity, C] (``p2v`` [B, P], -1 or ``capacity`` drop), the sums in
+    a fixed order through the batch's plan of ``p2v``."""
+    b, _, c = pfeats.shape
+    out = voxelize.segment_mean(pfeats.reshape(-1, c), None, b * capacity,
+                                plan=batch_plan(p2v, capacity))
+    return out.view(b, capacity, c)
 
 
 def voxel_to_point(vfeats: torch.Tensor, idx8: torch.Tensor,
                    w8: torch.Tensor) -> torch.Tensor:
-    """Batched trilinear devoxelize [B, V, C] -> [B, P, C]."""
-    return torch.stack([voxelize.trilinear_devoxelize(f, i, w)
-                        for f, i, w in zip(vfeats, idx8, w8)])
+    """Batched trilinear devoxelize [B, V, C] -> [B, P, C]: the 8 neighbour
+    rows ``idx8`` [B, P, 8] (-1 absent) blended by ``w8``; the gather's
+    backward sums in a fixed order (:func:`batch_rows`)."""
+    g = batch_rows(vfeats, idx8)
+    w = torch.where(idx8 >= 0, w8, 0.0).to(vfeats.dtype)
+    return torch.einsum("bpkc,bpk->bpc", g, w)

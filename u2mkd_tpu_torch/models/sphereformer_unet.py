@@ -129,9 +129,25 @@ class UBlock(nn.Module):
 
     def forward(self, feats: torch.Tensor, plumbing: UNetPlumbing,
                 generator: Optional[torch.Generator] = None,
-                xyz: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                xyz: Optional[Sequence[torch.Tensor]] = None,
+                run: Optional[blocks.Remat] = None) -> torch.Tensor:
         """``xyz``: the recursive voxel means of every level, where the
-        plumbing carries no window geometry."""
+        plumbing carries no window geometry. ``run`` (a
+        :class:`blocks.Remat`) runs this level's work before the child and
+        its work after it as two segments; the recursion into the child
+        stays outside both, so no segment holds a deeper level."""
+        run = run if run is not None else blocks.Remat()
+        if not self.has_child:
+            return run(self.before_child, feats, plumbing, generator, xyz)
+        feats, d = run(self.before_child, feats, plumbing, generator, xyz)
+        child = self.u(d, plumbing, generator, xyz, run)
+        return run(self.after_child, feats, child, plumbing)
+
+    def before_child(self, feats: torch.Tensor, plumbing: UNetPlumbing,
+                     generator: Optional[torch.Generator],
+                     xyz: Optional[Sequence[torch.Tensor]]):
+        """The blocks, the attention and, above the deepest level, the down
+        BN and conv -> feats (and the child's input)."""
         lv = plumbing.levels[self.level_idx]
         for i in range(self.block_reps):
             feats = getattr(self, f"block{i}")(feats, lv)
@@ -139,16 +155,23 @@ class UBlock(nn.Module):
             feats = self.transformer_block(
                 feats, None if xyz is None else xyz[self.level_idx], lv.grid.mask,
                 P.level_geom(plumbing, self.level_idx), generator)
-        if self.has_child:
-            nxt = plumbing.levels[self.level_idx + 1]
-            d = torch.relu(self.down_bn(feats, lv.grid.mask))
-            d = self.down_conv(d, nxt.down_nbr8)
-            child = self.u(d, plumbing, generator, xyz)
-            up = torch.relu(self.up_bn(child, nxt.grid.mask))
-            up = self.up_conv(up, lv.up_parent, lv.up_koff)
-            feats = torch.cat([feats, up], dim=-1)
-            for i in range(self.block_reps):
-                feats = getattr(self, f"tail{i}")(feats, lv)
+        if not self.has_child:
+            return feats
+        nxt = plumbing.levels[self.level_idx + 1]
+        d = torch.relu(self.down_bn(feats, lv.grid.mask))
+        return feats, self.down_conv(d, nxt.down_nbr8)
+
+    def after_child(self, feats: torch.Tensor, child: torch.Tensor,
+                    plumbing: UNetPlumbing) -> torch.Tensor:
+        """The up BN and conv of the child's output, the skip concat and the
+        tail blocks."""
+        lv = plumbing.levels[self.level_idx]
+        nxt = plumbing.levels[self.level_idx + 1]
+        up = torch.relu(self.up_bn(child, nxt.grid.mask))
+        up = self.up_conv(up, lv.up_parent, lv.up_koff)
+        feats = torch.cat([feats, up], dim=-1)
+        for i in range(self.block_reps):
+            feats = getattr(self, f"tail{i}")(feats, lv)
         return feats
 
 
@@ -197,28 +220,31 @@ class SphereFormerSemantic(nn.Module):
     def forward(self, pfeats: torch.Tensor, plumbing: UNetPlumbing,
                 generator: Optional[torch.Generator] = None, remat: bool = False):
         """In training, ``generator`` (on the model's device) draws the
-        drop-path masks. ``remat`` raises: the recursive ``UBlock`` has no
-        segments (a level's checkpoint would hold the deeper levels), and
-        no builder or config trains this model."""
-        if remat:
-            raise NotImplementedError("SphereFormerSemantic has no remat segments: train it "
-                                      "with remat=False")
+        drop-path masks. ``remat`` runs, when gradients are on, the stem
+        with its round trip, each level's work before its child and after
+        it, and the output BN with the head as checkpointed segments
+        (``blocks.Remat``), as JAX's ``make_train_step(remat=True)``
+        recomputes the forward in the backward."""
+        run = blocks.Remat(remat, generator)
+        xyz = None
+        if plumbing.wgeom is None:
+            xyz = P.recursive_vox_xyz(plumbing.vox_xyz[0], plumbing.levels)
+        x = run(self.stem, pfeats, plumbing)
+        x = self.unet(x, plumbing, generator, xyz, run)
+        return {"x_vox": run(self.head, x, plumbing)}
+
+    def stem(self, pfeats: torch.Tensor, plumbing: UNetPlumbing) -> torch.Tensor:
+        """The first voxelize, the stem conv and the reference's round trip
+        after it: devoxelize to the points, then pool again per voxel."""
         lv0 = plumbing.levels[0]
         cap0 = lv0.grid.capacity
         x = point_to_voxel(pfeats, plumbing.p2v0_feats_seg, cap0)
         x = self.input_conv(x, lv0)
-        # the reference's round trip after the stem: devoxelize to the
-        # points, then pool again per voxel
         z0 = voxel_to_point(x, plumbing.devox_idx[0], plumbing.devox_w[0])
-        x = point_to_voxel(z0, plumbing.p2v0_feats_seg, cap0)
-        xyz = None
-        if plumbing.wgeom is None:
-            xyz = P.recursive_vox_xyz(plumbing.vox_xyz[0], plumbing.levels)
-        x = self.unet(x, plumbing, generator, xyz)
-        x = torch.relu(self.output_bn(x, lv0.grid.mask))
-        # each point reads its own level-0 voxel row (zero for dead points)
-        rows = plumbing.p2v[0].long()
-        safe = rows.clamp(0, x.shape[1] - 1)
-        z = torch.gather(x, 1, safe[..., None].expand(-1, -1, x.shape[-1]))
-        z = torch.where(rows[..., None] >= 0, z, 0.0)
-        return {"x_vox": self.classifier(z)}
+        return point_to_voxel(z0, plumbing.p2v0_feats_seg, cap0)
+
+    def head(self, x: torch.Tensor, plumbing: UNetPlumbing) -> torch.Tensor:
+        """norm-relu, then each point reads its own level-0 voxel row (zero
+        for a dead point) through the linear classifier."""
+        x = torch.relu(self.output_bn(x, plumbing.levels[0].grid.mask))
+        return self.classifier(P.batch_rows(x, plumbing.p2v[0]))

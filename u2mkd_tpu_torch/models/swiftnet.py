@@ -31,13 +31,79 @@ from u2mkd_tpu_torch.ops.precision import cast_compute
 from u2mkd_tpu_torch.parallel import mesh
 
 
+def repeatable_convolutions() -> None:
+    """cuDNN takes only its deterministic convolution algorithms, chosen
+    without the autotuner, so that an image convolution's gradients repeat
+    bitwise on the card; every model with an image branch sets it when it
+    is built."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _interp_matrix(n_out: int, n_in: int, device, dtype) -> torch.Tensor:
+    """[n_out, n_in] weights of a 1-D align-corners linear resize, torch's
+    source index and lambdas (in f64 for f64 maps, else f32)."""
+    scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+    src = torch.arange(n_out, device=device, dtype=dtype) * scale
+    i0 = torch.floor(src).long().clamp(max=n_in - 1)
+    i1 = torch.where(i0 < n_in - 1, i0 + 1, i0)
+    l1 = src - i0
+    m = torch.zeros(n_out, n_in, device=device, dtype=dtype)
+    rows = torch.arange(n_out, device=device)
+    m[rows, i0] = 1.0 - l1
+    m[rows, i1] += l1
+    return m
+
+
+def _pool_matrix(n_out: int, n_in: int, device, dtype) -> torch.Tensor:
+    """[n_out, n_in] weights of a 1-D adaptive average pool: row i averages
+    inputs floor(i n_in / n_out) .. ceil((i + 1) n_in / n_out) - 1."""
+    m = torch.zeros(n_out, n_in, device=device, dtype=dtype)
+    for i in range(n_out):
+        lo, hi = (i * n_in) // n_out, -((-(i + 1) * n_in) // n_out)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    return m
+
+
+class _Separable(torch.autograd.Function):
+    """``op(x)`` for a map x [N, C, H, W] whose op is linear and separable,
+    out = A_h x A_w^T, with the backward A_h^T g A_w as two matrix
+    products, where torch's card kernels for the bilinear resize and the
+    adaptive pool add the gradient with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, op, a_h_fn, a_w_fn):
+        out = op(x)
+        dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+        ctx.mats = (a_h_fn(out.shape[-2], x.shape[-2], x.device, dt),
+                    a_w_fn(out.shape[-1], x.shape[-1], x.device, dt))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a_h, a_w = ctx.mats
+        return a_h.t().to(g.dtype) @ (g @ a_w.to(g.dtype)), None, None, None
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of x [N, C, H, W] to ``size`` with
     ``align_corners=True`` (sample grid linspace(0, H-1, h); an output size
-    of 1 samples index 0), as the JAX package's resize."""
+    of 1 samples index 0), as the JAX package's resize. Its backward is two
+    matrix products, repeatable on the card."""
     if tuple(x.shape[-2:]) == tuple(size):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+    size = tuple(int(d) for d in size)
+    return _Separable.apply(
+        x, lambda t: F.interpolate(t, size=size, mode="bilinear", align_corners=True),
+        _interp_matrix, _interp_matrix)
+
+
+def adaptive_avg_pool(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``F.adaptive_avg_pool2d`` whose backward is two matrix products,
+    repeatable on the card."""
+    size = tuple(int(d) for d in size)
+    return _Separable.apply(x, lambda t: F.adaptive_avg_pool2d(t, size), _pool_matrix,
+                            _pool_matrix)
 
 
 def _trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
@@ -186,7 +252,7 @@ class SpatialPyramidPooling(nn.Module):
         for i in range(self.num_levels):
             g = self.grids[i]
             # Python's round, as the JAX package (and the reference) take it
-            pooled = F.adaptive_avg_pool2d(x, (g, max(1, round(ar * g))))
+            pooled = adaptive_avg_pool(x, (g, max(1, round(ar * g))))
             lvl = getattr(self, f"spp{i}")(pooled)
             levels.append(resize_bilinear_align_corners(lvl, (h, w)))
         return self.spp_fuse(torch.cat(levels, dim=1))
@@ -220,6 +286,7 @@ class SwiftNetResNet(nn.Module):
                  num_features: Sequence[int] = (128, 128, 128), generator=None,
                  process_group=None):
         super().__init__()
+        repeatable_convolutions()
         self.layers = tuple(layers)
         nf = num_features[0]
         self.img_cs = [64, 64, 128, 256, nf]

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from u2mkd_tpu_torch.core.structures import LevelContext, VoxelGrid
-from u2mkd_tpu_torch.ops import hashing
+from u2mkd_tpu_torch.ops import hashing, segment
 from u2mkd_tpu_torch.ops.precision import cast_compute
 
 
@@ -41,18 +41,9 @@ def rev_perm_27() -> np.ndarray:
 
 def gather_rows(feats: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``feats[rows]`` with zero rows where ``rows`` is -1 or >= len(feats).
-
-    An absent entry reads row (its position mod V), not row 0: the value is
-    masked to zero either way, but the gather's backward (an accumulating
-    ``index_put``, which sums each run of one repeated row serially) then
-    meets no run of tens of thousands of entries on one row. Only zeros
-    land on those rows, so the gradient is unchanged."""
-    v = feats.shape[0]
-    ok = (rows >= 0) & (rows < v)
-    spread = torch.arange(rows.numel(), device=rows.device).view(rows.shape) % v
-    g = feats[torch.where(ok, rows.long(), spread)]
-    return torch.where(ok[..., None], g, torch.zeros((), dtype=g.dtype,
-                                                     device=g.device))
+    The backward sums each row's gradients in a fixed order
+    (``ops/segment.take``)."""
+    return segment.take(feats, rows)
 
 
 def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor,
@@ -90,8 +81,9 @@ def sparse_conv_transposed_2x2(feats: torch.Tensor, up_parent: torch.Tensor,
     g, w = cast_compute(gather_rows(feats, up_parent), weight)
     y = g.float() @ w.float().permute(1, 0, 2).reshape(cin, k * cout)
     y = y.view(-1, k, cout)
-    sel = up_koff.long().clamp(0, k - 1)[:, None, None].expand(-1, 1, cout)
-    return y.gather(1, sel)[:, 0].to(feats.dtype)
+    # each row's own slice: rows v * k + koff of the [V * k, Cout] products
+    sel = torch.arange(y.shape[0], device=y.device) * k + up_koff.long().clamp(0, k - 1)
+    return segment.take(y.view(-1, cout), sel).to(feats.dtype)
 
 
 def build_nbr(grid: VoxelGrid, ks: int) -> torch.Tensor:

@@ -1,33 +1,34 @@
-"""Point <-> voxel transfer: voxelize, the point and trilinear queries,
-scatter-mean and trilinear devoxelize.
+"""Point <-> voxel transfer: voxelize, scatter-mean, and the point and
+trilinear queries.
 
 Port of ``u2mkd_tpu/ops/voxelize.py``. Per sample, in the JAX package's
 layout: points ``[P, *]``, voxel tables ``[V, *]`` sorted by packed key.
 Segment id ``capacity`` is the drop bucket. The queries build the plumbing
 on the device (``models/plumbing.build_plumbing``); the host pipeline
-(``data/plumbing_host.py``) resolves the same lookups on the CPU.
+(``data/plumbing_host.py``) resolves the same lookups on the CPU. The
+batched point-to-voxel mean and trilinear devoxelize of a forward are
+``models/plumbing.point_to_voxel`` and ``voxel_to_point``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from u2mkd_tpu_torch.ops import hashing
-from u2mkd_tpu_torch.ops.spconv import gather_rows, kernel_offsets
+from u2mkd_tpu_torch.ops import hashing, segment
+from u2mkd_tpu_torch.ops.spconv import kernel_offsets
 
 
-def segment_mean(feats: torch.Tensor, seg_ids: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Mean of ``feats`` [P, C] rows grouped by ``seg_ids`` [P] into
-    ``capacity`` buckets; ids outside [0, capacity) are dropped."""
-    valid = (seg_ids >= 0) & (seg_ids < capacity)
-    seg = torch.where(valid, seg_ids, capacity).long()
-    sums = feats.new_zeros(capacity + 1, feats.shape[-1]).index_add_(
-        0, seg, torch.where(valid[:, None], feats, 0.0))[:capacity]
-    counts = torch.zeros(capacity + 1, dtype=torch.int32, device=feats.device).index_add_(
-        0, seg, valid.to(torch.int32))[:capacity]
-    return sums / counts.clamp(min=1)[:, None].to(feats.dtype)
+def segment_mean(feats: torch.Tensor, seg_ids: torch.Tensor, capacity: int,
+                 plan: Optional[segment.SegmentPlan] = None) -> torch.Tensor:
+    """Mean of ``feats`` [N, C] rows grouped by ``seg_ids`` [N] into
+    ``capacity`` buckets; ids outside [0, capacity) are dropped. The sums
+    run in a fixed order (``ops/segment.py``), through ``plan`` where the
+    caller has the ids' plan already."""
+    p = plan if plan is not None else segment.plan(seg_ids, capacity)
+    sums = segment.segment_sum(feats, p)
+    return sums / segment.counts(p).clamp(min=1)[:, None].to(feats.dtype)
 
 
 def voxelize_initial(pcoords: torch.Tensor, pfeats: torch.Tensor, pmask: torch.Tensor,
@@ -80,20 +81,3 @@ def voxel_to_point_query(pcoords: torch.Tensor, pmask: torch.Tensor, stride: int
     w8 = trilinear_weights(pcoords, stride).float()
     w8 = torch.where(idx8 >= 0, w8, 0.0)
     return idx8, w8 / (w8.sum(dim=-1, keepdim=True) + 1e-8)
-
-
-def point_to_voxel_mean(pfeats: torch.Tensor, p2v: torch.Tensor,
-                        capacity: int) -> torch.Tensor:
-    """Scatter-mean point features [P, C] onto voxel rows (``p2v`` [P], -1 or
-    ``capacity`` drop)."""
-    seg = torch.where((p2v >= 0) & (p2v < capacity), p2v, capacity)
-    return segment_mean(pfeats, seg, capacity)
-
-
-def trilinear_devoxelize(vfeats: torch.Tensor, idx8: torch.Tensor,
-                         w8: torch.Tensor) -> torch.Tensor:
-    """Blend the 8 neighbour voxel rows of each point: vfeats [V, C],
-    idx8 [P, 8] (-1 absent), w8 [P, 8] -> [P, C]."""
-    g = gather_rows(vfeats, idx8)                              # [P, 8, C]
-    w = torch.where(idx8 >= 0, w8, 0.0).to(vfeats.dtype)
-    return torch.einsum("pkc,pk->pc", g, w)

@@ -45,7 +45,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.utils.checkpoint
 
-from u2mkd_tpu_torch.ops import hashing
+from u2mkd_tpu_torch.ops import hashing, segment
 from u2mkd_tpu_torch.ops.precision import cast_compute, compute_dtype, round_compute
 
 # pairs per chunk, times heads: bounds the plain versions' transient memory
@@ -119,8 +119,9 @@ def window_attention_plain(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
         smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
             0, seg[:, None].expand(-1, h), s, "amax")
         e = torch.exp(s - smax[seg])
-        den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
-        num = torch.zeros(hi - lo, h, d, device=dev).index_add(0, seg, e[..., None] * v[kj])
+        rows = segment.plan(seg, hi - lo)
+        den = segment.segment_sum(e, rows)
+        num = segment.segment_sum(e[..., None] * v[kj], rows)
         outs.append(num / den[..., None])
     return torch.cat(outs)
 
@@ -252,11 +253,12 @@ def _rpe_chunk(q, k, v, qT, kT, tv, cq, r, qi, kj, lo: int, hi: int, g: int,
         smax = torch.full((hi - lo, h), -math.inf, device=dev).scatter_reduce(
             0, seg[:, None].expand(-1, h), s.detach(), "amax")
     e = torch.exp(s - smax[seg])
-    den = torch.zeros(hi - lo, h, device=dev).index_add(0, seg, e)
+    rows = segment.plan(seg, hi - lo)
+    den = segment.segment_sum(e, rows)
     p = e / den[seg]
     val = (v[kj] + tv[idx[:, 0], 0] + tv[idx[:, 1], 1]
            + tv[idx[:, 2], 2])                                        # [M, h, d]
-    out = torch.zeros(hi - lo, h, d, device=dev).index_add(0, seg, p[..., None] * val)
+    out = segment.segment_sum(p[..., None] * val, rows)
     return out, smax + torch.log(den)
 
 
@@ -341,16 +343,16 @@ def window_attention_rpe_bwd(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tenso
         for ax in range(3):
             dp = dp + _lookup(edo, qi, idx, ax)
         ds = p * (dp - dfac[qi])
-        dq.index_add_(0, qi, ds[..., None] * k[kj])
-        dk.index_add_(0, kj, ds[..., None] * q[qi])
-        dv.index_add_(0, kj, p[..., None] * do[qi])
+        dq = segment.index_add(dq, qi, ds[..., None] * k[kj])
+        dk = segment.index_add(dk, kj, ds[..., None] * q[qi])
+        dv = segment.index_add(dv, kj, p[..., None] * do[qi])
         for ax in range(3):
             col = ax * l2 + idx[:, ax][:, None]                          # [M, 1]
             fq = (qi[:, None] * h + heads) * 3 * l2 + col                # [M, h]
             fk = (kj[:, None] * h + heads) * 3 * l2 + col
-            mq.index_add_(0, fq.reshape(-1), ds.reshape(-1))
-            mk.index_add_(0, fk.reshape(-1), ds.reshape(-1))
-            pm.index_add_(0, fq.reshape(-1), p.reshape(-1))
+            mq = segment.index_add(mq, fq.reshape(-1), ds.reshape(-1))
+            mk = segment.index_add(mk, fk.reshape(-1), ds.reshape(-1))
+            pm = segment.index_add(pm, fq.reshape(-1), p.reshape(-1))
     shape = (n, h, 3, l2)
     return dq, dk, dv, mq.view(shape), mk.view(shape), pm.view(shape)
 
@@ -408,9 +410,13 @@ def _banded_chunk(q, k, v, key, qT, kT, tv, uq, cq, r, t0: int, t1: int, tile: i
     out = torch.einsum("ntwh,nwhd->nthd", p, v[kflat].view(n_t, width, h, -1))
     for ax, b in enumerate(vbins):
         # m[i, h, l] = sum_j p_ij [bin_ij = l], bins outside the table dropped
+        # as a sum over the rows (query, bin, head) of the flattened m
         ok = (b >= 0) & (b < l2)
-        idx = torch.where(ok, b, l2)[..., None].expand(-1, -1, -1, h)
-        m = p.new_zeros(n_t, tile, l2 + 1, h).scatter_add_(2, idx, p)[:, :, :l2]
+        qrow = torch.arange(n_t * tile, device=dev).view(n_t, tile, 1, 1)
+        flat = ((qrow * l2 + b[..., None]) * h + torch.arange(h, device=dev))
+        flat = torch.where(ok[..., None], flat, -1)
+        m = segment.segment_sum(p.reshape(-1), segment.plan(flat, n_t * tile * l2 * h))
+        m = m.view(n_t, tile, l2, h)
         out = out + torch.einsum("ntlh,lhd->nthd", round_compute(m), tv[:, ax])
     return out.reshape(n_t * tile, h, -1)
 

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from u2mkd_tpu_torch.models import plumbing
 from u2mkd_tpu_torch.models.tsd import TSDFull
 from u2mkd_tpu_torch.ops import losses
 from u2mkd_tpu_torch.parallel import mesh
@@ -83,8 +84,7 @@ def _distill_losses(stu: Dict, x_vox_t2s: torch.Tensor, feat_t2s: torch.Tensor,
 def _gather_t2s(x: torch.Tensor, t2s: torch.Tensor) -> torch.Tensor:
     """Teacher rows x [B, Pt, C] -> [B, Ps, C] in student point order (rows
     without a teacher point read row 0; their mask drops them)."""
-    idx = t2s.clamp(min=0)[..., None].expand(-1, -1, x.shape[-1])
-    return torch.gather(x, 1, idx)
+    return plumbing.batch_rows(x, t2s, negative_reads_row0=True)
 
 
 def make_distill_train_step(model: TSDFull, optimizer: torch.optim.Optimizer,
