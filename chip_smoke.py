@@ -89,7 +89,9 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
  10. student: three stage-2 student inference requests (``TSDFull`` cr=1.0,
      cr_t=2.0; P=65536, capacities (65536 ... 4096), 6 cameras at 360x640,
      B=1) through ``train.distill.make_distill_eval_step`` without the
-     teacher, counting K1 and K3 launches; three more under
+     teacher, counting K1 and K3 launches; the first three times more with
+     cuDNN's TF32 on, as the entry points run it (device ms, logits against
+     the IEEE request's); three more under
      ``torch.profiler``; one through the plain versions on the card (the
      voxel and pixel heads' logits and argmax agreement); and one request
      with the teacher (cr_t=2.0 on its own 131072-point cloud), then again
@@ -117,7 +119,9 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      JAX package's criterion (mean |bf16 - f32| over mean |f32| < 0.1) and
      their argmax agreement; three teacher train steps (34 / 33 / 34 / 8 /
      8 / 8 bf16 launches) and phase 7's whole-step check in bf16, its
-     tolerance from plain bf16 steps nudged by one bf16 ulp; three student
+     tolerance from steps whose every launch runs its plain version with its
+     f32 result nudged by one f32 ulp, its fault planted at K1b launch 17
+     as in f32; three student
      requests and one profiled, the image branch's convolutions summed by
      kernel; three stage-2 train steps (five finite loss terms, the teacher
      bitwise frozen); the policy f32 again after the phase;
@@ -166,7 +170,8 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      u2mkd_tpu_torch.train_lc_nusc_tsd_full`` on the tiny TSD config with
      that run's checkpoint as its frozen teacher, both with
      ``model.pallas_attention=true``: losses finite, validation mIoU and
-     checkpoints written, the teacher restored bitwise; and stage 1 on the
+     checkpoints written, the teacher restored bitwise, each one's
+     ``numerics:`` start line CLI_NUMERICS; and stage 1 on the
      tiny config as it stands (the banded attention), K1 launched and K3
      never;
  15. data: a nuScenes-format set from ``tools/make_nusc_mini.py`` in a
@@ -197,7 +202,14 @@ Phases 14, 16 and 17 run their entry points in subprocesses, in turn, in
 a thread beside phase 13e (the ablation, whose work is subprocesses too),
 so that the command stays inside its time limit: their wall seconds and
 the ablation's include each other. Phase 15 runs after both, alone, on the
-same set, since it times its loop. Every phase but 13b runs in f32. Then the command's wall time, a
+same set, since it times its loop. Every phase but 13b runs in f32, and
+in IEEE f32: this script turns TF32 off in cuBLAS and cuDNN, so that each
+kernel is held to its plain version in IEEE f32, where the entry points
+(phases 14, 16, 17 and the DP CLI) run under torch's defaults, cuDNN's
+convolutions in TF32 (``ops/precision.py``), and print so; phase 10 times
+one request both ways. ``--phases`` runs named phases alone (bf16, cli,
+student, data_parallel, published_batch, repeatable, ablation,
+ablation_bisect) and prints no result line. Then the command's wall time, a
 ``{"kernels": [...]}`` line (an f32 entry per kernel and a bf16 entry for
 each but K2), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -270,29 +282,36 @@ GRAD_RTOL = 1e-3
 GRAD_SPREADS = 4.0
 GRAD_FLOOR = 1e-3
 NUDGE_SEEDS = (7, 8, 9)
-# the nudge's size: one ulp (the dtype's epsilon) of the dtype the step
-# computes in
-NUDGE_ULP = {"f32": 2.0 ** -23, "bf16": 2.0 ** -7}
-# In bf16 the rule above passes anything: one bf16 ulp of rounding moves
-# the worst parameter's gradient (a BN weight's: a sum that cancels) by
-# 0.9-1.3 of its largest entry, so its tolerance passes a zeroed gradient.
-# The bf16 step holds each parameter to its own spread instead, measured as
-# the rest are: the kernel step's gradient within GRAD_SPREADS times the
-# median of the three nudged steps' differences for that parameter, in L2
-# over its entries relative to the plain step's (the largest entry is one
-# sample of thousands, L2 their sum); the planted fault must miss its
-# parameter's tolerance by FAULT_MARGIN
+# the nudge's size: one f32 ulp (its epsilon)
+NUDGE_ULP = 2.0 ** -23
+# In bf16 a nudge of the weights is the wrong kind: the kernel step and
+# the plain one read the same bf16-rounded operands and differ only in the
+# order their f32 accumulators add, where one bf16 ulp on every weight
+# moves the deep layers' gradients so far that a zeroed K1b gradient passed
+# from the level-1 convs on. So the bf16 step's reference and its nudged
+# steps run the kernels' own autograd functions with every launch (K1, dX,
+# K1b, K3-K5) through its plain version (:func:`plain_launches`), so that
+# every result is rounded where the kernels' are, and a nudged step
+# multiplies each launch's f32 result by (1 + NUDGE_ULP N(0, 1)) before it
+# is rounded, drawn from one of NUDGE_SEEDS: a change of the kind a kernel
+# makes. (A kernel's sums differ by a few f32 ulps, not one, and move more
+# bf16 roundings than a nudge; the gradients' spread does not grow with the
+# nudge's size, as the row's shares of moved roundings and PERF.md show.)
+# As with the weight nudge, each parameter is held to its own spread (the
+# global rule's worst parameter is a BN weight's, a sum that cancels, whose
+# spread would pass a zeroed gradient elsewhere): the kernel step's
+# gradient within GRAD_SPREADS times the median of the three nudged steps'
+# differences for that parameter, in L2 over its entries relative to the
+# reference's (the largest entry is one sample of thousands, L2 their sum);
+# the planted fault, at FAULT_DW_CALL as in f32, must miss its parameter's
+# tolerance by FAULT_MARGIN
 BF16_GRAD_RULE = ("per parameter: ||g - g_plain|| / ||g_plain|| <= GRAD_SPREADS x the median "
-                  "of the parameter's own three one-bf16-ulp nudges (floor GRAD_RTOL)")
-# Even so, bf16 rounding moves a weight gradient more the further the
-# backward has run from the loss: a zeroed K1b launch misses its parameter's
-# tolerance by ~13x at launch 1 (the decoder's last level-0 conv), by less
-# than 2x from the level-1 convs on, and by 1.5x at launch 17, the f32
-# check's (PERF.md, section 6). The bf16 check plants its fault at launch 1 and
-# reports the margin at BF16_REPORTED_FAULTS, one launch of each level
-# (17 among them); the per-launch check is what holds every K1b launch
-BF16_FAULT_DW_CALL = 1
-BF16_REPORTED_FAULTS = (5, 9, 13, 17, 21, 25, 29, 33)
+                  "of the parameter's own three steps with each plain launch's f32 result "
+                  "nudged by one f32 ulp (floor GRAD_RTOL)")
+# the margin is reported at the decoder's four level-0 convs (K1b launches
+# 1-4, the first the backward makes) and one K1b launch of each further
+# stage (FAULT_DW_CALL among them)
+BF16_REPORTED_FAULTS = (1, 2, 3, 4, 5, 9, 13, 17, 21, 25, 29, 33)
 FAULT_DW_CALL = 17
 FAULT_MARGIN = 2.0
 # the stage-2 student (configs/nuscenes/train/spformer_tsd_full_ours_star.yaml:
@@ -305,6 +324,10 @@ STUDENT_VOXEL = 0.05
 NUM_CAMS = 6
 IM_HW = (360, 640)
 STUDENT_SEEDS = (41, 42, 43)
+# requests of the first scan with cuDNN's TF32 on, as the entry points run
+# it: the first picks its algorithms, the median of the others is the warm
+# time, and the last is held to the IEEE request
+STUDENT_TF32_REQUESTS = 3
 CR_T = 2.0
 # launches per student request, read from models/msp2ifm.py as for the
 # teacher: 34 ks=3 convs (stem 2, encoder 16, decoder 16; the stride-2 downs
@@ -340,6 +363,10 @@ CLI_STAGE2 = ("u2mkd_tpu_torch.train_lc_nusc_tsd_full", "configs/synthetic/train
               "num_epochs=1", "data.training_size=8", "model.pallas_attention=true")
 CLI_BANDED = ("u2mkd_tpu_torch.train_spformer", "configs/synthetic/train/spformer_tiny.yaml",
               "num_epochs=1", "data.training_size=8", "model.cr=0.5")
+# what each entry point prints it runs in (ops/precision.py): the port sets
+# no TF32 flag, so under torch's defaults cuDNN's image convolutions run in
+# TF32 and cuBLAS in IEEE f32; this script turns both off for its own work
+CLI_NUMERICS = "numerics: precision=float32 cudnn.allow_tf32=True cuda.matmul.allow_tf32=False"
 CLI_DIR = os.path.join("u2mkd_tpu_torch", "_build", "cli")
 # the real-data paths: a nuScenes-format set from tools/make_nusc_mini.py
 # (2 train scenes and 1 val scene of 3 keyframes, a sweep between
@@ -1372,6 +1399,8 @@ def each_launch_recorded(record, hold=False, picks=None):
                 refs = _plain(*args)
                 pair = (outs, refs) if not torch.is_tensor(outs) else ((outs,), (refs,))
                 row["max_rel_err"] = max(row.get("max_rel_err", 0.0), _errors(*pair)[1])
+                if args[0].dtype == torch.bfloat16:
+                    _count_bf16_differ(row, pair[0][0], pair[1][0])
                 if picks is not None:
                     row["held"].append(args[0].numel())
             return outs
@@ -1422,6 +1451,80 @@ def planted_fault(call=FAULT_DW_CALL):
         S.rulebook_conv_dw = kernel
 
 
+def _count_bf16_differ(row, got, want):
+    """Adds ``got``'s entries to ``row["entries"]`` and those whose bf16
+    value differs from ``want``'s to ``row["bf16_differ"]``."""
+    import torch
+
+    row["entries"] = row.get("entries", 0) + got.numel()
+    row["bf16_differ"] = row.get("bf16_differ", 0) + int(
+        (got.to(torch.bfloat16) != want.to(torch.bfloat16)).sum())
+
+
+# the wrappers whose plain version rounds its f32 result to its input's
+# dtype; the others return f32, which the step rounds after them
+ROUNDING_LAUNCHES = ("rulebook_conv", "rulebook_conv_dx")
+
+
+@contextlib.contextmanager
+def plain_launches(nudge_seed=None, stats=None):
+    """Inside, each of the six counted wrappers runs its plain version
+    (:func:`_plain_of_launch`) on its own arguments, on any device, and
+    launches nothing: the step keeps the kernels' autograd functions and so
+    their rounding points (K1's and dX's outputs in their input's dtype,
+    K1b's f32 result rounded to the weights' dtype by ``RulebookConv``,
+    K3-K5's f32 results where ``FlashRPE`` and the attention's entry round
+    them). With ``nudge_seed`` each f32 result is multiplied by (1 +
+    NUDGE_ULP N(0, 1)), drawn in launch order from a generator seeded with
+    it on the result's device, before it is rounded: one f32 ulp, a change
+    of the kind a kernel makes by adding the same products in another
+    order. ``stats`` ({name: {}}) collects, per wrapper, the entries of each
+    launch's first output and how many of them the nudge moves to another
+    bf16 value."""
+    import torch
+
+    gens = {}
+
+    def nudged(t):
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(device=t.device).manual_seed(nudge_seed)
+        noise = torch.randn(t.shape, device=t.device, generator=gens[t.device])
+        return torch.addcmul(t, t, noise, value=NUDGE_ULP)
+
+    saved = []
+    for name, (mod, plain) in _plain_of_launch().items():
+        kernel = getattr(mod, name)
+
+        def run(*args, _plain=plain, _name=name):
+            rounds, dtype = _name in ROUNDING_LAUNCHES, args[0].dtype
+            if rounds:  # its f32 result: the inputs in f32, which the policy casts back
+                args = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+                        for a in args]
+            outs = _plain(*args)
+            one = torch.is_tensor(outs)
+            outs = (outs,) if one else tuple(outs)
+            if nudge_seed is not None:
+                moved = tuple(nudged(o) for o in outs)
+                if stats is not None:
+                    _count_bf16_differ(stats.setdefault(_name, {}), moved[0], outs[0])
+                outs = moved
+            if rounds:
+                outs = tuple(o.to(dtype) for o in outs)
+            return outs[0] if one else outs
+
+        # the wrapper counts its launches on the function its module's name
+        # holds: carry the count there and back
+        run.launches = kernel.launches
+        saved.append((mod, name, kernel))
+        setattr(mod, name, run)
+    try:
+        yield stats
+    finally:
+        for mod, name, kernel in saved:
+            kernel.launches = getattr(mod, name).launches
+            setattr(mod, name, kernel)
+
+
 def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL, dtype="f32",
               reported_faults=()):
     """The two checks of one train step on the card.
@@ -1439,35 +1542,41 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL, dty
     :func:`planted_fault` (at K1b launch ``fault_call``) must miss by
     FAULT_MARGIN. ``dtype`` "bf16": the step computes in bf16 (the policy
     set by ``setup``), every launch takes bf16 inputs and is held to the
-    bf16 TOL, and the nudges are one bf16 ulp (NUDGE_ULP), which rounds the
-    weights the step reads to another bf16 value where one f32 ulp would not;
-    the kernel step and the plain one round K1's output at other points, so
-    their losses are held by the rule of GRAD_SPREADS too, over the nudged
-    steps' losses (f32 keeps GRAD_LOSS_RTOL); and the gradients by
-    BF16_GRAD_RULE, the f32 rule's numbers kept in the row beside it.
+    bf16 TOL; the reference and the nudged steps run every launch through
+    its plain version inside the kernels' autograd functions
+    (:func:`plain_launches`), the nudged ones with each launch's f32 result
+    nudged by one f32 ulp before it is rounded; a result that lands near a
+    bf16 rounding boundary rounds one bf16 ulp apart, so the losses are held
+    by the rule of GRAD_SPREADS too, over the nudged steps' losses (f32
+    keeps GRAD_LOSS_RTOL), and the gradients by BF16_GRAD_RULE, the f32
+    rule's numbers kept in the row beside it; the row gives, per wrapper,
+    the share of its first output's entries whose bf16 value the kernel
+    moves from the plain version's, and the share one nudge moves.
     ``reported_faults``: further K1b launches planted one at a time, whose
     margins the row reports and nothing asserts."""
     import torch
 
     runs, per_launch = {}, {}
-    nudged = [f"plain_nudged_{seed}" for seed in NUDGE_SEEDS]
-    faults = {"kernels_fault": fault_call, **{f"kernels_fault_{c}": c for c in reported_faults}}
+    nudged = {f"plain_nudged_{seed}": seed for seed in NUDGE_SEEDS}
+    nudge_stats = {tag: {} for tag in nudged}
+    faults = {"kernels_fault": fault_call,
+              **{f"kernels_fault_{c}": c for c in reported_faults if c != fault_call}}
     for tag in ["kernels", "plain", *nudged, *faults]:
         model, step_fn, trained = setup()
-        if tag.startswith("plain"):
+        if dtype == "f32" and tag.startswith("plain"):
             model.set_plain(True)
-        if tag in nudged:
-            gen = torch.Generator(device=DEVICE).manual_seed(int(tag.rsplit("_", 1)[1]))
+        if dtype == "f32" and tag in nudged:
+            gen = torch.Generator(device=DEVICE).manual_seed(nudged[tag])
             with torch.no_grad():
                 for p in model.parameters():
-                    p.mul_(1 + NUDGE_ULP[dtype] * torch.randn(p.shape, device=DEVICE,
-                                                              generator=gen))
+                    p.mul_(1 + NUDGE_ULP * torch.randn(p.shape, device=DEVICE, generator=gen))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with (each_launch_held_to_plain(per_launch) if tag == "kernels"
               else planted_fault(faults[tag]) if tag in faults
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext() if dtype == "f32"
+              else plain_launches(nudged.get(tag), nudge_stats.get(tag))):
             loss = step_fn(raw)["loss"].item()
         torch.cuda.synchronize()
         runs[tag] = ({n: p.grad for n, p in trained(model)}, loss, time.perf_counter() - t0,
@@ -1493,7 +1602,10 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL, dty
     loss_spreads = [abs(runs[tag][1] - loss_p) / abs(loss_p) for tag in nudged]
     loss_tol = GRAD_LOSS_RTOL if dtype == "f32" else max(
         GRAD_LOSS_RTOL, GRAD_SPREADS * float(np.median(loss_spreads)))
-    row = {"phase": phase, "points": points, "dtype": dtype, "nudge": NUDGE_ULP[dtype],
+    row = {"phase": phase, "points": points, "dtype": dtype,
+           "nudge": {"f32": "every weight x (1 + 2^-23 N(0, 1))",
+                     "bf16": "each plain launch's f32 result x (1 + 2^-23 N(0, 1)), "
+                             "before it is rounded"}[dtype],
            "loss_kernels": loss_k, "loss_plain": loss_p,
            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
            "ulp_nudge_loss_rel_diffs": loss_spreads, "loss_tol_rel": loss_tol,
@@ -1506,27 +1618,35 @@ def held_step(phase, setup, raw, launches, points, fault_call=FAULT_DW_CALL, dty
            "step_wall_s": {k: v[2] for k, v in runs.items()},
            "max_memory_allocated_bytes": {k: v[3] for k, v in runs.items()}}
     if dtype == "bf16":
-        # one bf16 ulp of rounding moves the worst parameter's gradient by
-        # about its largest entry (the global rule above, kept in the row,
-        # then passes anything): each parameter is held to its own spread
-        # instead, in L2 over its entries (BF16_GRAD_RULE)
+        # each parameter is held to its own spread, in L2 over its entries
+        # (BF16_GRAD_RULE)
         spread = [_grad_rel_l2(runs[tag][0], ref) for tag in nudged]
         tol_p = {n: max(GRAD_RTOL, GRAD_SPREADS * float(np.median([sp[n] for sp in spread])))
                  for n in ref}
-        worst, worst_name = _worst_ratio(_grad_rel_l2(runs["kernels"][0], ref), tol_p)
+        kernel_l2 = _grad_rel_l2(runs["kernels"][0], ref)
+        worst, worst_name = _worst_ratio(kernel_l2, tol_p)
         margins = {c: _worst_ratio(_grad_rel_l2(runs[tag][0], ref), tol_p)
                    for tag, c in faults.items()}
         fault, fault_name = margins[fault_call]
         tol = 1.0
+
+        def share(r):
+            return r["bf16_differ"] / r["entries"]
+
         row.update({"rule": BF16_GRAD_RULE, "max_grad_l2_over_own_tol": worst,
-                    "worst_param_l2": worst_name,
+                    "worst_param_l2": worst_name, "worst_param_l2_rel": kernel_l2[worst_name],
+                    "worst_param_own_tol": tol_p[worst_name],
                     "planted_fault_l2_over_own_tol": fault,
                     "planted_fault_param_l2": fault_name,
                     "planted_fault_own_tol": tol_p[fault_name],
                     "reported_faults_l2_margin": {
                         f"K1b launch {c} zeroed": {"param": n, "margin": m,
                                                    "own_tol": tol_p[n]}
-                        for c, (m, n) in margins.items() if c != fault_call}})
+                        for c, (m, n) in sorted(margins.items())},
+                    "bf16_differ_share_kernels": {n: share(r) for n, r in per_launch.items()},
+                    "bf16_differ_share_nudges": {
+                        tag: {n: share(r) for n, r in st.items()}
+                        for tag, st in nudge_stats.items()}})
     emit(row)
     if not (row["loss_rel_diff"] <= loss_tol and worst <= tol):
         raise AssertionError(f"kernel gradients disagree with the plain path: {row}")
@@ -1639,6 +1759,7 @@ def phase_student(model):
         raise AssertionError(f"a kernel of the student's path never launched: {launches}")
     peak = torch.cuda.max_memory_allocated()
     warm_ms = float(np.median([r["device_ms"] for r in per_request[1:]]))
+    _student_tf32(eval_fn, batches[0], outs[0], warm_ms)
     groups, busy_ms, profiled_ms = profile_by_kernel(eval_fn, batches[0][1],
                                                      PROFILED_REQUESTS, "profile_student.txt")
     emit({"phase": "student_profile", "requests": PROFILED_REQUESTS,
@@ -1656,6 +1777,43 @@ def phase_student(model):
           "host_ms": [r["host_ms"] for r in per_request],
           "max_memory_allocated_bytes": peak})
     return launches
+
+
+def _student_tf32(eval_fn, batch, out_ieee, ieee_ms):
+    """The first student request again, STUDENT_TF32_REQUESTS times, with
+    cuDNN's TF32 on, as the entry points run it (``ops/precision.py``;
+    cuBLAS stays IEEE): device ms of each and their warm median beside the
+    IEEE warm median ``ieee_ms``, and each head's logits against the IEEE
+    request's ``out_ieee`` on the scan's valid points. The flag is restored
+    however it ends."""
+    import torch
+    from u2mkd_tpu_torch.ops import precision
+
+    seed, raw, _ = batch
+    had = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        numerics = precision.numerics_line()
+        runs = [_timed(eval_fn, raw) for _ in range(STUDENT_TF32_REQUESTS)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = had
+    row = {"phase": "student_request_tf32", "seed": seed, "points": STUDENT_P,
+           "numerics": numerics, "device_ms": [ms for _, ms, _ in runs],
+           "warm_device_ms": float(np.median([ms for _, ms, _ in runs[1:]])),
+           "ieee_warm_device_ms": ieee_ms}
+    heads = _student_heads(raw)
+    for _, key, valid in heads:
+        got, want = runs[-1][0][key][valid], out_ieee[key][valid]
+        row[key] = {"max_abs_diff": (got - want).abs().max().item(),
+                    "max_abs_ieee": want.abs().max().item(),
+                    "mean_abs_diff_over_mean_abs": ((got - want).abs().mean()
+                                                    / want.abs().mean()).item(),
+                    "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float()
+                    .mean().item(),
+                    "finite": bool(torch.isfinite(got).all())}
+    emit(row)
+    if not all(row[key]["finite"] for _, key, _ in heads):
+        raise AssertionError(f"the student request with TF32 is not finite: {row}")
 
 
 @contextlib.contextmanager
@@ -2781,9 +2939,11 @@ def phase_cli():
             row[tag] = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
                         "steps": fields.get("steps"), "loss": float(fields.get("loss", "nan")),
                         "miou": float(fields.get("miou", "nan")), "checkpoints": ckpts,
-                        "device_line": f"device: {DEVICE}" in res.stdout}
+                        "device_line": f"device: {DEVICE}" in res.stdout,
+                        "numerics": _numerics_line(res.stdout)}
             if not (res.returncode == 0 and math.isfinite(row[tag]["loss"])
                     and math.isfinite(row[tag]["miou"]) and row[tag]["device_line"]
+                    and row[tag]["numerics"] == CLI_NUMERICS
                     and {"latest.pt", "max-iou-val-vox.pt"} <= set(ckpts)):
                 emit(row)
                 raise AssertionError(f"the {tag} entry point failed: {row[tag]}; its output is "
@@ -2800,6 +2960,11 @@ def phase_cli():
             raise AssertionError("stage 2's teacher is not stage 1's model")
     finally:
         shutil.rmtree(base, ignore_errors=True)
+
+
+def _numerics_line(stdout):
+    """The ``numerics:`` start line of an entry point's output, or None."""
+    return next((ln for ln in stdout.splitlines() if ln.startswith("numerics: ")), None)
 
 
 CLI_RUNNER = """
@@ -3367,6 +3532,7 @@ def phase_evaluate(root, runs):
             row = {"phase": "evaluate", "stage": tag, "votes": votes, "wall_s": wall_s,
                    "requests": len(views), "scans": n, "miou": rep["miou"] * 100,
                    "printed": printed[-1], "trained_miou": run["miou"],
+                   "numerics": _numerics_line(res.stdout),
                    "raw_points_seen": rep["seen"], "launches": rep["launches"],
                    "launches_per_request": {k: v / max(len(views), 1)
                                             for k, v in rep["launches"].items()},
@@ -3531,7 +3697,7 @@ def phase_bf16():
         del model, step_fn, batches
         held_step("bf16_grad_check",
                   lambda: (*train_setup(1, 5), lambda m: m.named_parameters()),
-                  raw, TRAIN_LAUNCHES, P, fault_call=BF16_FAULT_DW_CALL, dtype="bf16",
+                  raw, TRAIN_LAUNCHES, P, dtype="bf16",
                   reported_faults=BF16_REPORTED_FAULTS)
         del raw
 
@@ -4289,14 +4455,14 @@ def dp_optimizer(part, model):
 
 
 def _nudge(model, seed):
-    """Every parameter of ``model`` times (1 + NUDGE_ULP f32 N(0, 1)), about
+    """Every parameter of ``model`` times (1 + NUDGE_ULP N(0, 1)), about
     one f32 ulp, drawn from ``seed`` on the card."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
-            p.mul_(1 + NUDGE_ULP["f32"] * torch.randn(p.shape, device=DEVICE, generator=gen))
+            p.mul_(1 + NUDGE_ULP * torch.randn(p.shape, device=DEVICE, generator=gen))
 
 
 def dp_scans(part, model, rank=None):
@@ -5304,7 +5470,10 @@ def main():
         for name in sys.argv[2].split(","):
             {"data_parallel": phase_data_parallel, "ablation": phase_ablation,
              "published_batch": phase_published_batch, "repeatable": phase_repeatable,
-             "ablation_bisect": phase_ablation_bisect}[name]()
+             "ablation_bisect": phase_ablation_bisect, "bf16": phase_bf16, "cli": phase_cli,
+             "student": lambda: phase_student(tsd_model(
+                 num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
+                 head_dim=16, seed=0, device=DEVICE))}[name]()
         print(gpu_line(), flush=True)
         return 0
     model = teacher_model(num_classes=NUM_CLASSES, cr=1.0, voxel_size=VOXEL,

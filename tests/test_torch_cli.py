@@ -104,3 +104,25 @@ def test_student_cli_remat_prints_the_same_losses(stage1, stage2, tmp_path):
     without it."""
     _, out = _stage2(stage1, str(tmp_path / "stage2"), "train.remat=true")
     assert _epoch_line(out) == _epoch_line(stage2[2])
+
+
+# torch's TF32 defaults, which no module of the port changes (ops/precision.py)
+NUMERICS = "numerics: precision=float32 cudnn.allow_tf32=True cuda.matmul.allow_tf32=False"
+
+
+@pytest.mark.parametrize("cli", ["stage1", "stage2", "evaluate"])
+def test_start_line_states_the_numerics(cli, stage1, stage2):
+    """Each entry point prints, after its ``device:`` line, one line with
+    the compute policy and both TF32 flags as the process runs with them:
+    the training CLIs above, and ``python -m u2mkd_tpu_torch.evaluate`` on
+    stage 1's checkpoint."""
+    if cli == "evaluate":
+        out = run_cli(["u2mkd_tpu_torch.evaluate", "configs/synthetic/train/spformer_tiny.yaml",
+                       "--checkpoint", os.path.join(stage1[0], "checkpoints", "latest.pt"),
+                       "--cpu", "data.training_size=8", "model.cr=0.5"])
+        assert re.search(r"^mIoU: [0-9.]+$", out, re.M), out[-2000:]
+    else:
+        out = {"stage1": stage1[1], "stage2": stage2[2]}[cli]
+    lines = out.splitlines()
+    assert lines.count(NUMERICS) == 1, out[-2000:]
+    assert lines.index(NUMERICS) > lines.index("device: cpu")

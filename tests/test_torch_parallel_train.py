@@ -10,7 +10,9 @@ gloo ranks (processes of ``tests/torch_dp_worker.py``, as in
   planted fault, rank 1 dropping the backward sum of its BN statistics
   (``chip_smoke.dropped_bn_backward_sum``), must miss that by FAULT_MARGIN.
   Against JAX's data-parallel step (the TSD of ``tests/test_train_dp.py``)
-  it is ``slow``: JAX's compile of the stage-2 program takes minutes.
+  with the one BN that JAX leaves unsynced left so in the port: the port's
+  runs go to processes of their own while JAX traces and runs its program,
+  whose compile the committed ``tests/_jax_cache`` holds.
 * The SphereFormer U-Net's two-rank step (synced masked BN, one coalesced
   gradient reduction) against the port's single-process step on both scans
   (``chip_smoke.mean_of_scans_teacher_step``) by the same rule, with the
@@ -43,6 +45,7 @@ from test_torch_distill import (FAULT_MARGIN, GRAD_SPREADS, LOSS_RTOL, UPDATE_RT
                                 _batches, _JaxTSDNoDropout, _port_batch, _state_diff)
 from test_torch_model import _random_variables
 from test_torch_parallel import LR, RANK_TIMEOUT_S, REPO, WORLD, _ranks
+import torch_dp_worker
 from torch_dp_worker import free_port
 from test_torch_student_eval import GEOMETRY, NCLS, S_CAPS, T_CAPS
 from test_torch_sphereformer_unet import CAPS as UNET_CAPS
@@ -55,7 +58,7 @@ from u2mkd_tpu_torch.data import plumbing_host, wgeom_host
 from u2mkd_tpu_torch.models import convert_weights
 from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
 from u2mkd_tpu_torch.models.tsd import TSDFull
-from u2mkd_tpu_torch.train import distill, optim
+from u2mkd_tpu_torch.train import optim
 
 NUDGE_SEEDS = (1, 2, 3)
 
@@ -68,38 +71,31 @@ def _two_threads():
     torch.set_num_threads(threads)
 
 
+TSD_KW = dict(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, dropout_rate=0.0,
+              drop_path_rate=0.0, **GEOMETRY)
+
+
 def _tsd_port(state=None, seed=5):
-    kw = dict(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True,
-              dropout_rate=0.0, drop_path_rate=0.0, **GEOMETRY)
-    port = TSDFull(generator=torch.Generator().manual_seed(seed), **kw)
+    port = TSDFull(generator=torch.Generator().manual_seed(seed), **TSD_KW)
     if state is not None:
         port.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
-    return port, kw
+    return port, TSD_KW
 
 
-def _reference_runs(start, batch):
-    """The single-process mean-of-scans step from ``start`` and from three
-    one-ulp-nudged copies of it -> {tag: state after}."""
-    out = {}
-    for tag in ("reference", *NUDGE_SEEDS):
-        port, _ = _tsd_port(start)
-        if tag != "reference":
-            gen = torch.Generator().manual_seed(tag)
-            with torch.no_grad():
-                for p in port.parameters():
-                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=gen))
-        opt, _ = distill.make_frozen_teacher_optimizer(port, "sgd_spformer", LR)
-        loss = chip_smoke.mean_of_scans_distill_step(port, opt, S_CAPS, T_CAPS)(batch)["loss"]
-        out[tag] = ({k: v.numpy().copy() for k, v in port.state_dict().items()}, loss.item())
-    return out
+def _reference_args(start, batch):
+    """The inputs of ``torch_dp_worker.task_mean_of_scans``: the
+    single-process mean-of-scans step from ``start`` and from three
+    one-ulp-nudged copies of it (NUDGE_SEEDS)."""
+    return {"model": TSD_KW, "state": start, "lr": LR, "s_caps": S_CAPS,
+            "t_caps": T_CAPS, "batch": batch, "nudges": NUDGE_SEEDS}
 
 
-def _distill_dp(tmp_path, start, kw, raws, local_bn=()):
+def _distill_args(start, kw, raws, local_bn=()):
+    """The inputs of ``torch_dp_worker.task_distill`` on the two scans."""
     port, _ = _tsd_port(start)
     ports = [_port_batch(raw, port) for raw in raws]
-    return _ranks("distill", {"model": kw, "state": start, "lr": LR, "s_caps": S_CAPS,
-                              "t_caps": T_CAPS, "batches": ports, "local_bn": local_bn},
-                  tmp_path)
+    return {"model": kw, "state": start, "lr": LR, "s_caps": S_CAPS, "t_caps": T_CAPS,
+            "batches": ports, "local_bn": local_bn}
 
 
 def _raws():
@@ -118,8 +114,9 @@ def test_distill_dp_step_is_the_mean_of_scans_step(tmp_path):
     port, kw = _tsd_port()
     start = {k: v.numpy().copy() for k, v in port.state_dict().items()}
     raws = _raws()
-    got = _distill_dp(tmp_path, start, kw, raws)
-    ref = _reference_runs(start, _port_batch(chip_smoke.concat_scans(raws), port))
+    got = _ranks("distill", _distill_args(start, kw, raws), tmp_path)
+    ref = torch_dp_worker.task_mean_of_scans(_reference_args(
+        start, _port_batch(chip_smoke.concat_scans(raws), port)))
     ref_state, ref_loss = ref["reference"]
     np.testing.assert_allclose(got[0]["dp"]["aux"]["loss"], ref_loss, rtol=LOSS_RTOL)
     spreads = [_state_diff(ref[s][0], ref_state, start)[0] for s in NUDGE_SEEDS]
@@ -142,7 +139,6 @@ def test_distill_dp_step_is_the_mean_of_scans_step(tmp_path):
                 np.testing.assert_array_equal(r["dp"]["counts"][head][n], total)
 
 
-@pytest.mark.slow
 def test_distill_dp_step_matches_jax(tmp_path):
     """The port's two-rank stage-2 step against JAX's ``data_parallel_step``
     of ``make_distill_train_step`` on the same bridged weights. JAX builds
@@ -152,7 +148,10 @@ def test_distill_dp_step_matches_jax(tmp_path):
     (ROADMAP section 3). With that one BN left unsynced the port equals JAX:
     the loss terms to LOSS_RTOL, the student's state within the nudge rule
     of :func:`test_distill_dp_step_is_the_mean_of_scans_step`, the teacher
-    bitwise frozen on both sides; as shipped its pixel loss differs."""
+    bitwise frozen on both sides; as shipped its pixel loss differs. The
+    port's runs (both two-rank steps and the nudged single-process steps)
+    run in processes of ``tests/torch_dp_worker.py`` while this one traces
+    and runs the JAX program."""
     model_dp = _JaxTSDNoDropout(num_classes=NCLS, cr=0.25, cr_t=0.5, drop_path_rate=0.0,
                                 pallas_attention=False, pallas_cubic=False,
                                 axis_name=jax_mesh.DATA_AXIS, **GEOMETRY)
@@ -165,27 +164,33 @@ def test_distill_dp_step_matches_jax(tmp_path):
             s["plumbing"], s["pmask"]), t, jax_from_precomputed(t["plumbing"], t["pmask"]),
             False), one["student"], one["teacher"])
     variables = _random_variables(abstract, 11)
+    start = {k: v.numpy() for k, v in convert_weights.from_flax(
+        variables["params"], variables["batch_stats"]).items()}
+    kw = dict(TSD_KW, pallas_attention=False, pallas_cubic=False)
+    raws = [r for _, r in pairs]
+    port, _ = _tsd_port(start)
+    runs = [torch_dp_worker.start("distill", _distill_args(start, kw, raws, local_bn),
+                                  tmp_path, WORLD, timeout=RANK_TIMEOUT_S)
+            for local_bn in (("model_s.classifier_pix.norm",), ())]
+    runs.append(torch_dp_worker.start("mean_of_scans", _reference_args(
+        start, _port_batch(chip_smoke.concat_scans(raws), port)), tmp_path, 1,
+        timeout=RANK_TIMEOUT_S))
+
     tx = jax_distill.make_frozen_teacher_optimizer(jax_optim.make_optimizer("sgd_spformer", LR))
     st = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                               batch_stats=variables["batch_stats"],
-                              opt_state=tx.init(variables["params"]))
+                              opt_state=jax.jit(tx.init)(variables["params"]))
     step = jax_mesh.data_parallel_step(jax_distill.make_distill_train_step(
         model_dp, tx, S_CAPS, T_CAPS, axis_name=jax_mesh.DATA_AXIS), jax_mesh.make_mesh(WORLD))
     st1, aux = step(st, bj, jax.random.PRNGKey(1))
-    start = {k: v.numpy() for k, v in convert_weights.from_flax(
-        variables["params"], variables["batch_stats"]).items()}
-    _, kw = _tsd_port()
-    kw = dict(kw, pallas_attention=False, pallas_cubic=False)
-    raws = [r for _, r in pairs]
-    got = _distill_dp(tmp_path, start, kw, raws, local_bn=("model_s.classifier_pix.norm",))
+    got, shipped, nudged = (torch_dp_worker.collect(r) for r in runs)
     for k in ("loss", "ce_vox", "ce_pix", "kl", "feat", "mse"):
         np.testing.assert_allclose(got[0]["dp"]["aux"][k], float(aux[k]), rtol=LOSS_RTOL,
                                    err_msg=k)
     ref_state = {k: v.numpy() for k, v in convert_weights.from_flax(
         jax.tree_util.tree_map(np.asarray, st1.params),
         jax.tree_util.tree_map(np.asarray, st1.batch_stats)).items()}
-    port, _ = _tsd_port(start)
-    nudged = _reference_runs(start, _port_batch(chip_smoke.concat_scans(raws), port))
+    nudged = nudged[0]
     spreads = [_state_diff(nudged[s][0], nudged["reference"][0], start)[0]
                for s in NUDGE_SEEDS]
     tol = max(UPDATE_RTOL, GRAD_SPREADS * float(np.median(spreads)))
@@ -195,7 +200,7 @@ def test_distill_dp_step_matches_jax(tmp_path):
         if k.startswith("model_t."):
             np.testing.assert_array_equal(ref_state[k], v, k)
             np.testing.assert_array_equal(got[0]["dp"]["state"][k], v, k)
-    shipped = _distill_dp(tmp_path, start, kw, raws)[0]["dp"]["aux"]
+    shipped = shipped[0]["dp"]["aux"]
     assert abs(shipped["ce_pix"] - float(aux["ce_pix"])) > 100 * LOSS_RTOL * abs(
         float(aux["ce_pix"]))
 

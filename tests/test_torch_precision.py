@@ -26,6 +26,8 @@ package's criterion (``tests/test_precision.py``): mean |bf16 - f32| over
 mean |f32| below ``BF16_F32_RTOL`` = 0.1 (measured 1.4e-3 to 8.7e-3).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -394,3 +396,130 @@ def test_unet_bf16_request_and_step_match_jax():
     assert loss_err <= TERMS_RTOL, loss_err
     assert all(err < BF16_F32_RTOL for err in loss_own.values()), loss_own
     assert grad_ratio[worst] <= GRAD_SPREADS, (worst, grad_ratio[worst])
+
+
+def _teacher_step(gen_seed=8):
+    """A narrow teacher (P=512, cr=0.25, head dim 4, K3 route) from one
+    seed, its ``sgd_spformer`` step with a generator from ``gen_seed``, and
+    one scan with its host plumbing."""
+    from u2mkd_tpu_torch.data import synthetic
+    from u2mkd_tpu_torch.train import optim
+
+    model = teacher_model(num_classes=5, cr=0.25, voxel_size=0.3, head_dim=4, seed=3,
+                          device="cpu")
+    raw = synthetic.make_batch(np.random.RandomState(3), 1, 512, voxel_size=0.3)
+    raw["plumbing"] = plumbing_host.batch_plumbing(
+        raw["pcoords"], raw["xyz"], raw["pmask"], CAPS,
+        wgeom_params=wgeom_host.params_from_model(model))
+    opt, _ = optim.make_optimizer(model.named_parameters(), "sgd_spformer", LR)
+    step = state.make_train_step(model, opt, CAPS,
+                                 generator=torch.Generator().manual_seed(gen_seed))
+    return model, step, raw
+
+
+def test_plain_launch_nudge_is_one_f32_ulp_and_off_changes_nothing():
+    """``chip_smoke.plain_launches``, the reference and the nudge of the
+    card's bf16 whole-step check, on the CPU (one thread, so that runs
+    repeat bitwise). Each of the train step's six wrappers, on the f32
+    arguments the step gives it: with a nudge seed each output that is not
+    all zero moves by at most 2^-22 of its L2 norm (2^-23 N(0, 1) per entry,
+    whose tail passes 2^-22 in some entries) and moves; with none the
+    wrapper returns its
+    plain output bitwise. Then a bf16 step: under ``plain_launches()``
+    every loss, gradient and parameter equals the step's without it
+    bitwise, every wrapper runs there, and a nudge changes the gradients."""
+    import chip_smoke
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = chip_smoke._plain_of_launch()
+        args = {}
+
+        def recording(name, mod, fn):
+            def rec(*a):
+                args.setdefault(name, [x.clone() if torch.is_tensor(x) else x for x in a])
+                return fn(*a)
+            return rec
+
+        saved = {n: getattr(mod, n) for n, (mod, _) in plain.items()}
+        for n, (mod, _) in plain.items():
+            setattr(mod, n, recording(n, mod, saved[n]))
+        try:
+            _, step, raw = _teacher_step()
+            step(raw)
+        finally:
+            for n, (mod, _) in plain.items():
+                setattr(mod, n, saved[n])
+        assert sorted(args) == sorted(n for n in plain if n != "flash_window_sorted")
+        for name, a in args.items():
+            mod = plain[name][0]
+            want = getattr(mod, name)(*a)
+            want = (want,) if torch.is_tensor(want) else want
+            for seed in (None, 7):
+                with chip_smoke.plain_launches(seed):
+                    got = getattr(mod, name)(*a)
+                got = (got,) if torch.is_tensor(got) else got
+                assert len(got) == len(want), name
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype == torch.float32, name
+                    if seed is None or not w.any():  # a zero output stays zero
+                        assert torch.equal(g, w), name
+                    else:
+                        moved = float((g - w).norm() / w.norm())
+                        assert 0 < moved <= 2.0 ** -22, (name, moved)
+
+        precision.set_compute_dtype("bfloat16")
+        runs = {}
+        for tag, ctx in (("step", None), ("off", None), ("nudged", 7)):
+            model, step, raw = _teacher_step()
+            stats = {}
+            with (chip_smoke.plain_launches(ctx, stats) if tag != "step"
+                  else contextlib.nullcontext()):
+                aux = step(raw)
+            runs[tag] = ({k: v.clone() for k, v in aux.items()},
+                         {n: p.grad.clone() for n, p in model.named_parameters()},
+                         {k: v.clone() for k, v in model.state_dict().items()}, stats)
+        (aux, grads, sd, _), (aux_off, grads_off, sd_off, _) = runs["step"], runs["off"]
+        assert all(torch.equal(aux[k], aux_off[k]) for k in aux)
+        assert all(torch.equal(grads[n], grads_off[n]) for n in grads)
+        assert all(torch.equal(sd[k], sd_off[k]) for k in sd)
+        nudged, stats = runs["nudged"][1], runs["nudged"][3]
+        assert sorted(stats) == sorted(args)
+        assert all(r["entries"] > 0 for r in stats.values())
+        assert any(not torch.equal(grads[n], nudged[n]) for n in grads)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_building_models_leaves_the_tf32_flags():
+    """No module of the port sets torch's TF32 flags (``ops/precision.py``):
+    building the teacher and the stage-2 student (and the conv-only SPVCNN)
+    through ``train/builder.make_model``, and the SphereFormer U-Net, which
+    no builder name reaches, leaves ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` as the process had them:
+    torch's defaults, and both the other way."""
+    from test_torch_sphereformer_unet import GEOMETRY as UNET_GEOMETRY
+    from test_torch_sphereformer_unet import N_PLANES, NUM_CLASSES
+    from u2mkd_tpu_torch.models.sphereformer_unet import SphereFormerSemantic
+
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    had = tuple(f.allow_tf32 for f in flags)
+    teacher = f"{REPO}/configs/synthetic/train/spformer_tiny.yaml"
+    cfgs = [config.load(teacher), config.load(f"{REPO}/configs/synthetic/train/tsd_tiny.yaml"),
+            config.update_dotted(config.load(teacher), ["model.name=spvcnn"])]
+    try:
+        for state in ((True, False), (False, True)):
+            for f, on in zip(flags, state):
+                f.allow_tf32 = on
+            for cfg in cfgs:
+                builder.make_model(cfg, "cpu")
+                assert tuple(f.allow_tf32 for f in flags) == state, cfg.model.name
+            SphereFormerSemantic(num_classes=NUM_CLASSES, n_planes=N_PLANES, head_dim=4,
+                                 **UNET_GEOMETRY)
+            assert tuple(f.allow_tf32 for f in flags) == state
+        assert precision.numerics_line() == (
+            "numerics: precision=float32 cudnn.allow_tf32=False cuda.matmul.allow_tf32=True")
+    finally:
+        for f, on in zip(flags, had):
+            f.allow_tf32 = on

@@ -48,7 +48,8 @@ import chip_smoke
 from test_torch_distill import (FAULT_MARGIN, GRAD_SPREADS, TERMS, _batches, _capturing,
                                 _grad_diff, _port_batch, _port_setup)
 from test_torch_model import _random_variables
-from test_torch_parallel import LR, _ranks
+import torch_dp_worker
+from test_torch_parallel import LR, RANK_TIMEOUT_S, _ranks
 from test_torch_sphereformer_unet import GEOMETRY as UNET_GEOMETRY
 from test_torch_sphereformer_unet import _batch as _unet_batch
 from test_torch_sphereformer_unet import _models as _unet_models
@@ -361,30 +362,22 @@ def test_unet_remat_step_matches_jax():
         _compare(f"grad {name}", named[name].grad, g, GRAD_RTOL, floor)
 
 
-def _distill_grads(variables, pb, fault=None):
-    """One port stage-2 step with remat from the bridged ``variables``, the
-    masks drawn from GEN_SEED -> (terms, the student's gradients)."""
-    port = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, **GEOMETRY)
-    port.load_state_dict(convert_weights.from_flax(variables["params"],
-                                                   variables["batch_stats"]))
-    opt, _ = distill.make_frozen_teacher_optimizer(port, "sgd_spformer", LR)
-    step = distill.make_distill_train_step(
-        port, opt, S_CAPS, T_CAPS, generator=torch.Generator().manual_seed(GEN_SEED),
-        remat=True)
-    with chip_smoke.planted_remat_fault(fault) if fault else contextlib.nullcontext():
-        terms = {k: v.item() for k, v in step(pb).items()}
-    return terms, {n: p.grad.numpy().copy() for n, p in port.model_s.named_parameters()}
+def _bridged(variables):
+    """The flax ``variables`` as the port's state dict, numpy."""
+    return {k: t.numpy() for k, t in convert_weights.from_flax(
+        variables["params"], variables["batch_stats"]).items()}
 
 
-@pytest.mark.slow
-def test_distill_remat_step_matches_jax():
+def test_distill_remat_step_matches_jax(tmp_path):
     """The port's stage-2 step with remat against JAX's
     ``make_distill_train_step(..., remat=True)`` on its XLA paths, the
     student's dropout and drop path at 0.3 with the port's masks: each loss
     term to LOSS_RTOL, the student's gradients within GRAD_SPREADS times the
     median spread of three one-ulp-nudged port steps (at least GRAD_RTOL),
     test_torch_distill's rule; a remat that does not rewind the generator
-    misses that by FAULT_MARGIN."""
+    misses that by FAULT_MARGIN. The port's five steps (masks drawn from
+    GEN_SEED, one thread) run in a process of ``tests/torch_dp_worker.py``
+    while this one traces and runs the JAX program."""
     from test_torch_distill import _nudged
 
     model = JaxTSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, drop_path_rate=0.3,
@@ -397,7 +390,8 @@ def test_distill_remat_step_matches_jax():
         return model.init(jax.random.PRNGKey(0), sb, spl, tb, tpl, False, True)
 
     variables = _random_variables(jax.eval_shape(init, bj["student"], bj["teacher"]), 13)
-    probe = TSDFull(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, **GEOMETRY)
+    kw = dict(num_classes=NCLS, cr=0.25, cr_t=0.5, pallas_attention=True, **GEOMETRY)
+    probe = TSDFull(**kw)
     probe.load_state_dict(convert_weights.from_flax(variables["params"],
                                                     variables["batch_stats"]))
     pb = _port_batch(raw, probe)
@@ -412,12 +406,19 @@ def test_distill_remat_step_matches_jax():
                                 s_in["fov_mask"],
                                 generator=torch.Generator().manual_seed(GEN_SEED))
     assert len(masks) == 10
+    start = _bridged(variables)
+    port_runs = torch_dp_worker.start("distill_grads", {
+        "model": kw, "lr": LR, "s_caps": S_CAPS, "t_caps": T_CAPS, "seed": GEN_SEED,
+        "remat": True, "batch": pb,
+        "runs": {"reference": (start, None), "fault": (start, "generator"),
+                 **{s: (_bridged(_nudged(variables, s)), None) for s in (1, 2, 3)}}},
+        tmp_path, world=1, timeout=RANK_TIMEOUT_S)
 
     tx = _capturing(jax_distill.make_frozen_teacher_optimizer(
         jax_optim.make_optimizer("sgd_spformer", LR)))
     st = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                               batch_stats=variables["batch_stats"],
-                              opt_state=tx.init(variables["params"]))
+                              opt_state=jax.jit(tx.init)(variables["params"]))
     with jax_draws(masks) as calls:
         st, aux = jax.jit(jax_distill.make_distill_train_step(model, tx, S_CAPS, T_CAPS,
                                                               remat=True))(
@@ -426,15 +427,15 @@ def test_distill_remat_step_matches_jax():
     grads_j = {k: v.numpy() for k, v in convert_weights.from_flax(
         jax.tree_util.tree_map(np.asarray, st.opt_state[1]["model_s"]), {}).items()}
 
-    terms, grads = _distill_grads(variables, pb)
+    port = torch_dp_worker.collect(port_runs)[0]
+    terms, grads = port["reference"]
     for k in TERMS:
         np.testing.assert_allclose(terms[k], float(aux[k]), rtol=LOSS_RTOL, err_msg=k)
     assert sorted(grads) == sorted(grads_j)
-    spreads = [_grad_diff(_distill_grads(_nudged(variables, s), pb)[1], grads)[0]
-               for s in (1, 2, 3)]
+    spreads = [_grad_diff(port[s][1], grads)[0] for s in (1, 2, 3)]
     tol = max(GRAD_RTOL, GRAD_SPREADS * float(np.median(spreads)))
     err, name = _grad_diff(grads, grads_j)
-    fault, fault_name = _grad_diff(_distill_grads(variables, pb, "generator")[1], grads_j)
+    fault, fault_name = _grad_diff(port["fault"][1], grads_j)
     print(f"stage-2 remat gradients against JAX {err:.3g} ({name}) of tol {tol:.3g}; "
           f"generator fault {fault / tol:.3g}x ({fault_name})")
     assert err <= tol, (name, err, tol)

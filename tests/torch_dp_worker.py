@@ -1,13 +1,17 @@
 """One rank of a data-parallel run of the port, for
-``tests/test_torch_parallel*.py`` (on the CPU) and ``tests/test_torch_cuda.py``
-(on the card), which start one process per rank through :func:`spawn`:
+``tests/test_torch_parallel*.py`` and ``tests/test_torch_remat.py`` (on the
+CPU) and ``tests/test_torch_cuda.py`` (on the card), which start one process
+per rank through :func:`spawn`, or through :func:`start` and
+:func:`collect` to work while the ranks run:
 
     python tests/torch_dp_worker.py TASK PORT RANK WORLD IN.pkl OUT.pkl [BACKEND]
 
 The rank joins a group (gloo unless BACKEND says otherwise) at
 ``127.0.0.1:PORT``, reads the task's inputs from ``IN.pkl`` (numpy arrays;
 each rank takes its own scan), runs the task and writes its outputs, as
-numpy, to ``OUT.pkl``. Imports torch and the port only (no JAX).
+numpy, to ``OUT.pkl``. The tasks ``mean_of_scans`` and ``distill_grads``
+run in one process (WORLD 1) and use no group: the JAX comparisons run
+them beside their JAX programs. Imports torch and the port only (no JAX).
 """
 
 import contextlib
@@ -16,6 +20,8 @@ import pickle
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import torch
 
@@ -194,8 +200,63 @@ def task_card_teacher(args, rank, group):
     return {"loss": float(aux["loss"]), "state": _state(model)}
 
 
+def task_mean_of_scans(args, rank=0, group=None):
+    """One process, no group: the stage-2 step on the batch of both scans
+    whose objective is the mean of the two scans' losses
+    (``chip_smoke.mean_of_scans_distill_step``) from the given weights, and
+    from copies of them with every parameter times (1 + 2^-23 N(0, 1))
+    drawn from each seed of ``args["nudges"]`` -> {"reference" or the seed:
+    (the state after the step, its loss)}."""
+    from u2mkd_tpu_torch.models.tsd import TSDFull
+    from u2mkd_tpu_torch.train import distill
+
+    import chip_smoke
+
+    out = {}
+    for tag in ("reference", *args["nudges"]):
+        model = TSDFull(**args["model"])
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in args["state"].items()})
+        if tag != "reference":
+            gen = torch.Generator().manual_seed(tag)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=gen))
+        opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", args["lr"])
+        loss = chip_smoke.mean_of_scans_distill_step(
+            model, opt, tuple(args["s_caps"]), tuple(args["t_caps"]))(args["batch"])["loss"]
+        out[tag] = (_state(model), loss.item())
+    return out
+
+
+def task_distill_grads(args, rank=0, group=None):
+    """One process, no group: a stage-2 train step (``args["remat"]``) on
+    ``args["batch"]`` from each state of ``args["runs"]`` ({tag: (state,
+    fault)}), dropout and drop path drawn from a generator seeded
+    ``args["seed"]``, a run with a ``fault`` under
+    ``chip_smoke.planted_remat_fault(fault)`` -> {tag: (the loss terms, the
+    student's gradients)}."""
+    from u2mkd_tpu_torch.models.tsd import TSDFull
+    from u2mkd_tpu_torch.train import distill
+
+    import chip_smoke
+
+    out = {}
+    for tag, (state, fault) in args["runs"].items():
+        model = TSDFull(**args["model"])
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        opt, _ = distill.make_frozen_teacher_optimizer(model, "sgd_spformer", args["lr"])
+        step = distill.make_distill_train_step(
+            model, opt, tuple(args["s_caps"]), tuple(args["t_caps"]),
+            generator=torch.Generator().manual_seed(args["seed"]), remat=args["remat"])
+        with chip_smoke.planted_remat_fault(fault) if fault else contextlib.nullcontext():
+            terms = {k: v.item() for k, v in step(args["batch"]).items()}
+        out[tag] = (terms, {n: _np(p.grad).copy() for n, p in model.model_s.named_parameters()})
+    return out
+
+
 TASKS = {"bn": task_bn, "teacher": task_teacher, "distill": task_distill,
-         "remat": task_remat, "card_teacher": task_card_teacher, "unet": task_unet}
+         "remat": task_remat, "card_teacher": task_card_teacher, "unet": task_unet,
+         "mean_of_scans": task_mean_of_scans, "distill_grads": task_distill_grads}
 
 
 def free_port():
@@ -204,35 +265,60 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn(task, args, tmp_path, world=2, backend="gloo", timeout=240):
-    """``task`` in ``world`` ranks, processes of this file on a free port,
-    each with ``timeout`` seconds -> each rank's outputs; a rank that fails
-    fails the caller with its output."""
+def start(task, args, tmp_path, world=2, backend="gloo", timeout=240):
+    """Start ``task`` in ``world`` ranks, processes of this file on a free
+    port, and return at once -> a handle for :func:`collect`, which waits
+    for them; the caller may work meanwhile. ``timeout`` seconds count from
+    here."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    inp = os.path.join(str(tmp_path), f"{task}_in.pkl")
-    with open(inp, "wb") as f:
+    fd, inp = tempfile.mkstemp(prefix=f"{task}_", suffix=".pkl", dir=str(tmp_path))
+    with os.fdopen(fd, "wb") as f:
         pickle.dump(args, f)
     port = free_port()
     env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
-    outs = [os.path.join(str(tmp_path), f"{task}_out{r}.pkl") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), task, str(port),
-                               str(r), str(world), inp, outs[r], backend], cwd=repo, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    stem = inp[:-len(".pkl")]
+    outs = [f"{stem}_out{r}.pkl" for r in range(world)]
+    logs = [f"{stem}_log{r}.txt" for r in range(world)]
+    procs = []
+    for r in range(world):
+        # the rank's output goes to a file: a pipe that nobody reads while
+        # the caller works could fill and stop the rank
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), task, str(port), str(r),
+                 str(world), inp, outs[r], backend], cwd=repo, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs, outs, logs, time.monotonic() + timeout
+
+
+def collect(handle):
+    """Wait for the ranks of :func:`start` -> each rank's outputs; a rank
+    that fails or outlives its time fails the caller with its output."""
+    procs, outs, logs, deadline = handle
     try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            log = f.read()
         assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
     res = []
     for out in outs:
         with open(out, "rb") as f:
             res.append(pickle.load(f))
     return res
+
+
+def spawn(task, args, tmp_path, world=2, backend="gloo", timeout=240):
+    """``task`` in ``world`` ranks, processes of this file on a free port,
+    each with ``timeout`` seconds -> each rank's outputs; a rank that fails
+    fails the caller with its output."""
+    return collect(start(task, args, tmp_path, world, backend, timeout))
 
 
 def main():

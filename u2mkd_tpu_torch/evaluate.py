@@ -30,6 +30,7 @@ import argparse
 from typing import Dict
 
 from u2mkd_tpu_torch.core.device import resolve_device
+from u2mkd_tpu_torch.ops import precision
 from u2mkd_tpu_torch.train import builder, checkpoints, distill, evaluator, loop, state
 from u2mkd_tpu_torch.utils import config as config_lib
 
@@ -64,6 +65,7 @@ def main(argv=None) -> Dict:
     device = resolve_device("cpu" if args.cpu else None)
     print(f"device: {device}")
     model = builder.make_model(cfg, device)
+    print(precision.numerics_line())
     model.load_state_dict(checkpoints.load(args.checkpoint)["model"])
     print(f"loaded {args.checkpoint}")
     ncls = cfg.data.num_classes

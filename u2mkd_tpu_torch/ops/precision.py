@@ -9,6 +9,17 @@ numerics-sensitive math (BN statistics, softmax, losses) stays f32.
 Usage: ``set_compute_dtype("bfloat16")`` before running the model (or
 ``precision: bfloat16`` in the config, which ``train/builder.make_model``
 sets in both directions).
+
+TF32. No module of the port sets torch's TF32 flags, so the entry points run
+under torch's defaults. Under ``precision: float32`` that means: cuDNN's
+image convolutions (the SwiftNet branch) run in TF32
+(``torch.backends.cudnn.allow_tf32``, on by default), as the reference
+trains under cuDNN's default on Ampere and later cards; cuBLAS matmuls run in
+IEEE f32 (``torch.backends.cuda.matmul.allow_tf32``, off by default); the
+hand kernels ignore both flags: K1 and K1b multiply f32 in 3xTF32 (f32
+accuracy), K2-K5 in f32. ``chip_smoke.py`` and the tests turn both flags
+off, so that every kernel is held to its plain version in IEEE f32. Each
+entry point prints :func:`numerics_line` beside its ``device:`` line.
 """
 
 from __future__ import annotations
@@ -44,3 +55,13 @@ def round_compute(t: torch.Tensor) -> torch.Tensor:
     compute-dtype product of JAX's with ``preferred_element_type=float32``
     reads, for sums that stay in f32."""
     return cast_compute(t).float()
+
+
+def numerics_line() -> str:
+    """The entry points' start line: the compute policy and both TF32 flags
+    as the process has them, e.g. ``numerics: precision=float32
+    cudnn.allow_tf32=True cuda.matmul.allow_tf32=False``."""
+    name = {v: k for k, v in _BY_NAME.items()}.get(_COMPUTE_DTYPE, str(_COMPUTE_DTYPE))
+    return (f"numerics: precision={name} "
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")

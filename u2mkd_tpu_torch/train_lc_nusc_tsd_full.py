@@ -40,6 +40,7 @@ import argparse
 import torch
 
 from u2mkd_tpu_torch.models import convert_weights
+from u2mkd_tpu_torch.ops import precision
 from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import builder, checkpoints, distill, loop
 from u2mkd_tpu_torch.utils import config as config_lib
@@ -64,6 +65,7 @@ def main(argv=None):
     print(f"device: {device}")
 
     model = builder.make_model(cfg, device, seed, process_group=group)
+    print(precision.numerics_line())
     name, lr, kw = builder.optimizer_spec(cfg, world)
     optimizer, scheduler = distill.make_frozen_teacher_optimizer(model, name, lr, **kw)
     generator = torch.Generator(device=device).manual_seed(seed)

@@ -29,6 +29,7 @@ import argparse
 
 import torch
 
+from u2mkd_tpu_torch.ops import precision
 from u2mkd_tpu_torch.parallel import mesh
 from u2mkd_tpu_torch.train import builder, checkpoints, loop, state
 from u2mkd_tpu_torch.utils import config as config_lib
@@ -54,6 +55,7 @@ def main(argv=None):
     print(f"device: {device}")
 
     model = builder.make_model(cfg, device, seed, process_group=group)
+    print(precision.numerics_line())
     optimizer, scheduler = builder.make_optimizer_and_schedule(cfg, model.named_parameters(),
                                                                world)
     generator = torch.Generator(device=device).manual_seed(seed)
