@@ -125,6 +125,19 @@ from ``u2mkd_tpu_torch/csrc/`` on first use. Phases, one JSON line each:
      requests and one profiled, the image branch's convolutions summed by
      kernel; three stage-2 train steps (five finite loss terms, the teacher
      bitwise frozen); the policy f32 again after the phase;
+13f. bench_parts (runs after 13b): the step-split tools in this process at
+     full width, as their JAX twins run them (``bench_parts.py`` and
+     ``tools/host_pipeline_bench.py``): ``u2mkd_tpu_torch/bench_parts.py``
+     in teacher mode (B=2 x 131072 points: the host build, the conv-only
+     and the teacher train step, the attention by level and branch) and in
+     student mode (65536 points, the 131072-point cr_t=2.0 teacher, 3
+     cameras: the stage-2 step, the student alone, the frozen teacher, the
+     camera-free student), bf16 as the tools run on the card, one warm and
+     10 timed calls a field; ``u2mkd_tpu_torch/host_pipeline_bench.py`` at
+     65536 points, 6 batches, 1, 2 and 4 workers on threads and processes.
+     Each tool's JSON line; its launches, all bf16, held to the counts its
+     calls make; each attention-budget launch held to its plain version at
+     1e-4 before anything is timed; the compute policy f32 again after;
 13c. data_parallel: two ranks (processes of this script, gloo over CUDA
      tensors on the one card) each run the teacher's train step
      (``spformer.yaml``, P=131072) and the stage-2 step
@@ -202,14 +215,14 @@ Phases 14, 16 and 17 run their entry points in subprocesses, in turn, in
 a thread beside phase 13e (the ablation, whose work is subprocesses too),
 so that the command stays inside its time limit: their wall seconds and
 the ablation's include each other. Phase 15 runs after both, alone, on the
-same set, since it times its loop. Every phase but 13b runs in f32, and
+same set, since it times its loop. Every phase but 13b and 13f runs in f32, and
 in IEEE f32: this script turns TF32 off in cuBLAS and cuDNN, so that each
 kernel is held to its plain version in IEEE f32, where the entry points
 (phases 14, 16, 17 and the DP CLI) run under torch's defaults, cuDNN's
 convolutions in TF32 (``ops/precision.py``), and print so; phase 10 times
 one request both ways. ``--phases`` runs named phases alone (bf16, cli,
 student, data_parallel, published_batch, repeatable, ablation,
-ablation_bisect) and prints no result line. Then the command's wall time, a
+ablation_bisect, bench_parts) and prints no result line. Then the command's wall time, a
 ``{"kernels": [...]}`` line (an f32 entry per kernel and a bf16 entry for
 each but K2), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -469,7 +482,7 @@ BF16_TEACHER = ("configs/nuscenes/train/spformer.yaml", (f"dataset.voxel_size={V
 BF16_STUDENT = ("configs/nuscenes/train/spformer_tsd_full_ours_star.yaml", ())
 BF16_LOGIT_RTOL = 0.1
 BF16_PATHS = ("bf16_infer", "bf16_train", "bf16_student", "bf16_student_train", "bf16_unet",
-              "bf16_unet_train")
+              "bf16_unet_train", "split_teacher", "split_student")
 # the image branch's convolutions in a profile, summed: device kernels whose
 # names carry one of these marks (cuDNN's implicit-GEMM, FFT and Winograd
 # convolutions and their helpers), the port's kernels and BN aside
@@ -548,6 +561,24 @@ PUBLISHED_MODEL_SEED = 5
 PUBLISHED_GEN_SEED = 9
 PUBLISHED_STEPS = 3
 REMAT_FAULTS = ("generator", "bn_twice")
+# phase bench_parts: the step-split tools (u2mkd_tpu_torch/bench_parts.py in
+# both modes, host_pipeline_bench.py) at full width, as the JAX tools run
+# them: the teacher at bench.py's teacher_full points (B=2), the student at
+# 65536 points with its 131072-point teacher; one warm call and SPLIT_ITERS
+# timed calls a field, bf16 (the tools' policy on the card); the host tool
+# at its defaults. Launches per call of each field: the conv-only step
+# CONV_ONLY_TRAIN_LAUNCHES, the teacher step TRAIN_LAUNCHES, a budget call
+# one K3, K4 and K5 (8 level-branch cases, each also called once held to
+# its plain version before anything is timed); the stage-2 step
+# STUDENT_TRAIN_LAUNCHES, the student alone (b) the teacher step's, the
+# frozen teacher (c) 34 K1 and 8 K3, the camera-free student (d) the
+# conv-only step's (its stages run no attention).
+SPLIT_TEACHER_P = 131072
+SPLIT_STUDENT_P = 65536
+SPLIT_ITERS = 10
+SPLIT_BUDGET_CASES = 8
+HOST_BENCH = {"points": 65536, "batches": 6, "workers": (1, 2, 4)}
+SPLIT_ATTN_RTOL = 1e-4
 HBM_BYTES_S = 3.35e12
 # max |kernel - plain| <= TOL * max|plain|: f32 sums in another order (K1
 # over 27*Cin terms, K3 over a window's keys); bf16 K1 also rounds its
@@ -5332,6 +5363,88 @@ def phase_published_batch():
     return {"published": launches}
 
 
+def _launch_sum(parts):
+    """{wrapper: launches} of ``parts``, (calls, {wrapper: launches a call})
+    pairs, summed; wrappers of no launch left out."""
+    total = {}
+    for calls, per_call in parts:
+        for name, n in per_call.items():
+            total[name] = total.get(name, 0) + calls * n
+    return {name: n for name, n in total.items() if n}
+
+
+def phase_bench_parts():
+    """Phase bench_parts: the step-split tools in this process at full
+    width (SPLIT_TEACHER_P, SPLIT_STUDENT_P, HOST_BENCH), each one's JSON
+    line as the tool prints it, then a row of its own: its launches by
+    dtype, held to the expected counts, all bf16 (module constants; the
+    timed calls' launches pass through :func:`each_launch_recorded`, so
+    their times include its Python shim); the attention budget's launches
+    held to their plain versions at SPLIT_ATTN_RTOL before anything is
+    timed; the peak memory and wall seconds; and the compute policy, which
+    must be f32 again after each tool. -> the two splits' launches."""
+    import torch
+    from u2mkd_tpu_torch import bench_parts, host_pipeline_bench
+    from u2mkd_tpu_torch.ops import precision
+
+    calls = SPLIT_ITERS + 1
+    attention = {"flash_rpe_fwd": 1, "flash_rpe_bwd_q": 1, "flash_rpe_bwd_k": 1}
+    expected = {
+        "split_teacher": _launch_sum([(calls, CONV_ONLY_TRAIN_LAUNCHES), (calls, TRAIN_LAUNCHES),
+                                      (SPLIT_BUDGET_CASES * (calls + 1), attention)]),
+        "split_student": _launch_sum([(calls, STUDENT_TRAIN_LAUNCHES), (calls, TRAIN_LAUNCHES),
+                                      (calls, STUDENT_LAUNCHES),
+                                      (calls, CONV_ONLY_TRAIN_LAUNCHES)])}
+    launches = {}
+    for path, student, points in (("split_teacher", False, SPLIT_TEACHER_P),
+                                  ("split_student", True, SPLIT_STUDENT_P)):
+        record, held = {}, {}
+        hold = None if student else (lambda: each_launch_recorded(held, hold=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with each_launch_recorded(record):
+            line = bench_parts.split(student, points, DEVICE, SPLIT_ITERS, hold)
+        wall_s = time.perf_counter() - t0
+        emit(line)
+        by_dtype = {n: r["by_dtype"] for n, r in record.items() if r["by_dtype"]}
+        want = {n: {"bfloat16": c} for n, c in expected[path].items()}
+        row = {"phase": path, "points": points, "iters": SPLIT_ITERS,
+               "launches_by_dtype": by_dtype, "expected": want, "wall_s": wall_s,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "policy_after": str(precision.compute_dtype())}
+        if not student:
+            row["budget_held"] = {n: {"by_dtype": r["by_dtype"],
+                                      "max_rel_err": r.get("max_rel_err"),
+                                      "tol_rel": SPLIT_ATTN_RTOL} for n, r in held.items()}
+        emit(row)
+        if by_dtype != want:
+            raise AssertionError(f"{path}: expected {want} launches, all bf16: {by_dtype}")
+        if precision.compute_dtype() != torch.float32:
+            raise AssertionError(f"{path} left the compute policy at {precision.compute_dtype()}")
+        timed = [v for k, v in line.items() if k.endswith("_ms") and "cost" not in k
+                 and "share" not in k]
+        platform = "gpu" if DEVICE == "cuda" else "cpu"
+        if line["platform"] != platform or not all(math.isfinite(t) and t > 0 for t in timed):
+            raise AssertionError(f"{path}: a time is not finite and positive: {line}")
+        if not student:
+            want_held = {n: {"bfloat16": SPLIT_BUDGET_CASES} for n in attention}
+            if {n: r["by_dtype"] for n, r in held.items()} != want_held or any(
+                    not r["max_rel_err"] <= SPLIT_ATTN_RTOL for r in held.values()):
+                raise AssertionError(f"an attention-budget launch disagrees with its plain "
+                                     f"version, or they are not {want_held}: {held}")
+        launches[path] = {n: c["bfloat16"] for n, c in by_dtype.items()}
+        del line
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line = host_pipeline_bench.run(HOST_BENCH["points"], HOST_BENCH["batches"],
+                                   HOST_BENCH["workers"])
+    emit(line)
+    emit({"phase": "split_host", "wall_s": time.perf_counter() - t0,
+          "host_cores": line["host_cores"]})
+    return launches
+
+
 def kernels_line(rows, launches):
     """One entry per port kernel. ``launches`` is its count over the main
     paths that run it, each read from its own run (``launches[path]``: the
@@ -5356,8 +5469,9 @@ def kernels_line(rows, launches):
     its forward and input-gradient launches), split in
     ``launches_by_path``; the other numbers are from its slowest
     main-path-shape row in f32. Then a bf16 entry for each kernel but K2:
-    its bf16 launches on phase bf16's paths (BF16_PATHS), the other numbers
-    from its slowest bf16 main-path row."""
+    its bf16 launches on phase bf16's paths and phase bench_parts' two
+    splits "split_teacher" and "split_student" (BF16_PATHS), the other
+    numbers from its slowest bf16 main-path row."""
     from u2mkd_tpu_torch.ops.kernels import spconv_kernel as S, wattn_kernel as W
 
     def paths(name, *which):
@@ -5471,6 +5585,7 @@ def main():
             {"data_parallel": phase_data_parallel, "ablation": phase_ablation,
              "published_batch": phase_published_batch, "repeatable": phase_repeatable,
              "ablation_bisect": phase_ablation_bisect, "bf16": phase_bf16, "cli": phase_cli,
+             "bench_parts": phase_bench_parts,
              "student": lambda: phase_student(tsd_model(
                  num_classes=NUM_CLASSES, cr=1.0, cr_t=CR_T, voxel_size=STUDENT_VOXEL,
                  head_dim=16, seed=0, device=DEVICE))}[name]()
@@ -5506,6 +5621,7 @@ def main():
         launches["student_train"] = phase_student_train()
         phase_student_grad_check()
         launches.update(phase_bf16())
+        launches.update(phase_bench_parts())
         launches.update(phase_data_parallel(with_cli=False))
         launches.update(phase_published_batch())
         stats, gen_s = make_data_set(root)

@@ -103,10 +103,15 @@ class TSDFull(nn.Module):
         return {k: v.detach() for k, v in t_out.items()}
 
     def lidar_only(self, student_batch: Dict[str, torch.Tensor],
-                   student_plumbing: UNetPlumbing) -> Dict:
-        """The camera-free student path."""
+                   student_plumbing: UNetPlumbing,
+                   generator: Optional[torch.Generator] = None, remat: bool = False) -> Dict:
+        """The camera-free student path (JAX ``lidar_only``): the student's
+        LiDAR branch with each stage's learner in place of the image
+        features. In training mode its dropout draws from ``generator`` (on
+        the features' device), and ``remat`` runs its segments
+        checkpointed, as in :meth:`forward`."""
         return self.model_s(student_batch["feats"], student_plumbing, None, None, None, None,
-                            lidar_only=True)
+                            lidar_only=True, generator=generator, remat=remat)
 
 
 def tsd_model(num_classes: int = 17, cr: float = 1.0, cr_t: float = 2.0,

@@ -1,18 +1,24 @@
-"""Useful matmul FLOPs of the window attention, counted from the host
-window geometry (port of ``u2mkd_tpu/utils/flops.py``).
+"""Matmul FLOPs of the window attention, counted from the host window
+geometry (port of ``u2mkd_tpu/utils/flops.py``).
 
 A profiler cannot tell the work of the model from the work of an
-implementation: a kernel that pads its tiles executes more. These counters
-give the work every implementation of the attention must do, the
-(query, key) pairs within each window, so that a model-FLOPs share reads
-the same whatever runs the attention. Per pair and head they count the
-matmul terms of the JAX package's flash kernels at their segment widths
-``sk``/``sv`` (the forward's two passes, and with ``train`` the two
-backward kernels); the radial lookups are selects, not matmuls, and are
-left out, so the count is a floor. The JAX module's trip counts of its
-kernels' 128-row tiling (``geom_tile``, ``_tile_pairs``,
-``flash_attention_flops``) are a schedule of the TPU kernels, not work of
-the model, and have no counterpart here.
+implementation: a kernel that pads its tiles executes more. The useful
+counters (:func:`flash_attention_useful_flops`) give the work every
+implementation of the attention must do, the (query, key) pairs within each
+window, so that a model-FLOPs share reads the same whatever runs the
+attention. Per pair and head they count the matmul terms of the JAX
+package's flash kernels at their segment widths ``sk``/``sv`` (the
+forward's two passes, and with ``train`` the two backward kernels); the
+radial lookups are selects, not matmuls, and are left out, so the count is
+a floor.
+
+:func:`flash_attention_flops` is the JAX module's executed count: the trips
+of the TPU kernels' loop over 128-row (query tile, key tile) pairs
+(:func:`geom_tile`, :func:`_tile_pairs`), each tile pair charged in full.
+It is a schedule of the TPU kernels, not the work K3-K5 do on the card,
+whose lanes each walk their own window; ``ops/kernels/wattn_kernel.walk_counts``
+counts those lane steps. It is kept so that a step split reports the
+number the JAX tool reports (``bench_parts.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +42,21 @@ def _branch_spec(d: int, g: int, radial: bool) -> Tuple[int, int]:
     wd = (2 if radial else 3) * g
     lr = 2 * g if radial else 0
     return _pad128(d + 2 * wd + 2 * lr), _pad128(d + wd + lr)
+
+
+def geom_tile(geom: Dict[str, np.ndarray]) -> int:
+    """The query tile a geometry was laid out with, as the kernels derive
+    it: the sorted rows over the tiles' key ranges (``len(rank) //
+    len(kmin)``)."""
+    return int(geom["rank"].shape[-1]) // int(geom["kmin"].shape[-1])
+
+
+def _tile_pairs(geom: Dict[str, np.ndarray], tile: int) -> int:
+    """The (query tile, key tile) trips of the TPU kernels' loop over every
+    tile's key range [kmin, kmax)."""
+    kmin = np.asarray(geom["kmin"]).astype(np.int64)
+    kmax = np.asarray(geom["kmax"]).astype(np.int64)
+    return int(((kmax - 1) // tile + 1 - kmin // tile).sum())
 
 
 def level_attn_specs(model) -> List[Tuple[int, int, int, int, int]]:
@@ -102,4 +123,27 @@ def flash_attention_useful_flops(model, plumbing: Dict, train: bool = True) -> f
         for branch, hh, g, radial in (("cubic", h1, g_cub, False), ("sphere", h2, g_sph, True)):
             sk, sv = _branch_spec(d, g, radial)
             total += float(counts[branch][li]) * hh * _per_pair_flops(sk, sv, train)
+    return total
+
+
+def flash_attention_flops(model, plumbing: Dict, train: bool = True) -> float:
+    """Executed matmul FLOPs of the JAX package's flash kernels in one
+    forward (and with ``train`` its backward) of ``model``'s window
+    attention over ``plumbing`` (module docstring): per tile pair and head
+    the forward's two passes 2 T^2 (2 sk + sv), with ``train`` the q-side
+    backward as much again and the k-side 2 T^2 (2 sk + 2 sv). 0.0 without
+    window geometry."""
+    wg = plumbing.get("wgeom")
+    if wg is None:
+        return 0.0
+    total = 0.0
+    for li, (h1, h2, d, g_cub, g_sph) in enumerate(level_attn_specs(model)):
+        for branch, hh, g, radial in (("cubic", h1, g_cub, False), ("sphere", h2, g_sph, True)):
+            geom = wg[branch][li]
+            tile = geom_tile(geom)
+            sk, sv = _branch_spec(d, g, radial)
+            per_pair = 2 * tile * tile * (2 * sk + sv)
+            if train:
+                per_pair += 2 * tile * tile * (2 * sk + sv) + 2 * tile * tile * (2 * sk + 2 * sv)
+            total += float(_tile_pairs(geom, tile)) * hh * per_pair
     return total
