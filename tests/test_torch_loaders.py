@@ -12,9 +12,18 @@ voxels). Thread workers, process workers and no prefetch give identical
 batches. Then the twins of ``tests/test_prefetch.py``, the concurrent TSD
 plumbing stage at capacities the JAX package's stage cannot build, and the
 synthetic loaders, whose batches the pipeline leaves as they were.
+
+The JAX side of each comparison runs on its native library, built into a
+directory of this module's own and loaded before any JAX loader runs
+(``jax_native``): the JAX package builds ``native/libpointcore.so`` in
+place with no lock and, after one failed load, takes its numpy builders for
+the rest of the process, whose ``down8`` differs from the native one at
+level 0 (``test_jax_numpy_fallback_down8_differs_at_level_0``).
 """
 
 import os
+import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -24,6 +33,9 @@ import pytest
 import torch
 
 from u2mkd_tpu.data import loaders as jax_loaders
+from u2mkd_tpu.data import native as jax_native_mod
+from u2mkd_tpu.data import plumbing_host as jax_plumbing_host
+from u2mkd_tpu.data import synthetic as jax_synthetic
 from u2mkd_tpu.data import wgeom_host as jax_wgeom_host
 from u2mkd_tpu.utils import config as jax_config
 
@@ -58,6 +70,34 @@ def mini_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("nusc_mini"))
     generate(root, pts_per_scan=300)
     return root
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native library, built from a copy of ``native/``'s
+    sources in a directory of this module's own and loaded, so that no JAX
+    builder of this module takes the numpy fallback: its directory
+    (``_native_dir``), ``_TRIED`` and ``_LIB`` are set for the module and
+    restored after it. A failed build fails here, with the compiler's
+    output."""
+    src = os.path.join(REPO, "native")
+    d = str(tmp_path_factory.mktemp("jax_native"))
+    for name in ("Makefile", "pointcore.cpp"):
+        shutil.copy2(os.path.join(src, name), d)
+    res = subprocess.run(["make", "-C", d, "libpointcore.so"], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, f"the JAX package's native library did not build:\n" \
+                                f"{res.stdout}\n{res.stderr}"
+    saved = (jax_native_mod._native_dir, jax_native_mod._TRIED, jax_native_mod._LIB)
+    jax_native_mod._native_dir = lambda: d
+    jax_native_mod._TRIED, jax_native_mod._LIB = False, None
+    try:
+        lib = jax_native_mod._load()
+        assert lib is not None and hasattr(lib, "build_plumbing_host"), \
+            f"the JAX package's native library in {d} did not load"
+        yield lib
+    finally:
+        jax_native_mod._native_dir, jax_native_mod._TRIED, jax_native_mod._LIB = saved
 
 
 def _cfgs(path, root, *opts):
@@ -112,7 +152,7 @@ def _compare_streams(ours, ref, params, caps):
         assert_same(got, want, f"batch{b}")
 
 
-def test_make_loaders_match_jax(mini_root):
+def test_make_loaders_match_jax(mini_root, jax_native):
     """Stage 1 (``semantic_nusc``, one past and one future sweep, flip,
     rotate+scale): two shuffled train epochs and a val epoch."""
     cfg, jcfg = _cfgs(STAGE1, mini_root, "workers=2", "model.pallas_attention=true")
@@ -125,7 +165,7 @@ def test_make_loaders_match_jax(mini_root):
         _compare_streams(list(ours()), list(ref()), params, caps)
 
 
-def test_make_distill_loaders_match_jax(mini_root):
+def test_make_distill_loaders_match_jax(mini_root, jax_native):
     """Stage 2 (``lc_semantic_nusc_tsd_full``): the paired feeds, ``t2s``
     and both parts' plumbing over two shuffled train epochs; the val
     batches carry the student's plumbing only (``debug.debug_val`` off)."""
@@ -140,6 +180,35 @@ def test_make_distill_loaders_match_jax(mini_root):
         _compare_streams(list(ours()), list(ref()), params, caps)
     v = next(iter(val()))
     assert "plumbing" in v["student"] and "plumbing" not in v["teacher"]
+
+
+def test_jax_numpy_fallback_down8_differs_at_level_0(jax_native, monkeypatch):
+    """A deviation of the JAX package (ROADMAP section 3): its numpy
+    fallback fills level 0's ``down8`` and the last level's ``parent``,
+    which no conv reads, with -1, where its native builder leaves the zeros
+    it allocated, and its devoxelize weights of levels 2-4 differ from the
+    native ones by an f32 rounding (within 2^-20). Every other array of the
+    two builds is equal, and the port's host plumbing is the native
+    build's, bitwise."""
+    caps = (512, 256, 128, 64, 32)
+    raw = jax_synthetic.make_batch(np.random.RandomState(5), 2, 512, voxel_size=0.1)
+    args = (raw["pcoords"], raw["xyz"], raw["pmask"], caps)
+    native = jax_plumbing_host.batch_plumbing(*args)
+    monkeypatch.setattr(jax_plumbing_host.native, "_load", lambda: None)
+    fallback = jax_plumbing_host.batch_plumbing(*args)
+    ours = plumbing_host.batch_plumbing(*args)
+    unread = {("down8", 0), ("parent", len(caps) - 1)}
+    for k, li in unread:
+        assert (native[k][li] == 0).all() and (fallback[k][li] == -1).all(), (k, li)
+    for k in plumbing_host.KEYS:
+        for li in range(len(caps)):
+            np.testing.assert_array_equal(ours[k][li], native[k][li], err_msg=f"{k}[{li}]")
+            if k == "dvw":
+                np.testing.assert_allclose(fallback[k][li], native[k][li], rtol=0,
+                                           atol=2.0 ** -20, err_msg=f"{k}[{li}]")
+            elif (k, li) not in unread:
+                np.testing.assert_array_equal(fallback[k][li], native[k][li],
+                                              err_msg=f"{k}[{li}]")
 
 
 @pytest.mark.parametrize("opts", [["workers=2"], ["workers=2", "worker_processes=true"],

@@ -54,6 +54,7 @@ class SPVCNNSwiftNetMSP2IFM(nn.Module):
                  process_group=None):
         super().__init__()
         self.cr, self.head_dim = cr, head_dim
+        self.base_channels = tuple(base_channels)
         self.pallas_attention, self.pallas_cubic = pallas_attention, pallas_cubic
         self.num_classes = num_classes
         self.window_size, self.window_size_sphere = tuple(window_size), tuple(window_size_sphere)
