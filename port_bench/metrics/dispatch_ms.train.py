@@ -1,0 +1,8 @@
+"""dispatch_ms.train: median host ms from a call of the train to its return
+(the benchmark's span around the call)."""
+
+from port_bench import readers
+
+
+def read(ctx):
+    return readers.dispatch_ms(ctx, "train")

@@ -1,0 +1,11 @@
+"""spconv_roofline.train: the sparse conv kernels' share of their roofline
+(K1 forward and as dX, K1b): the sum of each launch's least time over the
+profiled time of those kernels, in percent."""
+
+from port_bench import readers
+
+KERNELS = ("rulebook_conv_kernel", "rulebook_conv_dw_kernel", "sum_splits_kernel")
+
+
+def read(ctx):
+    return readers.roofline_share(ctx, "train", "spconv", KERNELS)
